@@ -1,0 +1,113 @@
+"""Bit utilities: the numpy encode-side helpers, and the one rule set for
+32-bit words held in torch tensors.
+
+numpy side (copied from the JAX package's ``core/bits.py``): effective bit
+width, masks and the vectorized bit-stream writer used by the encoders.
+
+torch side: uint32 words are stored as **int32 bit patterns**.
+``torch.uint32`` lacks ``>>``, ``+`` and ``scatter_add_`` on the CPU, so every
+word tensor in the port is ``torch.int32`` and arithmetic that needs unsigned
+semantics widens to int64 first:
+
+* right shifts are logical: :func:`u32` widens to int64 in [0, 2**32), so a
+  following ``>>`` shifts in zeros;
+* prefix sums run in int64 and are masked to 32 bits (:func:`cumsum_u32`),
+  which reproduces the reference's ``cumsum(..., dtype=uint32)`` wrap;
+* bitmap word indices are computed unsigned (in int64) before the
+  ``cand_words - 1`` clamp (:func:`word_index`).
+
+Bit order convention (everywhere): LSB-first within a 32-bit word, words in
+increasing index order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+U32_MASK = 0xFFFFFFFF
+
+# --------------------------------------------------------------------------- #
+# numpy (encode side)
+# --------------------------------------------------------------------------- #
+
+
+def ebw_np(x: np.ndarray) -> np.ndarray:
+    """Effective bit width: minimum bits to represent x in binary. ebw(0) = 0."""
+    x = np.asarray(x, dtype=np.uint64)
+    # log2(x+1) is exact at powers of two in float64, and x+1 <= 2**32 is exact.
+    return np.ceil(np.log2(x.astype(np.float64) + 1.0)).astype(np.int32)
+
+
+def mask_np(bw) -> np.ndarray:
+    """All-ones mask of bw bits as uint32 (bw may be an array; bw=32 handled)."""
+    bw = np.asarray(bw, dtype=np.uint64)
+    return ((np.uint64(1) << bw) - np.uint64(1)).astype(np.uint32)
+
+
+def pack_bits_np(values: np.ndarray, lengths: np.ndarray) -> tuple[np.ndarray, int]:
+    """Concatenate variable-length codes into a uint32 word stream.
+
+    values[i] (< 2**lengths[i], lengths[i] <= 64) is written at bit offset
+    cumsum(lengths)[i-1].  Returns (words: uint32[ceil(total/32)], total_bits).
+    """
+    values = np.asarray(values, dtype=np.uint64)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    if values.size == 0:
+        return np.zeros(0, dtype=np.uint32), 0
+    if lengths.max(initial=0) > 64:
+        raise ValueError("pack_bits_np supports codes up to 64 bits")
+    ends = np.cumsum(lengths)
+    total = int(ends[-1])
+    offs = ends - lengths
+    nw64 = total // 64 + 2  # slack word for the hi-part scatter
+    buf = np.zeros(nw64, dtype=np.uint64)
+    word = (offs >> 6).astype(np.int64)
+    bit = (offs & 63).astype(np.uint64)
+    np.bitwise_or.at(buf, word, values << bit)
+    hi = np.where(bit == 0, np.uint64(0), values >> (np.uint64(64) - bit))
+    np.bitwise_or.at(buf, word + 1, hi)
+    words = buf.view(np.uint32)  # little-endian host assumed (x86/ARM)
+    return words[: (total + 31) // 32].copy(), total
+
+
+# --------------------------------------------------------------------------- #
+# torch words (int32 bit patterns)
+# --------------------------------------------------------------------------- #
+
+
+def from_np(a: np.ndarray, device=None) -> torch.Tensor:
+    """numpy uint32 (or any 32-bit int) array -> int32 bit-pattern tensor."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.itemsize != 4 or a.dtype.kind not in "iu":
+        a = a.astype(np.uint32)
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def to_np(t: torch.Tensor) -> np.ndarray:
+    """int32 bit-pattern tensor (or int64 in [0, 2**32)) -> numpy uint32."""
+    t = t.detach()
+    if t.dtype == torch.int64:
+        t = i32(t)
+    return t.cpu().numpy().view(np.uint32)
+
+
+def u32(t: torch.Tensor) -> torch.Tensor:
+    """Words as int64 values in [0, 2**32): shifts right are then logical."""
+    return t.to(torch.int64) & U32_MASK
+
+
+def i32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values -> their low 32 bits as an int32 bit pattern (mod 2**32)."""
+    t = t & U32_MASK
+    return (t - ((t >> 31) << 32)).to(torch.int32)
+
+
+def cumsum_u32(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Inclusive prefix sum mod 2**32 (int64 result in [0, 2**32))."""
+    return torch.cumsum(u32(t), dim=dim) & U32_MASK
+
+
+def word_index(ids: torch.Tensor, cand_words: int) -> torch.Tensor:
+    """Bitmap word of each docid, unsigned, clamped to ``cand_words - 1``."""
+    return torch.clamp(u32(ids) >> 5, max=cand_words - 1)

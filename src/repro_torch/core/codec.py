@@ -1,0 +1,246 @@
+"""Codec protocol: capability-declaring codecs, the registry the index, the
+device arenas and the tests discover codecs through.
+
+Counterpart of the JAX package's ``core/codec.py``, holding the three codecs
+the inverted index stores: ``group_simple`` (long lists), ``stream_vbyte``
+(lists under 64 postings) and ``dense_bitmap`` (dense blocks).  Any other
+name raises the reference's ``KeyError`` with the nearest-name hint.
+
+A :class:`Codec` provides the host surface
+
+  encode(np.uint32[N]) -> Encoded
+  decode_np(Encoded)   -> np.uint32[N]          (numpy oracle)
+
+and may declare an :class:`ArenaLayout`: N named padded columns
+(:class:`ArenaColumn`) per posting block plus a batched
+``decode_block(*column_slices, *column_lens, n_valid)`` in torch.  Where the
+reference decodes one block under ``vmap``, each slice here is a
+``(P, width)`` int32 tensor and each length a ``(P,)`` tensor, so one call
+decodes a whole work-list.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import difflib
+from typing import Any, Callable, Optional
+
+import numpy as np
+
+from . import dense_bitmap, group_simple, stream_vbyte
+from .encoded import Encoded
+
+# One posting block of the inverted index is at most this many integers; all
+# declared arena widths are padded maxima for a block of this size.
+ARENA_BLOCK = 512
+
+
+def _block_ctrl_default(enc: Encoded) -> np.ndarray:
+    return np.asarray(enc.control).reshape(-1)
+
+
+def _block_data_default(enc: Encoded) -> np.ndarray:
+    return np.asarray(enc.data, np.uint32).reshape(-1)
+
+
+def _supports_default(enc: Encoded) -> bool:
+    return True
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaColumn:
+    """One named padded stream of an :class:`ArenaLayout`.
+
+    name: column role (``"ctrl"``, ``"data"``, ...).
+    width: padded per-block maximum (flat words); slack past a block's own
+        words may hold the *next* block's words, so ``decode_block`` masks
+        everything past the column's dynamic length.
+    extract(enc): pull one encoded block's words for this column (host side,
+        at arena build time).
+    dtype: the numpy dtype the column's words are extracted as; on the device
+        every column is held as int32 bit patterns.
+    """
+
+    name: str
+    width: int
+    extract: Callable[[Encoded], np.ndarray] = _block_data_default
+    dtype: Any = np.uint32
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaLayout:
+    """Fixed-shape device-arena contract for one posting block.
+
+    columns: the declared :class:`ArenaColumn` streams, in ``decode_block``
+        argument order.
+    out_width: static length of ``decode_block``'s rows (zero-padded past
+        ``n_valid``).
+    decode_block(*column_slices, *column_lens, n_valid) -> (P, out_width)
+        int32 words; slices are ``(P, width)``, lengths and ``n_valid`` are
+        ``(P,)``.
+    supports(enc): per-block eligibility for this layout.
+    max_n: largest block the widths are sized for (the index block size).
+    bitmap_words / is_bitmap: a layout whose blocks may be raw docid bitmaps
+        declares the window size (words) and a per-block predicate; the arena
+        then also stages those blocks for the word-parallel rounds.
+    """
+
+    columns: tuple
+    out_width: int
+    decode_block: Callable[..., Any]
+    supports: Callable[[Encoded], bool] = _supports_default
+    max_n: int = ARENA_BLOCK
+    bitmap_words: int = 0
+    is_bitmap: Optional[Callable[[Encoded], bool]] = None
+
+    @classmethod
+    def two_column(cls, ctrl_width: int, data_width: int, out_width: int,
+                   decode_block: Callable[..., Any],
+                   block_ctrl: Callable[[Encoded], np.ndarray] = _block_ctrl_default,
+                   block_data: Callable[[Encoded], np.ndarray] = _block_data_default,
+                   supports: Callable[[Encoded], bool] = _supports_default,
+                   ctrl_dtype: Any = np.int32,
+                   max_n: int = ARENA_BLOCK) -> "ArenaLayout":
+        """The (ctrl, data) form: ``decode_block`` keeps the
+        ``(ctrl, data, ctrl_len, n_valid)`` signature."""
+        return cls(
+            columns=(ArenaColumn("ctrl", ctrl_width, block_ctrl, ctrl_dtype),
+                     ArenaColumn("data", data_width, block_data, np.uint32)),
+            out_width=out_width,
+            decode_block=_adapt_two_column(decode_block),
+            supports=supports, max_n=max_n)
+
+    @property
+    def ctrl_width(self) -> int:
+        return self.columns[0].width
+
+    @property
+    def data_width(self) -> int:
+        return self.columns[1].width
+
+    @property
+    def ctrl_dtype(self) -> Any:
+        return self.columns[0].dtype
+
+    @property
+    def block_ctrl(self) -> Callable[[Encoded], np.ndarray]:
+        return self.columns[0].extract
+
+    @property
+    def block_data(self) -> Callable[[Encoded], np.ndarray]:
+        return self.columns[1].extract
+
+
+def _adapt_two_column(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """Bind a ``(ctrl, data, ctrl_len, n_valid)`` decoder to the generic
+    N-column ``(*slices, *lens, n_valid)`` contract."""
+
+    def decode(ctrl, data, ctrl_len, data_len, n_valid):
+        return fn(ctrl, data, ctrl_len, n_valid)
+
+    return decode
+
+
+@dataclasses.dataclass(frozen=True)
+class Codec:
+    """A registered codec: required host surface + declared capabilities."""
+
+    name: str
+    category: str                  # bit | byte | word | frame
+    encode: Callable[[np.ndarray], Encoded]
+    decode_np: Callable[[Encoded], np.ndarray]
+    max_bits: int = 32             # values above 2**max_bits-1 unsupported
+    is_group: bool = False         # uses the paper's Group approach
+    arena: Optional[ArenaLayout] = None
+
+    @property
+    def decode(self) -> Callable[[Encoded], np.ndarray]:
+        return self.decode_np
+
+
+REGISTRY: dict[str, Codec] = {}
+
+
+def register(spec: Codec) -> Codec:
+    REGISTRY[spec.name] = spec
+    return spec
+
+
+def get(name: str) -> Codec:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        known = names()
+        near = difflib.get_close_matches(str(name), known, n=1)
+        hint = f" (did you mean {near[0]!r}?)" if near else ""
+        raise KeyError(
+            f"unknown codec {name!r}{hint}; registered codecs: {', '.join(known)}"
+        ) from None
+
+
+def names(category: str | None = None, group_only: bool = False) -> list[str]:
+    """Registered codec names, deterministically sorted."""
+    return sorted(
+        k for k, s in REGISTRY.items()
+        if (category is None or s.category == category)
+        and (not group_only or s.is_group)
+    )
+
+
+# --------------------------------------------------------------------------- #
+# arena layouts of the three registered codecs
+# --------------------------------------------------------------------------- #
+
+_GS_PMAX = ARENA_BLOCK // 4            # max Group-Simple vectors per block
+
+
+def _gs_block_ctrl(enc: Encoded) -> np.ndarray:
+    return np.asarray(enc.meta["sels"], np.int32)
+
+
+def _gs_decode_block(ctrl, data, ctrl_len, n_valid):
+    return group_simple.decode_arena_block(
+        ctrl, data.reshape(data.shape[0], -1, 4), ctrl_len, n_valid)
+
+
+_GS_ARENA = ArenaLayout.two_column(
+    ctrl_width=_GS_PMAX, data_width=4 * _GS_PMAX, out_width=ARENA_BLOCK,
+    decode_block=_gs_decode_block, block_ctrl=_gs_block_ctrl)
+
+
+def _svb_block_data(enc: Encoded) -> np.ndarray:
+    # payload bytes widened to one word each
+    return np.asarray(enc.data, np.uint32)
+
+
+_SVB_ARENA = ArenaLayout.two_column(
+    ctrl_width=ARENA_BLOCK // 4,               # one control byte per quadruple
+    data_width=4 * ARENA_BLOCK + 4,            # worst-case payload + gather slack
+    out_width=ARENA_BLOCK,
+    decode_block=stream_vbyte.decode_arena_block,
+    block_ctrl=_block_ctrl_default,            # control bytes, one per word
+    block_data=_svb_block_data,
+    ctrl_dtype=np.uint32)
+
+
+def _dense_block_ctrl(enc: Encoded) -> np.ndarray:
+    return np.asarray(enc.control, np.uint32).reshape(-1)
+
+
+# dense-bitmap blocks: ctrl = [fmt, base]; bitmap format stores exactly the
+# 128 window words, the raw fallback stores up to ARENA_BLOCK verbatim values
+_DENSE_ARENA = ArenaLayout(
+    columns=(ArenaColumn("ctrl", 2, _dense_block_ctrl, np.uint32),
+             ArenaColumn("data", ARENA_BLOCK)),
+    out_width=ARENA_BLOCK,
+    decode_block=dense_bitmap.decode_arena_block,
+    bitmap_words=dense_bitmap.WINDOW_WORDS,
+    is_bitmap=dense_bitmap.is_bitmap)
+
+
+register(Codec("stream_vbyte", "byte", stream_vbyte.encode,
+               stream_vbyte.decode_np, arena=_SVB_ARENA))
+register(Codec("group_simple", "word", group_simple.encode,
+               group_simple.decode_np, is_group=True, arena=_GS_ARENA))
+register(Codec("dense_bitmap", "word", dense_bitmap.encode,
+               dense_bitmap.decode_np, arena=_DENSE_ARENA))

@@ -1,0 +1,879 @@
+"""Batched query engine, AND part: fused decode-and-intersect over the
+compressed index on the host, and device-resident AND rounds on the card.
+
+Counterpart of the JAX package's ``index/engine.py`` for mode ``and``:
+
+  1. **Host placement**: AND queries walk the rarest term first; for every
+     other term the skip table prunes blocks before any decode, the kept
+     blocks decode into a (term, block) LRU (``BlockCache``) and intersect
+     with ``kernels/intersect``.
+  2. **Device placement** (``to_device()``): the compressed blocks live in
+     ``DeviceArena`` tensors.  Per AND round the engine dedupes the whole
+     batch's (term, block) work-list and decodes it in one batched torch call
+     per codec; the per-query candidate sets live in one segmented bitmap
+     on the card across rounds, block selection uses only static skip
+     metadata, and the one candidate download is the final result.
+  3. **Fused placement** (``to_device(fused=True)``): rounds >= 1 run the
+     CUDA kernel B1 (unpack + prefix sum + per-query probe) over the packed
+     gap tiles, and every round's survivors go through kernel B2.
+
+``engine.plan(batch)`` resolves placement and per-term codec capabilities
+once; ``engine.execute(plan)`` follows the plan.  Entry points run on the
+card: ``to_device(torch_device="cuda")`` raises without one, and the CPU is
+used only when asked for by name (``torch_device="cpu"``).
+
+Not yet ported, raising ``NotImplementedError`` with their ``ROADMAP.md``
+step: the ranked modes ``or`` / ``and_scored`` (A.6), plans on a mutated
+index (A.7) and doc-range sharded serving (A.10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import difflib
+import itertools
+import warnings
+from collections import OrderedDict
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..core import codec as codec_lib
+from ..core.bits import to_np
+from ..kernels import intersect, intersect_rounds
+from ..obs.metrics import DevStatsView, MetricsRegistry
+from ..obs.trace import get_tracer
+from .device import _to_device, resolve_device
+from .invindex import InvertedIndex
+from .scores import B, K1  # noqa: F401  (re-export, as the reference does)
+
+# plan-time auto-placement: batches of at most this many queries are planned
+# onto the host even when arenas exist.  The reference derives a measured
+# crossover from its committed CPU baseline; the port has no baseline of its
+# own yet, so the static rule decides (see ``CrossoverTable``).
+HOST_BATCH_MAX = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossoverTable:
+    """Host-vs-device placement crossover derived from measured qps curves.
+
+    ``host_batch_max``: batches of at most this many queries are
+    auto-placed on the host; None means no true crossing was measured and
+    the static ``HOST_BATCH_MAX`` rule applies.  The port never reads the
+    JAX package's baseline: :func:`get_crossover` is None until a caller
+    installs a table with :func:`set_crossover`."""
+    host_batch_max: Optional[int]
+    sizes: tuple = ()
+    source: str = ""
+    mode_cuts: tuple = ()       # ((mode, cut_or_None), ...) measured cells
+
+    def cut_for(self, mode: str) -> Optional[int]:
+        for m, c in self.mode_cuts:
+            if m == mode:
+                return c
+        return self.host_batch_max
+
+
+_crossover: Optional[CrossoverTable] = None
+
+
+def get_crossover() -> Optional[CrossoverTable]:
+    """The installed placement crossover table (None: static rule)."""
+    return _crossover
+
+
+def set_crossover(table: Optional[CrossoverTable] = None) -> None:
+    """Install (or, with None, drop) a crossover table."""
+    global _crossover
+    _crossover = table
+
+
+_EMPTY_U32 = np.zeros(0, np.uint32)
+_EMPTY_U32.setflags(write=False)
+
+# stacked-work-list memo entries kept per engine (each holds a round's
+# gathered device tensors; hot repeated batches skip the restacking)
+_ROUND_CACHE = 32
+
+
+class BlockCache:
+    """Cost-weighted LRU cache keyed by (term, block) for decoded postings.
+
+    ``capacity`` is in cost units; a decoded 512-posting block costs 1 and
+    whole-term concatenations pass their block count as ``cost``.
+    Capacity 0 disables caching entirely (every lookup misses).
+    """
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self._d: OrderedDict = OrderedDict()
+        self._cost: dict = {}
+        self.cost_used = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get(self, key):
+        v = self._d.get(key)
+        if v is None:
+            self.misses += 1
+            return None
+        self._d.move_to_end(key)
+        self.hits += 1
+        return v
+
+    def contains(self, key) -> bool:
+        """Membership probe that touches neither the LRU order nor the stats
+        (used by the device prefetch planner)."""
+        return key in self._d
+
+    def keys(self):
+        return list(self._d.keys())
+
+    def put(self, key, value, cost: int = 1) -> None:
+        if self.capacity <= 0:
+            return
+        if key in self._d:
+            self.cost_used -= self._cost[key]
+            del self._d[key]
+        self._d[key] = value
+        self._cost[key] = cost
+        self.cost_used += cost
+        while self.cost_used > self.capacity and self._d:
+            k, _ = self._d.popitem(last=False)
+            self.cost_used -= self._cost.pop(k)
+            self.evictions += 1
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def stats(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions, "entries": len(self._d),
+                "cost_used": self.cost_used}
+
+
+@dataclasses.dataclass
+class QueryBatch:
+    """A batch of term queries executed together for cache locality.
+
+    mode: "and" (docid arrays); "or" and "and_scored" (BM25 top-k) are the
+    ranked modes, still to be ported.
+    """
+    queries: list
+    mode: str = "and"
+    k: int = 10
+
+
+MODES = ("and", "or", "and_scored")
+PLACEMENTS = ("host", "device", "fused")
+
+
+def _check_mode(mode) -> None:
+    """Reject unknown batch modes with the nearest-name convention, and the
+    ranked modes with the step that ports them."""
+    if mode == "and":
+        return
+    if mode in MODES:
+        raise NotImplementedError(
+            f"mode {mode!r} belongs to the ranked slice, not yet ported "
+            "(ROADMAP.md, step A.6); this port serves mode 'and'")
+    near = difflib.get_close_matches(str(mode), MODES, n=1)
+    hint = f" (did you mean {near[0]!r}?)" if near else ""
+    raise ValueError(
+        f"unknown query mode {mode!r}{hint}; modes: {', '.join(MODES)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TermCaps:
+    """One term's execution capabilities, resolved once at plan time from
+    the codec registry's declarations.
+
+    codec: the codec of the term's posting blocks.
+    arena: the codec declares an ``ArenaLayout``.
+    fused: the arena's fused decode+AND tiles cover every block of the term.
+    """
+    codec: Optional[str]
+    arena: bool
+    fused: bool
+
+
+class _ExecCtx:
+    """The frozen serving view a query (or a pinned plan) executes against:
+    one immutable generation.  Mutation epochs (tombstones, a delta segment)
+    are not yet served by the port (``ROADMAP.md``, step A.7)."""
+    __slots__ = ("gen", "n_docs", "skey")
+
+    def __init__(self, idx):
+        if getattr(idx, "mutated", False):
+            raise NotImplementedError(
+                "serving a mutated index (tombstones / delta segment) is not "
+                "yet ported (ROADMAP.md, step A.7); compact() it first")
+        gen = getattr(idx, "gen", idx)
+        self.gen = gen
+        self.n_docs = gen.n_docs
+        self.skey = (gen.gid, 0, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """A typed, resolved execution of one ``QueryBatch``.
+
+    placement: "host", "device" (round-batched arena decode with
+        device-resident candidates) or "fused" (device + kernels B1/B2).
+        Tiny batches (<= ``HOST_BATCH_MAX`` queries) are auto-placed on the
+        host; ``note`` records that decision.
+    terms: per distinct known term, its :class:`TermCaps`.
+    ctx: the pinned :class:`_ExecCtx` (the generation this plan serves).
+    """
+    mode: str
+    k: int
+    placement: str
+    queries: tuple
+    terms: Mapping[int, TermCaps]
+    note: str = ""
+    ctx: object = dataclasses.field(default=None, repr=False, compare=False)
+
+
+# per-engine counter taxonomy, the reference's names and meanings
+_DEV_COUNTERS = (
+    ("worklist_refs", "raw (term, block) work-list references, pre-dedup"),
+    ("worklist_decodes", "deduped batched arena decodes actually issued"),
+    ("fallback_decodes", "per-block arena decodes outside the work-list"),
+    ("resident_rounds", "AND rounds run with candidates device-resident"),
+    ("cand_syncs", "per-round candidate downloads (0 on resident paths)"),
+    ("final_syncs", "end-of-batch result downloads (one per batch)"),
+    ("blocks_dense", "entries served from the dense-bitmap representation"),
+)
+_ENGINE_SEQ = itertools.count()
+
+
+class QueryEngine:
+    def __init__(self, idx: InvertedIndex, cache_blocks: int = 4096,
+                 cache_score_terms: int = 512, device: bool = False,
+                 fused: bool = False):
+        self.idx = idx
+        self.cache = BlockCache(cache_blocks)
+        self.score_cache = BlockCache(cache_score_terms)
+        self.arena = None
+        self.torch_device = None     # set by to_device()
+        self._fused = fused
+        self._ctx = None           # pinned ctx while executing a plan
+        self._ctx_cache = None     # (epoch, _ExecCtx) for the live handle
+        self.metrics = MetricsRegistry(
+            namespace="repro_torch_index",
+            const_labels={"engine": f"q{next(_ENGINE_SEQ)}", "shard": ""})
+        for mname, mhelp in _DEV_COUNTERS:
+            self.metrics.counter(mname, mhelp)
+        self.dev_stats = DevStatsView(self.metrics,
+                                      tuple(n for n, _ in _DEV_COUNTERS))
+        self.tracer = get_tracer()   # process-global; disabled by default
+        self.trace_lane = "engine"
+        # (gid, kind, work-list) -> the round's gathered device tensors
+        self._round_cache: OrderedDict = OrderedDict()
+        if device or fused:
+            warnings.warn(
+                "QueryEngine(device=..., fused=...) is deprecated; use "
+                "QueryEngine(idx).to_device(fused=...) and execute plans "
+                "(engine.execute(engine.plan(batch)))",
+                DeprecationWarning, stacklevel=2)
+        if device:
+            self.to_device(fused=fused)
+
+    # ---- serving view -------------------------------------------------------- #
+
+    def _ctx_now(self) -> _ExecCtx:
+        e = getattr(self.idx, "epoch", None)
+        c = self._ctx_cache
+        if c is None or c[0] != e:
+            self._ctx_cache = c = (e, _ExecCtx(self.idx))
+        return c[1]
+
+    def _cur(self) -> _ExecCtx:
+        """The plan-pinned ctx inside ``execute``, else the live one (walking
+        ``self.arena`` forward to the current generation after a
+        compaction swap)."""
+        if self._ctx is not None:
+            return self._ctx
+        ctx = self._ctx_now()
+        if (self.arena is not None
+                and getattr(self.arena.idx, "gen", self.arena.idx)
+                is not ctx.gen):
+            self.arena = ctx.gen.to_device(build_fused=self._fused,
+                                           device=self.torch_device)
+        return ctx
+
+    def _arena_ctx(self, ctx: _ExecCtx):
+        a = self.arena
+        if a is not None and getattr(a.idx, "gen", a.idx) is ctx.gen:
+            return a
+        return ctx.gen.to_device(build_fused=self._fused,
+                                 device=self.torch_device)
+
+    def to_device(self, fused=None, shards=None, mesh=None, bounds=None,
+                  torch_device="cuda") -> "QueryEngine":
+        """Switch the engine onto device-resident arenas on ``torch_device``
+        (the card unless the caller names the CPU; ``"cuda"`` without a card
+        raises).  ``fused`` additionally routes AND rounds through the fused
+        decode+probe kernel; its tile arenas are built only when requested.
+        Sharded serving (``shards`` / ``mesh`` / ``bounds``) is not yet
+        ported."""
+        if shards is not None or bounds is not None or mesh is not None:
+            raise NotImplementedError(
+                "doc-range sharded serving is not yet ported (ROADMAP.md, "
+                "step A.10)")
+        dev = resolve_device(torch_device)
+        if self.torch_device is not None and dev != self.torch_device:
+            # cached device rows and stacked rounds live on the old device
+            self.cache = BlockCache(self.cache.capacity)
+            self._round_cache.clear()
+        self.torch_device = dev
+        if fused is not None:
+            self._fused = fused
+        self._ctx_now()                      # a mutated index raises here
+        self.arena = self.idx.to_device(build_fused=self._fused, device=dev)
+        return self
+
+    # ---- decode through the cache ------------------------------------------ #
+    # Block entries are keyed (term, block, field, gid) with field 0 = docids,
+    # 1 = TFs and 2 = a docid row resident on the device; whole-term
+    # concatenations are (term, -1, field, gid) at cost = block count.  Every
+    # cached host array is frozen read-only before insertion.
+
+    @staticmethod
+    def _freeze(a: np.ndarray) -> np.ndarray:
+        a.setflags(write=False)
+        return a
+
+    def _decode_block_field(self, t: int, bi: int, field: int) -> np.ndarray:
+        ctx = self._cur()
+        key = (t, bi, field, ctx.gen.gid)
+        v = self.cache.get(key)
+        if v is None:
+            if self.arena is not None:
+                # cache-eviction stragglers outside the batched work-list
+                self.metrics.inc("fallback_decodes")
+                v = self._arena_ctx(ctx).decode_blocks([(t, bi, field)])[0]
+            elif field == 0:
+                v = ctx.gen.decode_block_ids(t, bi)
+            else:
+                v = ctx.gen.decode_block_tfs(t, bi)
+            v = self._freeze(v)
+            self.cache.put(key, v)
+        return v
+
+    def decode_block_ids(self, t: int, bi: int) -> np.ndarray:
+        return self._decode_block_field(t, bi, 0)
+
+    def decode_block_tfs(self, t: int, bi: int) -> np.ndarray:
+        return self._decode_block_field(t, bi, 1)
+
+    def decode_block(self, t: int, bi: int):
+        return self.decode_block_ids(t, bi), self.decode_block_tfs(t, bi)
+
+    def _term_concat(self, t: int, field: int, decode_one) -> np.ndarray:
+        ctx = self._cur()
+        key = (t, -1, field, ctx.gen.gid)
+        v = self.cache.get(key)
+        if v is None:
+            nb = ctx.gen.n_blocks(t)
+            if nb == 0:
+                return _EMPTY_U32
+            if self.arena is not None:
+                self._prefetch_blocks([(t, bi, field) for bi in range(nb)])
+            parts = [decode_one(t, bi) for bi in range(nb)]
+            v = self._freeze(parts[0] if nb == 1 else np.concatenate(parts))
+            self.cache.put(key, v, cost=nb)
+        return v
+
+    def _prefetch_blocks(self, entries: list) -> None:
+        """Dedupe a (term, block, field) work-list against the cache and
+        decode the misses in one batched arena call."""
+        ctx = self._cur()
+        gid = ctx.gen.gid
+        missing, seen = [], set()
+        for e in entries:
+            if e in seen or self.cache.contains(e + (gid,)):
+                continue
+            seen.add(e)
+            missing.append(e)
+        self.metrics.inc("worklist_decodes", len(missing))
+        if not missing:
+            return
+        arena = self._arena_ctx(ctx)
+        for e, a in zip(missing, arena.decode_blocks(missing)):
+            self.cache.put(e + (gid,), self._freeze(a))
+
+    def _prefetch_terms(self, terms, fields=(0, 1)) -> None:
+        ctx = self._cur()
+        entries = []
+        for t in terms:
+            if t not in ctx.gen.terms:
+                continue
+            nb = ctx.gen.n_blocks(t)
+            for f in fields:
+                if not self.cache.contains((t, -1, f, ctx.gen.gid)):
+                    entries.extend((t, bi, f) for bi in range(nb))
+        self._prefetch_blocks(entries)
+
+    def term_ids(self, t: int) -> np.ndarray:
+        return self._term_concat(t, 0, self.decode_block_ids)
+
+    def term_tfs(self, t: int) -> np.ndarray:
+        return self._term_concat(t, 1, self.decode_block_tfs)
+
+    def term_postings(self, t: int):
+        return self.term_ids(t), self.term_tfs(t)
+
+    # ---- fused decode-and-intersect (host candidates) ----------------------- #
+
+    def _block_plan(self, t: int, cand: np.ndarray):
+        """Skip-table pruning: candidate cut points per block of term t and
+        the indices of blocks whose docid range contains a candidate."""
+        gen = self._cur().gen
+        firsts = gen.block_firsts(t).astype(cand.dtype)
+        cut = np.empty(len(firsts) + 1, np.int64)
+        cut[:-1] = np.searchsorted(cand, firsts)
+        cut[-1] = len(cand)
+        return cut, np.flatnonzero(cut[1:] > cut[:-1])
+
+    def _term_fused(self, t: int, sel) -> bool:
+        return (self._fused and self.arena is not None
+                and self.arena.has_fused(t, sel))
+
+    def _intersect_plan(self, t: int, cut: np.ndarray, sel: np.ndarray,
+                        cand: np.ndarray, fused: bool | None = None) -> np.ndarray:
+        if len(sel) == 0:
+            return np.zeros(0, np.uint32)
+        if self._term_fused(t, sel) if fused is None else fused:
+            return self.arena.fused_and(t, sel, cand)
+        out = [intersect.intersect_sorted(self.decode_block_ids(t, int(bi)),
+                                          cand[cut[bi]:cut[bi + 1]])
+               for bi in sel]
+        return np.concatenate(out)
+
+    def _intersect_term(self, t: int, cand: np.ndarray) -> np.ndarray:
+        cut, sel = self._block_plan(t, cand)
+        return self._intersect_plan(t, cut, sel, cand)
+
+    def and_many(self, queries: list,
+                 terms: Mapping[int, TermCaps] | None = None) -> list:
+        """AND all queries together, round-batched for the device arenas:
+        the legacy loop that syncs every query's candidates to the host
+        between rounds (planned execution runs ``_and_many_resident``).
+        Under ``to_device(fused=True)`` each term's blocks intersect through
+        kernel B5.  Results are bit-identical to ``and_query`` per query."""
+        def term_fused(t, sel):
+            return (terms[t].fused if terms is not None
+                    else self._term_fused(t, sel))
+
+        gen = self._cur().gen
+        qterms = [sorted((t for t in q if t in gen.terms),
+                         key=lambda t: gen.terms[t].df) for q in queries]
+        for ts in qterms:
+            if ts:
+                self.metrics.inc("worklist_refs", gen.n_blocks(ts[0]))
+        if self.arena is not None:
+            self._prefetch_terms({ts[0] for ts in qterms if ts}, fields=(0,))
+        cands = [self.term_ids(ts[0]) if ts else _EMPTY_U32 for ts in qterms]
+        owned = [False] * len(queries)
+        r = 1
+        while True:
+            active = [i for i, ts in enumerate(qterms)
+                      if len(ts) > r and len(cands[i])]
+            if not active:
+                break
+            plans, worklist = {}, []
+            for i in active:
+                t = qterms[i][r]
+                cut, sel = self._block_plan(t, cands[i])
+                fused = term_fused(t, sel)
+                plans[i] = (t, cut, sel, fused)
+                self.metrics.inc("worklist_refs", len(sel))
+                if self.arena is not None and not fused:
+                    worklist.extend((t, int(bi), 0) for bi in sel)
+            if self.arena is not None:
+                self._prefetch_blocks(worklist)
+            for i in active:
+                t, cut, sel, fused = plans[i]
+                cands[i] = self._intersect_plan(t, cut, sel, cands[i], fused)
+                owned[i] = True
+            if self.arena is not None:
+                self.metrics.inc("cand_syncs", len(active))
+            r += 1
+        return [c if o else c.copy() for c, o in zip(cands, owned)]
+
+    # ---- device-resident AND rounds ---------------------------------------- #
+
+    def _select_blocks_static(self, t: int, cov_f: np.ndarray,
+                              cov_l: np.ndarray) -> np.ndarray:
+        """Blocks of term t whose [first, last] docid range overlaps any of
+        the seed coverage intervals, from build-time skip metadata only."""
+        gen = self._cur().gen
+        f = gen.block_firsts(t)
+        l = gen.block_lasts(t)
+        j = np.searchsorted(cov_l, f)            # first interval ending >= f
+        hit = j < len(cov_l)
+        jc = np.minimum(j, max(len(cov_f) - 1, 0))
+        return np.flatnonzero(hit & (cov_f[jc] <= l))
+
+    def _round_rows(self, entries: list) -> dict:
+        """Dedupe a round's (term, block) docid work-list against the cache
+        and decode the misses in one device-resident arena call; returns
+        {(t, bi): (padded_device_row, n)} for every entry."""
+        ctx = self._cur()
+        gid = ctx.gen.gid
+        out: dict = {}
+        missing: list = []
+        for e in entries:
+            if e in out:
+                continue
+            v = self.cache.get((e[0], e[1], 2, gid))
+            if v is None:
+                out[e] = None
+                missing.append(e)
+            else:
+                out[e] = v
+        self.metrics.inc("worklist_decodes", len(missing))
+        if missing:
+            rows, ns = self._arena_ctx(ctx).decode_blocks_device(missing)
+            for e, row, n in zip(missing, rows, ns):
+                out[e] = (row, n)
+                self.cache.put((e[0], e[1], 2, gid), (row, n))
+        return out
+
+    def _round_memo(self, key, build):
+        """Bounded memo for a round's stacked device tensors: identical
+        work-lists reuse the gathered rows.  Keys carry the gid."""
+        v = self._round_cache.get(key)
+        if v is None:
+            v = build()
+            self._round_cache[key] = v
+            while len(self._round_cache) > _ROUND_CACHE:
+                self._round_cache.popitem(last=False)
+        else:
+            self._round_cache.move_to_end(key)
+        return v
+
+    def _stack_worklist(self, entries: list):
+        """Dedupe a round's (qslot, term, block) entries, decode the unique
+        (term, block) rows once and fan them out with one device gather.
+        Returns (rows, qslots, ns), one row per entry."""
+        key = (self._cur().gen.gid, "ids", tuple(entries))
+        return self._round_memo(key,
+                                lambda: self._stack_worklist_build(entries))
+
+    def _stack_worklist_build(self, entries: list):
+        pairs = [(t, bi) for _, t, bi in entries]
+        rows = self._round_rows(pairs)
+        ent_row = {e: j for j, e in enumerate(rows)}
+        mat = torch.stack([rows[e][0] for e in rows])
+        sel = np.asarray([ent_row[e] for e in pairs], np.int64)
+        qs = np.asarray([q for q, _, _ in entries], np.int32)
+        ns = np.asarray([rows[e][1] for e in pairs], np.int32)
+        return mat[torch.as_tensor(sel, device=mat.device)], qs, ns
+
+    def _stack_dense(self, entries: list):
+        """Gather a round's dense-bitmap work-list: the entries' 128-word
+        posting windows in one device gather.  Returns (words, qslots, w0,
+        act) device tensors, every entry active."""
+        ctx = self._cur()
+        ar = self._arena_ctx(ctx)
+        dev = ar.device
+        blocks = tuple((t, bi) for _, t, bi in entries)
+
+        def build():
+            sel = np.asarray([ar.dense_slot[b] for b in blocks], np.int64)
+            words = ar.dense_words[torch.as_tensor(sel, device=dev)]
+            return words, torch.as_tensor(ar.dense_w0[sel], device=dev)
+
+        words, w0 = self._round_memo((ctx.gen.gid, "dense", blocks), build)
+        qs = np.asarray([q for q, _, _ in entries], np.int32)
+        return (words, torch.as_tensor(qs, device=dev), w0,
+                torch.ones(len(entries), dtype=torch.bool, device=dev))
+
+    def _and_qterms(self, queries: list, ctx: _ExecCtx) -> list:
+        """Per-query known terms sorted rarest-first (df ascending)."""
+        idx = ctx.gen
+        return [sorted((t for t in q if t in idx.terms),
+                       key=lambda t: idx.terms[t].df) for q in queries]
+
+    def _and_many_resident(self, queries: list,
+                           terms: Mapping[int, TermCaps] | None = None,
+                           use_fused: bool = False,
+                           qterms: list | None = None) -> list:
+        """AND the batch device-resident; the single host copy turns the
+        final bitmaps into sorted docid arrays."""
+        bm, _, _ = self._and_bitmap_resident(queries, terms, use_fused,
+                                             qterms=qterms)
+        self.metrics.inc("final_syncs")
+        return intersect_rounds.extract_ids(to_np(bm),
+                                            self._cur().gen.n_docs)
+
+    def _and_bitmap_resident(self, queries: list,
+                             terms: Mapping[int, TermCaps] | None = None,
+                             use_fused: bool = False,
+                             qterms: list | None = None):
+        """AND the batch with candidates device-resident across rounds.
+
+        Round 0 scatters every query's rarest term into its row of the
+        segmented candidate bitmap (one device tensor for the whole batch);
+        round r >= 1 decodes the round's deduped (term, block) work-list,
+        probes each decoded docid against its query's bitmap segment and
+        scatters the survivors, all on the card.  Block selection is static
+        (seed-term coverage intervals from the skip tables), so no candidate
+        returns to the host until the single final copy.  Under
+        ``use_fused`` the rounds run kernel B1 over the packed gap tiles.
+
+        Returns (bitmap, qterms, cov): the (nq, words) device bitmap, the
+        per-query known terms rarest-first, and the per-query seed coverage
+        intervals.  Results are bit-identical to ``and_query`` per query.
+        """
+        ctx = self._cur()
+        idx = ctx.gen
+        ar = self._arena_ctx(ctx)
+        dev = ar.device
+        nq = len(queries)
+        words, crows = intersect_rounds.bitmap_geometry(idx.n_docs)
+        if nq == 0:
+            return torch.zeros((0, words), dtype=torch.int32, device=dev), [], {}
+        if qterms is None:
+            qterms = self._and_qterms(queries, ctx)
+        bm = torch.zeros((nq, words), dtype=torch.int32, device=dev)
+
+        def run_round(bm, plain, fused_pairs, dense, active_idx, probe):
+            """One committed AND round: every representation split (arena
+            decode, fused decode, dense windows) probes the same OLD bitmap
+            and ORs survivors into ONE shared new bitmap (exact: a block is
+            served by exactly one representation, so the splits' docid sets
+            are disjoint), then a single commit folds active rows forward."""
+            active = np.zeros(nq, bool)
+            active[active_idx] = True
+            new = torch.zeros_like(bm)
+            if plain:
+                rows, qs, ns = self._stack_worklist(plain)
+                new = intersect_rounds.round_accumulate(
+                    new, rows, _to_device(qs, dev), _to_device(ns, dev), bm,
+                    probe=probe)
+            if fused_pairs:
+                ids, hits, qs = ar.fused_round(
+                    fused_pairs, bm.reshape(nq * crows, -1))
+                new = intersect_rounds.round_accumulate_masked(
+                    new, ids.reshape(len(qs), -1), _to_device(qs, dev),
+                    hits.reshape(len(qs), -1))
+            if dense:
+                dw, dqs, dw0, dact = self._stack_dense(dense)
+                new = intersect_rounds.dense_round_accumulate(
+                    new, dw, dqs, dw0, dact, bm, probe=probe)
+            return intersect_rounds.round_commit(
+                bm, new, torch.as_tensor(active, device=dev))
+
+        def split_dense(pairs):
+            """Route (qslot, t, bi) entries to their serving representation
+            (per-block capability: the arena's dense window table)."""
+            sparse, dense = [], []
+            for e in pairs:
+                (dense if (e[1], e[2]) in ar.dense_slot else sparse).append(e)
+            self.metrics.inc("blocks_dense", len(dense))
+            return sparse, dense
+
+        # round 0: seed every query's bitmap row with its rarest term
+        seeds = [i for i, ts in enumerate(qterms)
+                 if ts and idx.terms[ts[0]].df]
+        for ts in qterms:
+            if ts:
+                self.metrics.inc("worklist_refs", idx.n_blocks(ts[0]))
+        pairs0 = [(i, qterms[i][0], bi) for i in seeds
+                  for bi in range(idx.n_blocks(qterms[i][0]))]
+        plain0, dense0 = split_dense(pairs0)
+        with self.tracer.span("and/seed", lane=self.trace_lane, nq=nq,
+                              plain=len(plain0), dense=len(dense0)):
+            bm = run_round(bm, plain0, [], dense0, seeds, probe=False)
+            self.tracer.fence(bm)
+        cov = {i: (idx.block_firsts(qterms[i][0]),
+                   idx.block_lasts(qterms[i][0])) for i in seeds}
+
+        live = set(seeds)
+        r = 1
+        while True:
+            active = [i for i in live if len(qterms[i]) > r]
+            if not active:
+                break
+            self.metrics.inc("resident_rounds")
+            plain, fused_pairs, dense = [], [], []
+            for i in active:
+                t = qterms[i][r]
+                sel = self._select_blocks_static(t, *cov[i])
+                self.metrics.inc("worklist_refs", len(sel))
+                f = use_fused and (terms[t].fused if terms is not None
+                                   else ar.has_fused(t, sel))
+                for bi in sel:
+                    e = (i, t, int(bi))
+                    if (t, int(bi)) in ar.dense_slot:
+                        dense.append(e)
+                        self.metrics.inc("blocks_dense")
+                    elif f:
+                        fused_pairs.append(e)
+                    else:
+                        plain.append(e)
+            with self.tracer.span("and/round", lane=self.trace_lane, r=r,
+                                  plain=len(plain), fused=len(fused_pairs),
+                                  dense=len(dense)):
+                bm = run_round(bm, plain, fused_pairs, dense, active,
+                               probe=True)
+                self.tracer.fence(bm)
+            r += 1
+
+        return bm, qterms, cov
+
+    def and_query(self, terms: list) -> np.ndarray:
+        ctx = self._cur()
+        return self._and_gen([t for t in terms if t in ctx.gen.terms], ctx)
+
+    def _and_gen(self, terms: list, ctx: _ExecCtx) -> np.ndarray:
+        """AND over generation postings only (terms already known)."""
+        terms = sorted(terms, key=lambda t: ctx.gen.terms[t].df)
+        if not terms:
+            return np.zeros(0, np.uint32)
+        cand = self.term_ids(terms[0])
+        owned = False                           # does the caller own `cand`?
+        for t in terms[1:]:
+            if len(cand) == 0:
+                break
+            cand = self._intersect_term(t, cand)
+            owned = True
+        return cand if owned else cand.copy()
+
+    def or_query(self, terms: list, k: int = 10):
+        _check_mode("or")
+
+    def and_query_scored(self, terms: list, k: int = 10):
+        _check_mode("and_scored")
+
+    # ---- planned execution -------------------------------------------------- #
+
+    def plan(self, batch: QueryBatch,
+             placement: Optional[str] = None) -> ExecutionPlan:
+        """Resolve a batch into a typed :class:`ExecutionPlan` (span
+        ``engine/plan``): placement (host / device / fused, following the
+        engine's arena state) plus every known term's codec capabilities.
+
+        Auto-placement (``placement=None``) demotes batches of at most
+        ``HOST_BATCH_MAX`` queries (or an installed crossover table's cut)
+        to the host; ``plan.note`` records it.  An explicit ``placement``
+        skips the demotion and is validated against the arena state."""
+        with self.tracer.span("engine/plan", lane=self.trace_lane,
+                              mode=batch.mode, nq=len(batch.queries)):
+            return self._plan_impl(batch, placement)
+
+    def _plan_impl(self, batch: QueryBatch,
+                   placement: Optional[str] = None) -> ExecutionPlan:
+        _check_mode(batch.mode)
+        ctx = self._cur()
+        note = ""
+        resident = self.arena is not None
+        if placement is not None:
+            if placement not in PLACEMENTS:
+                raise ValueError(f"unknown placement {placement!r}; "
+                                 f"placements: {PLACEMENTS}")
+            if placement != "host" and not resident:
+                raise ValueError(
+                    f"explicit placement {placement!r} needs device arenas; "
+                    "call to_device() on this engine first")
+            if placement == "fused" and not self._fused:
+                raise ValueError(
+                    "explicit placement 'fused' needs fused tile arenas; "
+                    "call to_device(fused=True) on this engine first")
+            note = f"placement {placement!r} pinned by caller"
+        else:
+            placement = ("fused" if resident and self._fused
+                         else "device" if resident else "host")
+            if placement != "host":
+                n = len(batch.queries)
+                xo = get_crossover()
+                cut = xo.cut_for(batch.mode) if xo is not None else None
+                if cut is not None:
+                    if n <= cut:
+                        note = (f"auto-placed host: batch={n} <= "
+                                f"host_batch_max={cut} for "
+                                f"mode={batch.mode!r} "
+                                f"(measured crossover, {xo.source}, "
+                                f"sizes={list(xo.sizes)})")
+                        placement = "host"
+                elif n <= HOST_BATCH_MAX:
+                    note = (f"auto-placed host: batch={n} <= "
+                            f"HOST_BATCH_MAX={HOST_BATCH_MAX} "
+                            "(static rule; no measured crossover)")
+                    placement = "host"
+        terms: dict[int, TermCaps] = {}
+        for q in batch.queries:
+            for t in q:
+                if t in terms or t not in ctx.gen.terms:
+                    continue
+                blocks = ctx.gen.terms[t].blocks
+                name = blocks[0][1].codec if blocks else None
+                spec = codec_lib.get(name) if name is not None else None
+                terms[t] = TermCaps(
+                    codec=name,
+                    arena=bool(spec is not None and spec.arena is not None),
+                    fused=(placement == "fused"
+                           and self.arena.has_fused(t, range(len(blocks)))))
+        return ExecutionPlan(mode=batch.mode, k=batch.k, placement=placement,
+                             queries=tuple(tuple(q) for q in batch.queries),
+                             terms=terms, note=note, ctx=ctx)
+
+    def execute(self, work) -> list:
+        """Run an :class:`ExecutionPlan` (span ``engine/execute``); results
+        align with the planned queries.  Passing a ``QueryBatch`` plans
+        implicitly (bit-identical results).
+
+        On the host placement queries run grouped by sorted term signature
+        so queries sharing terms hit the decoded-block cache back to back;
+        on the device/fused placements the batch runs round-batched and
+        device-resident through ``_and_many_resident``."""
+        if isinstance(work, QueryBatch):
+            work = self.plan(work)
+        with self.tracer.span("engine/execute", lane=self.trace_lane,
+                              mode=work.mode, placement=work.placement,
+                              nq=len(work.queries)):
+            return self._execute_impl(work)
+
+    def _execute_impl(self, plan: ExecutionPlan) -> list:
+        _check_mode(plan.mode)
+        ctx: _ExecCtx = plan.ctx if plan.ctx is not None else self._cur()
+        if plan.placement != "host":
+            if self.arena is None:
+                raise ValueError(
+                    f"plan placement {plan.placement!r} needs device arenas; "
+                    "call to_device() on this engine (or re-plan on it) first")
+            arena = self._arena_ctx(ctx)
+            if plan.placement == "fused" and arena._pk is None:
+                raise ValueError(
+                    "plan placement 'fused' needs fused tile arenas; call "
+                    "to_device(fused=True) on this engine (or re-plan on it) "
+                    "first")
+            prev_ctx, self._ctx = self._ctx, ctx
+            prev_arena, self.arena = self.arena, arena
+            try:
+                return self._and_many_resident(
+                    [list(q) for q in plan.queries], plan.terms,
+                    plan.placement == "fused")
+            finally:
+                self._ctx, self.arena = prev_ctx, prev_arena
+        order = sorted(range(len(plan.queries)),
+                       key=lambda i: tuple(sorted(plan.queries[i])))
+        results = [None] * len(plan.queries)
+        # a host plan stays pinned to host intersection AND host block
+        # decodes even on an engine that has arenas
+        prev_ctx, self._ctx = self._ctx, ctx
+        prev_fused, self._fused = self._fused, False
+        prev_arena, self.arena = self.arena, None
+        try:
+            for i in order:
+                results[i] = self.and_query(list(plan.queries[i]))
+        finally:
+            self._ctx = prev_ctx
+            self._fused, self.arena = prev_fused, prev_arena
+        return results

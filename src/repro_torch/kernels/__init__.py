@@ -1,0 +1,34 @@
+"""Kernels of the port: hand-written CUDA C++ for Hopper (``csrc/``), each
+beside its plain torch version.
+
+decode_fused (B5) and intersect_rounds (B1): fused unpack + prefix sum +
+candidate-bitmap probe; accumulate (B2): segmented scatter of survivor bits
+and integer contributions; intersect: host gallop/bitmap helpers;
+cuda_build: nvcc build and ctypes binding.
+
+Launch accounting lives here, in one place: each wrapper calls
+:func:`count_launch` where it launches its kernel, and nowhere else (a CPU
+tensor's plain version counts nothing).  ``LAUNCHES`` holds the counts per
+kernel; ``RECENT`` the shapes of the latest launches, bounded.
+"""
+
+from __future__ import annotations
+
+import collections
+
+LAUNCHES: dict[str, int] = dict.fromkeys(("B1", "B2", "B2add", "B5"), 0)
+RECENT: collections.deque = collections.deque(maxlen=4096)
+
+
+def count_launch(kernel: str, **shape) -> None:
+    """Record one launch of ``kernel`` ("B1", "B2", "B2add" or "B5") with
+    the sizes it was launched at."""
+    LAUNCHES[kernel] += 1
+    RECENT.append((kernel, shape))
+
+
+def reset_launches() -> None:
+    """Set every count to 0 and forget the recorded shapes."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    RECENT.clear()

@@ -1,0 +1,113 @@
+// Sparse segmented accumulate: the scatter half of every device-resident
+// round (kernel B2 of the port, both forms).
+//
+// Replaces the JAX package's Pallas kernel kernels/accumulate.py
+// _sparse_pallas (body _sparse_kernel), behind scatter_add and scatter_bits:
+//   add form:   acc[qslot[j], ids[j, l]] += contrib[j, l]          (mod 2**32)
+//   bits form:  bm[qslot[j], ids[j, l] >> 5] |= 1 << (ids[j, l] & 31)
+//               where surv[j, l]
+//
+// The TPU form sorted entries by qslot and kept the owning query's row
+// aliased in VMEM across consecutive grid steps, because its grid runs in
+// order on one core.  Here every (entry, lane) is one thread and the update
+// is one atomic: atomicAdd on unsigned int wraps mod 2**32 exactly like the
+// reference's u32 add, and atomicOr sets the survivor bit.  No sort, no
+// row residency.
+//
+// The bits form ORs into the caller's bitmap in place.  The reference ORs a
+// freshly zeroed scatter into it (intersect_rounds.py round_accumulate,
+// accumulate.py scatter_bits); the result is the same because the docid sets
+// of one round's calls are disjoint, and in place saves a zero-fill of the
+// whole (queries, words) bitmap per call (806 MB for 256 queries at GOV2's
+// 25,205,179 docs).
+//
+// Out-of-range rows or columns are dropped, as the reference's XLA scatter
+// drops them.
+//
+// Bound on the H100: bytes.  Each thread reads one id (4 B), one mask byte
+// or contribution (1 or 4 B) and its entry's qslot, and does one
+// read-modify-write of one 4-byte word in L2; there is no arithmetic to
+// speak of.  Consecutive lanes of an entry hold ascending docids of one
+// block, so a warp's atomics fall on few words.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+
+__global__ void __launch_bounds__(THREADS)
+scatter_bits_kernel(uint32_t* __restrict__ bm, const uint32_t* __restrict__ ids,
+                    const int32_t* __restrict__ qslot,
+                    const uint8_t* __restrict__ surv, long long n_entries,
+                    long long lanes, long long n_rows, long long words) {
+  const long long k = blockIdx.x * (long long)THREADS + threadIdx.x;
+  if (k >= n_entries * lanes || !surv[k]) return;
+  const long long q = qslot[k / lanes];
+  const uint32_t id = ids[k];
+  const long long word = id >> 5;
+  if (q < 0 || q >= n_rows || word >= words) return;
+  atomicOr(bm + q * words + word, 1u << (id & 31u));
+}
+
+__global__ void __launch_bounds__(THREADS)
+scatter_add_kernel(uint32_t* __restrict__ acc, const uint32_t* __restrict__ ids,
+                   const int32_t* __restrict__ qslot,
+                   const uint32_t* __restrict__ contrib, long long n_entries,
+                   long long lanes, long long n_rows, long long width) {
+  const long long k = blockIdx.x * (long long)THREADS + threadIdx.x;
+  if (k >= n_entries * lanes) return;
+  const uint32_t c = contrib[k];
+  if (c == 0u) return;                      // adds nothing: skip the atomic
+  const long long q = qslot[k / lanes];
+  const long long col = ids[k];
+  if (q < 0 || q >= n_rows || col >= width) return;
+  atomicAdd(acc + q * width + col, c);
+}
+
+unsigned grid_for(long long n) {
+  return (unsigned)((n + THREADS - 1) / THREADS);
+}
+
+}  // namespace
+
+// bm: (n_rows, words) u32, updated in place; ids: (n_entries, lanes) u32;
+// qslot: (n_entries,) i32; surv: (n_entries, lanes) bool bytes.
+extern "C" int repro_scatter_bits(void* bm, const void* ids, const void* qslot,
+                                  const void* surv, long long n_entries,
+                                  long long lanes, long long n_rows,
+                                  long long words, void* stream) {
+  const long long n = n_entries * lanes;
+  if (n <= 0) return 0;
+  if ((n + THREADS - 1) / THREADS > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  scatter_bits_kernel<<<grid_for(n), THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(bm), static_cast<const uint32_t*>(ids),
+      static_cast<const int32_t*>(qslot), static_cast<const uint8_t*>(surv),
+      n_entries, lanes, n_rows, words);
+  return (int)cudaGetLastError();
+}
+
+// acc: (n_rows, width) u32, updated in place; ids, contrib:
+// (n_entries, lanes) u32; qslot: (n_entries,) i32.
+extern "C" int repro_scatter_add(void* acc, const void* ids, const void* qslot,
+                                 const void* contrib, long long n_entries,
+                                 long long lanes, long long n_rows,
+                                 long long width, void* stream) {
+  const long long n = n_entries * lanes;
+  if (n <= 0) return 0;
+  if ((n + THREADS - 1) / THREADS > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  scatter_add_kernel<<<grid_for(n), THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(acc), static_cast<const uint32_t*>(ids),
+      static_cast<const int32_t*>(qslot), static_cast<const uint32_t*>(contrib),
+      n_entries, lanes, n_rows, width);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

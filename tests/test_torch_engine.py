@@ -1,0 +1,129 @@
+"""The slice as a whole: the port's ``plan``/``execute`` in mode ``and`` on
+the host, device and fused placements against the JAX package's engine, on
+``synth.make_corpus("gov2")`` with queries shaped like
+``benchmarks/bench_query.make_queries`` (2-3 terms of the 120 most
+frequent); the device-resident counters; the legacy ``and_many`` through
+kernel B5; and the package importing with jax blocked."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.data import synth as ref_synth
+from repro.index.engine import QueryBatch as RefBatch
+from repro.index.engine import QueryEngine as RefEngine
+from repro.index.invindex import InvertedIndex as RefIndex
+from repro_torch.data import synth
+from repro_torch.index.engine import QueryBatch, QueryEngine
+from repro_torch.index.invindex import InvertedIndex
+
+N_QUERIES = 48
+
+
+def _queries(postings: dict, n: int, seed: int = 3) -> list:
+    rng = np.random.default_rng(seed)
+    terms = sorted(postings)
+    return [rng.choice(terms[:120], size=rng.integers(2, 4),
+                       replace=False).tolist() for _ in range(n)]
+
+
+@pytest.fixture(scope="module")
+def gov2():
+    doclen, postings = synth.make_corpus("gov2")
+    ref_doclen, ref_postings = ref_synth.make_corpus("gov2")
+    np.testing.assert_array_equal(doclen, ref_doclen)
+    for t, (ids, tfs) in ref_postings.items():
+        np.testing.assert_array_equal(postings[t][0], ids)
+        np.testing.assert_array_equal(postings[t][1], tfs)
+    queries = _queries(postings, N_QUERIES) + [[0, 10_000], [5]]
+    ref = RefIndex.build(doclen, postings, codec="group_simple")
+    want = RefEngine(ref).execute(RefBatch(queries, mode="and"))
+    return InvertedIndex.build(doclen, postings), queries, want
+
+
+@pytest.mark.parametrize("placement", ["host", "device", "fused"])
+def test_and_plan_execute_matches_reference(gov2, placement):
+    idx, queries, want = gov2
+    eng = QueryEngine(idx, cache_blocks=1 << 20)
+    if placement != "host":
+        eng.to_device(fused=placement == "fused", torch_device="cpu")
+    plan = eng.plan(QueryBatch(queries, mode="and"), placement=placement)
+    assert plan.placement == placement
+    got = eng.execute(plan)
+    assert len(got) == len(want)
+    for q, a, b in zip(queries, got, want):
+        assert a.dtype == np.uint32
+        np.testing.assert_array_equal(a, b, err_msg=str(q))
+    if placement == "host":
+        return
+    st = eng.dev_stats
+    assert st["cand_syncs"] == 0 and st["final_syncs"] == 1
+    assert st["resident_rounds"] >= 1 and st["blocks_dense"] > 0
+    # at most one decode per hot block: every decode is a distinct key
+    hot = {k for k in eng.cache.keys() if k[1] >= 0}
+    assert st["worklist_decodes"] + st["fallback_decodes"] == len(hot)
+    if placement == "fused":
+        assert eng.arena.stats["fused_calls"] > 0
+
+
+def test_auto_placement_and_unported_paths_raise(gov2):
+    idx, queries, _ = gov2
+    eng = QueryEngine(idx).to_device(fused=True, torch_device="cpu")
+    assert eng.plan(QueryBatch(queries[:1])).placement == "host"
+    assert eng.plan(QueryBatch(queries)).placement == "fused"
+    for mode in ("or", "and_scored"):
+        with pytest.raises(NotImplementedError, match="A.6"):
+            eng.plan(QueryBatch(queries, mode=mode))
+    with pytest.raises(ValueError, match="did you mean 'and'"):
+        eng.plan(QueryBatch(queries, mode="adn"))
+    with pytest.raises(NotImplementedError, match="A.10"):
+        QueryEngine(idx).to_device(shards=2, torch_device="cpu")
+
+
+def test_mutated_index_and_missing_card_raise():
+    doclen, postings = synth.make_corpus("wikipedia")
+    idx = InvertedIndex.build(doclen, dict(list(postings.items())[:5]))
+    idx.delete(3)
+    with pytest.raises(NotImplementedError, match="A.7"):
+        QueryEngine(idx).plan(QueryBatch([[0, 1]]))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            QueryEngine(idx).to_device()
+
+
+def test_legacy_and_many_through_b5_matches_host(gov2):
+    idx, queries, want = gov2
+    eng = QueryEngine(idx).to_device(fused=True, torch_device="cpu")
+    calls = eng.arena.stats["fused_calls"]
+    got = eng.and_many(queries)
+    assert eng.arena.stats["fused_calls"] > calls
+    assert eng.dev_stats["cand_syncs"] > 0          # the legacy loop syncs
+    for q, a, b in zip(queries, got, want):
+        np.testing.assert_array_equal(a, b, err_msg=str(q))
+    # and the one-query host entry point
+    np.testing.assert_array_equal(eng.and_query(queries[0]), want[0])
+
+
+def test_port_imports_without_jax():
+    """The port never imports jax: every module loads with jax blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import repro_torch.index.engine, repro_torch.index.device\n"
+        "import repro_torch.kernels.intersect_rounds\n"
+        "import repro_torch.data.synth, repro_torch.obs\n"
+        "bad = [m for m in sys.modules if m == 'repro' "
+        "or m.startswith(('repro.', 'jax.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
