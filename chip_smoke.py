@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's main path, fused device-resident AND serving, through the
-entry points a user calls, at the real document count of the TREC GOV2
-collection, and holds every CUDA kernel of the path against its plain torch
-version on the card:
+Drives the port's main paths, fused device-resident AND serving and ranked
+BM25 top-k serving (modes ``or`` and ``and_scored``), through the entry
+points a user calls, at the real document count of the TREC GOV2
+collection, and holds every CUDA kernel of the paths against its plain
+torch version on the card:
 
   card       the card, its power limit, torch / CUDA / nvcc versions
   build      nvcc builds every kernels/csrc/*.cu (one process per source)
@@ -20,11 +21,25 @@ version on the card:
              the fenced span tracer for the time breakdown.
   legacy     ``and_many`` on 16 of the queries (kernel B5), counts set to 0
              just before; results equal the main path's.
-  kernels    B1 (every bit-width bucket), B5 and B2 (both forms) on inputs
-             made from --seed at the shapes the main path gave each kernel,
+  ranked     on the same index: ``ensure_scores()``, then per mode (``or``,
+             ``and_scored``, k=10, fused placement) a warm-up batch of 256
+             queries drawn like the AND batches (own generator), a fresh
+             batch timed with every launch count set to 0 just before, and
+             a third fresh batch under the fenced span tracer.  Every result
+             equals a numpy oracle (a dense float64 accumulator per query,
+             term scores added in query-term order, ``topk_select``'s rule);
+             final_syncs == 1, score_syncs == cand_syncs == 0, and kernels
+             B1, B2 (both forms) and B3 launched, B4 too where the batch
+             scored dense-bitmap blocks.
+  kernels    B1 (every bit-width bucket), B5, B2 (both forms), B3 and B4 on
+             inputs made from --seed at the largest shape any main path gave
+             each kernel (B1 probed against a random bitmap and against all
+             ones, as the ``or`` rounds probe; B2's add form at the AND
+             path's shape, as first recorded, and at the ranked path's),
              compared bitwise with their plain versions; CUDA-event times
              (median of 30 after warm-up) of kernel, plain version and, for
-             B2, one ``index_put_(accumulate=True)``; the bytes bound.
+             B2 and B4, one ``index_put_(accumulate=True)``; the bytes
+             bound.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed phase raises and the script exits nonzero without that
@@ -48,8 +63,10 @@ import time
 GOV2_DOCS = 25_205_179          # documents in the TREC GOV2 collection
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 TIMED_RUNS = 30
-QUERIES = 256                   # AND queries per batch on the main path
-LEGACY_QUERIES = 16             # of them, through the legacy and_many
+QUERIES = 256                   # queries per batch on the main paths
+LEGACY_QUERIES = 16             # of the AND queries, through and_many
+RANKED_K = 10                   # top-k of the ranked batches
+QUERY_TERMS = 120               # queries draw from the most frequent terms
 
 
 def log(msg: str) -> None:
@@ -122,6 +139,48 @@ def oracle_and(postings: dict, q: list, np):
     return ids
 
 
+def oracle_or(term_sc: dict, q: list, k: int, buf, np, topk_select) -> list:
+    """Independent OR top-k: a dense float64 accumulator over all docs (the
+    reusable ``buf`` pair, left zeroed), each term's BM25 impacts added in
+    query-term order, then ``topk_select``'s argpartition + docid rule."""
+    acc, hit = buf
+    for t in q:
+        ids, sc = term_sc[t]
+        acc[ids] += sc
+        hit[ids] = True
+    docs = np.flatnonzero(hit)
+    res = topk_select(docs, acc[docs], k)
+    acc[docs] = 0.0
+    hit[docs] = False
+    return res
+
+
+def oracle_and_scored(postings: dict, term_sc: dict, q: list, k: int, np,
+                      topk_select) -> list:
+    """Independent and_scored top-k: the AND oracle's docids, scored in
+    query-term order."""
+    docs = oracle_and(postings, q, np)
+    scores = np.zeros(len(docs))
+    for t in q:
+        ids, sc = term_sc[t]
+        scores += sc[np.searchsorted(ids, docs)]
+    return topk_select(docs, scores, k)
+
+
+def span_breakdown(tracer, children: tuple) -> dict:
+    """{span name: (count, ms)} of the tracer's spans, plus "rest of
+    execute": ``engine/execute`` minus the named ``children`` (disjoint
+    intervals inside it)."""
+    out = {}
+    for sp in tracer.spans():
+        n, tot = out.get(sp.name, (0, 0.0))
+        out[sp.name] = (n + 1, tot + sp.dur * 1e3)
+    rest = out.get("engine/execute", (0, 0.0))[1] - sum(
+        out.get(c, (0, 0.0))[1] for c in children)
+    out["rest of execute"] = (1, rest)
+    return out
+
+
 def pow2_bucket(k: int) -> int:
     """The launch width the power-of-two work-list buckets (smallest 8) of
     the JAX package give ``k`` entries; the port launches ``k``."""
@@ -177,13 +236,23 @@ def main() -> int:
     from repro_torch.index.engine import QueryBatch, QueryEngine
     from repro_torch import kernels as K
     from repro_torch.index.invindex import InvertedIndex
+    from repro_torch.index.scores import bm25_scores, topk_select
     from repro_torch.kernels import (accumulate, cuda_build, decode_fused,
-                                     intersect_rounds)
+                                     intersect_rounds, topk)
     from repro_torch.kernels.decode_fused import BW_BUCKETS, rows_per_block
     from repro_torch.obs.trace import enable_tracing
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    phase_s = {}
+    mark = [t_start]
+
+    def phase_done(name):
+        """Print and keep the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        log(f"-- phase {name}: {phase_s[name]:.1f} s")
 
     # ---- card ------------------------------------------------------------ #
     smi = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -202,6 +271,7 @@ def main() -> int:
     log(f"built {sorted(took)} in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
 
     # ---- main path -------------------------------------------------------- #
+    phase_done("card and build")
     log("== main path: fused device-resident AND")
     if args.n_docs != GOV2_DOCS:
         log(f"reduced: n_docs={args.n_docs} of GOV2's {GOV2_DOCS}")
@@ -230,7 +300,7 @@ def main() -> int:
     def draw_batch():
         """QUERIES AND queries of 2-3 terms from the 120 most frequent, with
         the oracle's answers."""
-        qs = [rng.choice(terms[:120], size=rng.integers(2, 4),
+        qs = [rng.choice(terms[:QUERY_TERMS], size=rng.integers(2, 4),
                          replace=False).tolist() for _ in range(QUERIES)]
         return qs, [oracle_and(postings, q, np) for q in qs]
 
@@ -311,13 +381,11 @@ def main() -> int:
         traced, dt_traced = run_batch(traced_q)
         enable_tracing(False)
         check("traced batch", traced_q, traced, traced_want)
-    spans = {}
-    for sp in tracer.spans():
-        n, tot = spans.get(sp.name, (0, 0.0))
-        spans[sp.name] = (n + 1, tot + sp.dur)
+    spans = span_breakdown(tracer, ("and/seed", "and/round",
+                                    "kernel/extract_ids"))
     log(f"fenced span breakdown of another fresh batch ({dt_traced:.4f} s):")
     for name, (n, tot) in sorted(spans.items(), key=lambda kv: -kv[1][1]):
-        log(f"  {name:24s} x{n:<3d} {tot * 1e3:10.2f} ms")
+        log(f"  {name:24s} x{n:<3d} {tot:10.2f} ms")
     tracer.clear()
     hot = {k for k in eng.cache.keys() if k[1] >= 0}
     decodes = (all_batches.delta("worklist_decodes")
@@ -329,6 +397,7 @@ def main() -> int:
                              f"{eng.cache.evictions} evictions")
 
     # ---- legacy path ------------------------------------------------------ #
+    phase_done("AND path")
     log("== legacy and_many (kernel B5)")
     sub = queries[:LEGACY_QUERIES]
     K.reset_launches()
@@ -343,13 +412,130 @@ def main() -> int:
     if legacy_launches <= 0:
         raise AssertionError("legacy path did not launch B5")
 
-    # shapes the main path gave each kernel
-    calls = {k: [sh for n, sh in recent if n == k] for k in ("B1", "B2", "B5")}
+    # ---- ranked path ------------------------------------------------------ #
+    phase_done("legacy")
+    log("== ranked path: fused device-resident top-k (or, and_scored)")
+    t0 = time.perf_counter()
+    ar.ensure_scores()
+    torch.cuda.synchronize()
+    sa = ar.scores
+    log(f"ensure_scores: {time.perf_counter() - t0:.2f} s, "
+        f"{sa.tiles.shape[0]} score rows, {len(sa.dense_slot)} dense code "
+        f"windows, delta {sa.delta!r}")
+    t0 = time.perf_counter()
+    avdl = float(np.asarray(doclen).mean())       # Generation.avdl's formula
+    term_sc = {t: (postings[t][0],
+                   bm25_scores(postings[t][1], doclen[postings[t][0]],
+                               len(postings[t][0]), len(doclen), avdl))
+               for t in terms[:QUERY_TERMS]}
+    buf = (np.zeros(len(doclen)), np.zeros(len(doclen), bool))
+    log(f"oracle term scores: {time.perf_counter() - t0:.2f} s")
+    rrng = np.random.default_rng(args.seed + 5)
+
+    def draw_ranked(mode):
+        """QUERIES ranked queries shaped like the AND batches, with the
+        oracle's answers."""
+        qs = [rrng.choice(terms[:QUERY_TERMS], size=rrng.integers(2, 4),
+                          replace=False).tolist() for _ in range(QUERIES)]
+        if mode == "or":
+            want = [oracle_or(term_sc, q, RANKED_K, buf, np, topk_select)
+                    for q in qs]
+        else:
+            want = [oracle_and_scored(postings, term_sc, q, RANKED_K, np,
+                                      topk_select) for q in qs]
+        return qs, want
+
+    def check_ranked(what, queries, got, want):
+        for q, a, b in zip(queries, got, want):
+            if a != b:
+                raise AssertionError(f"{what}, query {q}: {a[:3]}..., "
+                                     f"oracle {b[:3]}...")
+
+    def run_ranked(queries, mode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.execute(eng.plan(QueryBatch(queries, mode=mode,
+                                              k=RANKED_K)))
+        return res, time.perf_counter() - t0
+
+    ranked = {}
+    for mode in ("or", "and_scored"):
+        t0 = time.perf_counter()
+        (warm_q, warm_want), (rq, rwant), (traced_q, traced_want) = (
+            draw_ranked(mode), draw_ranked(mode), draw_ranked(mode))
+        log(f"{mode}: numpy oracle, 3 batches: "
+            f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        warm, dt = run_ranked(warm_q, mode)
+        log(f"{mode} warm-up batch: {dt:.2f} s")
+        check_ranked(f"{mode} warm-up batch", warm_q, warm, warm_want)
+
+        fused0 = ar.stats["fused_blocks"]
+        K.reset_launches()
+        with eng.metrics.scoped() as s:
+            res, dt = run_ranked(rq, mode)
+        launches = dict(K.LAUNCHES)
+        rrecent = list(K.RECENT)
+        peak = torch.cuda.max_memory_allocated()
+        check_ranked(f"{mode} timed batch", rq, res, rwant)
+        stats = {n: s.delta(n) for n in (
+            "final_syncs", "score_syncs", "cand_syncs", "score_rounds",
+            "blocks_scored", "blocks_pruned", "blocks_dense",
+            "resident_rounds", "worklist_decodes", "fallback_decodes")}
+        widths = {k: sum(sh.get("W", sh.get("P", 0)) for n, sh in rrecent
+                         if n == k) for k in launches}
+        log(f"{mode} timed fresh batch: {QUERIES} queries in {dt:.4f} s = "
+            f"{QUERIES / dt:.2f} qps (host clock, ends in the rescore)")
+        log(f"{mode} counters {stats}; fused entries "
+            f"{ar.stats['fused_blocks'] - fused0}")
+        log(f"{mode} launches {launches}; entries per kernel {widths}")
+        log(f"{mode} max_memory_allocated {peak} bytes "
+            f"({peak / 2**30:.2f} GiB) over the warm-up and timed batches")
+        if (stats["final_syncs"] != 1 or stats["score_syncs"] != 0
+                or stats["cand_syncs"] != 0):
+            raise AssertionError(f"{mode} syncs: {stats}")
+        for k in ("B1", "B2", "B2add", "B3"):
+            if launches[k] <= 0:
+                raise AssertionError(f"{mode} did not launch {k}: {launches}")
+        if stats["blocks_dense"] > 0 and launches["B4"] <= 0:
+            raise AssertionError(f"{mode} scored dense blocks without B4: "
+                                 f"{launches}")
+
+        tracer = enable_tracing(True, fenced=True)
+        tracer.clear()
+        traced, dt_traced = run_ranked(traced_q, mode)
+        enable_tracing(False)
+        check_ranked(f"{mode} traced batch", traced_q, traced, traced_want)
+        spans = span_breakdown(tracer, ("and/seed", "and/round",
+                                        "ranked/round", "kernel/topk",
+                                        "kernel/extract_ids",
+                                        "ranked/rescore"))
+        tracer.clear()
+        log(f"{mode} fenced span breakdown of another fresh batch "
+            f"({dt_traced:.4f} s):")
+        for name, (n, tot) in sorted(spans.items(), key=lambda kv: -kv[1][1]):
+            log(f"  {name:24s} x{n:<3d} {tot:10.2f} ms")
+        ranked[mode] = {"qps": QUERIES / dt, "seconds": dt, "stats": stats,
+                        "launches": launches, "recent": rrecent,
+                        "peak_bytes": peak,
+                        "spans_ms": {n: v[1] for n, v in spans.items()}}
+        del warm, res, traced
+
+    # shapes the main paths gave each kernel: B1 and B2's bits form run on
+    # the AND path and on both ranked modes, B5 on the legacy path
+    paths = {"and": recent, **{m: v["recent"] for m, v in ranked.items()}}
+    calls = {k: [(path, sh) for path, rec in paths.items() for n, sh in rec
+                 if n == k] for k in ("B1", "B2", "B5")}
+    rcalls = {k: [sh for m in ranked.values() for n, sh in m["recent"]
+                  if n == k] for k in ("B2add", "B3", "B4")}
+    ranked_launches = {k: {m: v["launches"][k] for m, v in ranked.items()}
+                       for k in ("B1", "B2", "B2add", "B3", "B4")}
     n_docs = idx.n_docs
-    del eng, idx, ar, warm, res, again, traced, postings, legacy
+    del eng, idx, ar, sa, again, postings, legacy, term_sc, buf
     torch.cuda.empty_cache()
 
     # ---- kernels ---------------------------------------------------------- #
+    phase_done("ranked path")
     log("== kernels vs plain versions (bitwise)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -389,10 +575,12 @@ def main() -> int:
         return (tiles_read * rows_per_block(bw) * 512 + w * idx_b
                 + probed * 4 + 2 * w * 512 * 4)
 
-    # B1, every bw bucket, at the main path's shapes
-    per_bw = {}
-    seen = {}
-    for c in calls["B1"]:
+    # B1, every bw bucket, at the largest call any main path gave it, probed
+    # against a random bitmap (as the AND rounds) and against all ones (the
+    # `or` rounds' gate, where only lane validity masks a hit)
+    per_bw, seen, b1_paths = {}, {}, {}
+    for path, c in calls["B1"]:
+        b1_paths.setdefault(c["bw"], set()).add(path)
         if c["bw"] not in seen or c["W"] > seen[c["bw"]][0]:
             seen[c["bw"]] = (c["W"], c["tiles"], c["Q"], c["crows"])
     w_max = max(v[0] for v in seen.values())
@@ -402,11 +590,19 @@ def main() -> int:
         tiles, slots, qslots, firsts, ns, cand = decode_case(bw, w, n_tiles, q,
                                                              crows, True)
         args_ = (tiles, slots, qslots, firsts, ns, cand)
-        got = intersect_rounds.segmented_decode_and(*args_, bw=bw, crows=crows)
-        ref = intersect_rounds.segmented_decode_and_plain(*args_, bw=bw,
-                                                          crows=crows)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, ref, torch)
+        err = 0
+        for gate in (cand, torch.full_like(cand, -1)):
+            a = (tiles, slots, qslots, firsts, ns, gate)
+            got = intersect_rounds.segmented_decode_and(*a, bw=bw, crows=crows)
+            ref = intersect_rounds.segmented_decode_and_plain(*a, bw=bw,
+                                                              crows=crows)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, ref, torch))
+        # against all ones every valid lane hits and no other does
+        n_hits = int(torch.count_nonzero(got[1]))
+        if n_hits != int(ns.long().sum()):
+            raise AssertionError(f"B1 bw={bw} all-ones gate: {n_hits} hits "
+                                 f"for {int(ns.long().sum())} valid lanes")
         nbytes = decode_bytes(bw, tiles, slots, qslots, ns, cand, crows,
                               ref[0].reshape(w, -1))
         ms = cuda_ms(lambda: intersect_rounds.segmented_decode_and(
@@ -414,12 +610,14 @@ def main() -> int:
         pms = cuda_ms(lambda: intersect_rounds.segmented_decode_and_plain(
             *args_, bw=bw, crows=crows), torch)
         per_bw[bw] = {"W": w, "queries": q, "crows": crows,
-                      "on_main_path": bw in seen, "max_abs_err": err,
+                      "on_main_path": bw in seen,
+                      "paths": sorted(b1_paths.get(bw, ())), "max_abs_err": err,
                       "ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
                       "bytes": nbytes}
-        log(f"B1 bw={bw:2d} W={w} Q={q} crows={crows}: err {err} kernel "
-            f"{ms:.4f} ms plain {pms:.4f} ms bound {bound_ms(nbytes):.4f} ms"
-            f"{'' if bw in seen else ' (bucket not on the main path)'}")
+        log(f"B1 bw={bw:2d} W={w} Q={q} crows={crows}: err {err} (random and "
+            f"all-ones gates) kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+            f"{bound_ms(nbytes):.4f} ms; paths "
+            f"{', '.join(sorted(b1_paths.get(bw, ()))) or 'none'}")
         if err:
             raise AssertionError(f"B1 bw={bw} disagrees with its plain version")
         del tiles, cand, got, ref
@@ -433,10 +631,11 @@ def main() -> int:
         "max_abs_err": max(v["max_abs_err"] for v in per_bw.values()),
         "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "shape_bw": main_bw,
-        "per_bw": per_bw, "ok": True})
+        "ranked_launches": ranked_launches["B1"], "per_bw": per_bw,
+        "ok": True})
 
     # B5 at the legacy path's largest call
-    c = max(calls["B5"], key=lambda c: c["W"])
+    c = max((sh for _, sh in calls["B5"]), key=lambda c: c["W"])
     bw, w, crows = c["bw"], c["W"], c["R"]
     tiles, slots, _, firsts, ns, cand = decode_case(bw, w, c["tiles"], 1,
                                                     crows, False)
@@ -463,19 +662,24 @@ def main() -> int:
         "shape": {"bw": bw, "W": w, "R": crows}, "ok": True})
     del tiles, cand, got, ref
 
-    # B2 at the main path's largest scatter
-    c = max(calls["B2"], key=lambda c: c["P"])
+    def distinct_ids(q, p, lanes, width):
+        """(qslot, ids) of p entries over q queries, sorted by query, with
+        docids distinct within a query (the round contract): the k-th entry
+        of a query takes docids (k * lanes + l) * step + offset."""
+        qslot = torch.sort(rand_int(q, p)).values
+        first_of = torch.searchsorted(qslot, qslot)
+        rank = torch.arange(p, device=dev) - first_of
+        n_max = int(torch.bincount(qslot.long(), minlength=q).max())
+        step = max(1, width // (n_max * lanes))
+        lane = torch.arange(lanes, device=dev)
+        ids = ((rank[:, None] * lanes + lane[None, :]) * step
+               + (qslot.long()[:, None] * 7919) % step).to(torch.int32)
+        return qslot, ids
+
+    # B2 at the largest scatter of any main path
+    b2_path, c = max(calls["B2"], key=lambda pc: pc[1]["P"])
     q, words, p, lanes = c["Q"], c["words"], c["P"], c["L"]
-    qslot = torch.sort(rand_int(q, p)).values
-    # docids distinct within a query (the round contract): the k-th entry of
-    # a query takes docids (k * lanes + l) * step + offset
-    first_of = torch.searchsorted(qslot, qslot)
-    rank = torch.arange(p, device=dev) - first_of
-    n_max = int(torch.bincount(qslot.long(), minlength=q).max())
-    step = max(1, (words * 32) // (n_max * lanes))
-    lane = torch.arange(lanes, device=dev)
-    ids = ((rank[:, None] * lanes + lane[None, :]) * step
-           + (qslot.long()[:, None] * 7919) % step).to(torch.int32)
+    qslot, ids = distinct_ids(q, p, lanes, words * 32)
     surv = torch.rand((p, lanes), generator=gen, device=dev) < 0.5
     bm = torch.zeros((q, words), dtype=torch.int32, device=dev)
     got = accumulate.scatter_bits(bm.clone(), ids, qslot, surv)
@@ -486,12 +690,14 @@ def main() -> int:
     flat = (qslot.long()[:, None] * words + (idl >> 5))[surv]
     vals = torch.bitwise_left_shift(torch.ones_like(idl), idl & 31)[surv].to(torch.int32)
     touched = torch.unique(flat).numel()
-    nbytes = p * lanes * 4 + p * lanes + p * 4 + touched * 4
+    # a touched word is read and written: 8 B of read-modify-write
+    nbytes = p * lanes * 4 + p * lanes + p * 4 + touched * 8
     ms = cuda_ms(lambda: accumulate.scatter_bits(bm, ids, qslot, surv), torch)
     pms = cuda_ms(lambda: accumulate.scatter_bits_plain(bm, ids, qslot, surv), torch)
     lib_flat = bm.view(-1)
     lms = cuda_ms(lambda: lib_flat.index_put_((flat,), vals, accumulate=True), torch)
-    log(f"B2 bits Q={q} words={words} P={p} L={lanes}: err {err} kernel "
+    log(f"B2 bits Q={q} words={words} P={p} L={lanes} ({b2_path} path): err "
+        f"{err} kernel "
         f"{ms:.4f} ms plain {pms:.4f} ms index_put_ {lms:.4f} ms bound "
         f"{bound_ms(nbytes):.4f} ms")
     if err:
@@ -501,52 +707,174 @@ def main() -> int:
           "replaces": "src/repro/kernels/accumulate.py:85",
           "launches": main_launches["B2"], "max_abs_err": err, "ms": ms,
           "plain_ms": pms, "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-          "library_ms": lms,
-          "shape": {"Q": q, "words": words, "P": p, "L": lanes}, "ok": True}
+          "library_ms": lms, "ranked_launches": ranked_launches["B2"],
+          "shape": {"Q": q, "words": words, "P": p, "L": lanes},
+          "shape_path": b2_path, "ok": True}
     del bm, got, ref, flat, vals
 
-    # B2, add form (the ranked path's; not on the AND path): same entries
-    # into a (Q, docs) accumulator, full-range contributions
-    # (one accumulator only: at GOV2 scale it is 256 x 25.2 M words, so the
-    # two versions run in turn on it and are compared where they wrote)
+    def accumulate_case(what, q, width, run, run_plain, flat, vals):
+        """Run a kernel that adds ``vals`` at flat indices ``flat`` of a
+        (q, width) accumulator, and its plain version, in turn on ONE
+        zeroed accumulator (at GOV2 scale it is 256 x 25.2 M words), and
+        compare them where they wrote; then time kernel, plain version and
+        one ``index_put_(accumulate=True)`` on the precomputed indices."""
+        acc = torch.zeros((q, width), dtype=torch.int32, device=dev)
+        uniq = torch.unique(flat)
+        run(acc)
+        got = acc.view(-1)[uniq]
+        # a write outside the targets leaves a non-zero word there; counted
+        # per 8 rows, since a count over the whole accumulator widens it to
+        # int64 (twice its 25.8 GB)
+        nonzero = sum(int(torch.count_nonzero(acc[r:r + 8]))
+                      for r in range(0, q, 8))
+        if nonzero != int(torch.count_nonzero(got)):
+            raise AssertionError(f"{what} wrote outside its targets")
+        acc.zero_()
+        run_plain(acc)
+        ref = acc.view(-1)[uniq]
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [ref], torch)
+        del got, ref
+        ms = cuda_ms(lambda: run(acc), torch)
+        pms = cuda_ms(lambda: run_plain(acc), torch)
+        acc_flat = acc.view(-1)
+        lms = cuda_ms(lambda: acc_flat.index_put_((flat,), vals,
+                                                  accumulate=True), torch)
+        if err:
+            raise AssertionError(f"{what} disagrees with its plain version")
+        touched = uniq.numel()
+        del acc, acc_flat, uniq
+        torch.cuda.empty_cache()
+        return err, ms, pms, lms, touched
+
+    # B2, add form, at the AND path's largest scatter shape, as first
+    # recorded: entries into a (Q, docs) accumulator, full-range
+    # contributions
+    del ids, qslot, surv
+    c = max((sh for path, sh in calls["B2"] if path == "and"),
+            key=lambda c: c["P"])
+    q, words, p, lanes = c["Q"], c["words"], c["P"], c["L"]
     width = words * 32
+    qslot, ids = distinct_ids(q, p, lanes, width)
     contrib = rand_words((p, lanes))
-    acc = torch.zeros((q, width), dtype=torch.int32, device=dev)
-    flat = qslot.long()[:, None] * width + ids.long()
-    uniq = torch.unique(flat)
-    touched = uniq.numel()
-    accumulate.scatter_add(acc, ids, qslot, contrib)
-    got = acc.view(-1)[uniq]
-    if int(acc.sum(dtype=torch.int64)) != int(got.sum(dtype=torch.int64)):
-        raise AssertionError("B2 add form wrote outside its targets")
-    acc.zero_()
-    accumulate.scatter_add_plain(acc, ids, qslot, contrib)
-    ref = acc.view(-1)[uniq]
-    torch.cuda.synchronize()
-    err = max_abs_err([got], [ref], torch)
-    del got, ref, uniq
-    flat = flat.reshape(-1)
-    cvals = contrib.reshape(-1)
-    nbytes = 2 * p * lanes * 4 + p * 4 + touched * 4
-    ms = cuda_ms(lambda: accumulate.scatter_add(acc, ids, qslot, contrib), torch)
-    pms = cuda_ms(lambda: accumulate.scatter_add_plain(acc, ids, qslot, contrib), torch)
-    acc_flat = acc.view(-1)
-    lms = cuda_ms(lambda: acc_flat.index_put_((flat,), cvals, accumulate=True), torch)
+    err, ms, pms, lms, touched = accumulate_case(
+        "B2 add form", q, width,
+        lambda a: accumulate.scatter_add(a, ids, qslot, contrib),
+        lambda a: accumulate.scatter_add_plain(a, ids, qslot, contrib),
+        (qslot.long()[:, None] * width + ids.long()).reshape(-1),
+        contrib.reshape(-1))
+    nbytes = 2 * p * lanes * 4 + p * 4 + touched * 8
     log(f"B2 add Q={q} width={width} P={p} L={lanes}: err {err} kernel "
         f"{ms:.4f} ms plain {pms:.4f} ms index_put_ {lms:.4f} ms bound "
         f"{bound_ms(nbytes):.4f} ms")
-    if err:
-        raise AssertionError("B2 add form disagrees with its plain version")
     b2["add_form"] = {"launches_on_and_path": main_launches["B2add"],
                       "max_abs_err": err, "ms": ms, "plain_ms": pms,
                       "bound_ms": bound_ms(nbytes), "library_ms": lms,
                       "shape": {"Q": q, "width": width, "P": p, "L": lanes}}
     b2["max_abs_err"] = max(b2["max_abs_err"], err)
     report.append(b2)
-    del acc, flat, cvals, contrib
+    del contrib, ids, qslot
 
+    # B2, add form, at the ranked path's largest scatter: u8 codes
+    c = max(rcalls["B2add"], key=lambda c: c["P"])
+    q, width, p, lanes = c["Q"], c["width"], c["P"], c["L"]
+    qslot, ids = distinct_ids(q, p, lanes, width)
+    codes = rand_int(256, p * lanes).reshape(p, lanes)
+    flat = (qslot.long()[:, None] * width + ids.long())[codes != 0]
+    err, ms, pms, lms, touched = accumulate_case(
+        "B2 add form (ranked)", q, width,
+        lambda a: accumulate.scatter_add(a, ids, qslot, codes),
+        lambda a: accumulate.scatter_add_plain(a, ids, qslot, codes),
+        flat, codes[codes != 0])
+    nbytes = 2 * p * lanes * 4 + p * 4 + touched * 8
+    log(f"B2 add (ranked shape) Q={q} width={width} P={p} L={lanes}: err "
+        f"{err} kernel {ms:.4f} ms plain {pms:.4f} ms index_put_ {lms:.4f} "
+        f"ms bound {bound_ms(nbytes):.4f} ms")
+    report.append({
+        "name": "scatter_add (B2, add form)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/accumulate.cu",
+        "replaces": "src/repro/kernels/accumulate.py:85",
+        "launches": sum(ranked_launches["B2add"].values()),
+        "path": "ranked", "ranked_launches": ranked_launches["B2add"],
+        "max_abs_err": err, "ms": ms, "plain_ms": pms,
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+        "library_ms": lms,
+        "shape": {"Q": q, "width": width, "P": p, "L": lanes}, "ok": True})
+    del flat, codes, ids, qslot
+    torch.cuda.empty_cache()
+
+    # B3 at the ranked path's largest unpack (random slots into an arena of
+    # the real row count)
+    c = max(rcalls["B3"], key=lambda c: c["W"])
+    w, n_tiles = c["W"], c["tiles"]
+    tiles = rand_words((n_tiles, 128))
+    slots = rand_int(n_tiles, w)
+    got = topk.unpack_codes(tiles, slots)
+    ref = topk.unpack_codes_plain(tiles, slots)
+    torch.cuda.synchronize()
+    err = max_abs_err([got], [ref], torch)
+    # distinct rows read, the slot indices, 2 KB of codes written per entry
+    nbytes = torch.unique(slots).numel() * 512 + w * 4 + w * 2048
+    ms = cuda_ms(lambda: topk.unpack_codes(tiles, slots), torch)
+    pms = cuda_ms(lambda: topk.unpack_codes_plain(tiles, slots), torch)
+    log(f"B3 W={w} tiles={n_tiles}: err {err} kernel {ms:.4f} ms plain "
+        f"{pms:.4f} ms bound {bound_ms(nbytes):.4f} ms")
+    if err:
+        raise AssertionError("B3 disagrees with its plain version")
+    report.append({
+        "name": "unpack_codes (B3)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk.cu",
+        "replaces": "src/repro/kernels/topk.py:295",
+        "launches": sum(ranked_launches["B3"].values()), "path": "ranked",
+        "ranked_launches": ranked_launches["B3"], "max_abs_err": err,
+        "ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"W": w, "tiles": n_tiles}, "ok": True})
+    del tiles, slots, got, ref
+
+    # B4 at the ranked path's largest dense add: windows at random
+    # 128-aligned columns, half the codes zero
+    b4_calls = rcalls["B4"] or [{"P": 1, "Q": q, "width": width}]
+    c = max(b4_calls, key=lambda c: c["P"])
+    p, q, width = c["P"], c["Q"], c["width"]
+    win = accumulate.DENSE_WINDOW
+    qslot = torch.sort(rand_int(q, p)).values
+    col0 = rand_int((width - win) // 128 + 1, p) * 128
+    codes = torch.where(rand_int(2, p * win).reshape(p, win) == 0, 0,
+                        rand_int(256, p * win).reshape(p, win))
+    act = torch.ones(p, dtype=torch.bool, device=dev)
+    nz = codes != 0
+    flat = (qslot.long()[:, None] * width + col0.long()[:, None]
+            + torch.arange(win, device=dev))[nz]
+    err, ms, pms, lms, touched = accumulate_case(
+        "B4", q, width,
+        lambda a: accumulate.dense_add(a, codes, qslot, col0, act),
+        lambda a: accumulate.dense_add_plain(a, codes, qslot, col0, act),
+        flat, codes[nz])
+    # 16 KB of codes and 9 B of indices per entry, 8 B of read-modify-write
+    # per distinct word a non-zero code touches
+    nbytes = p * win * 4 + p * 9 + touched * 8
+    log(f"B4 Q={q} width={width} P={p}: err {err} kernel {ms:.4f} ms plain "
+        f"{pms:.4f} ms index_put_ {lms:.4f} ms bound "
+        f"{bound_ms(nbytes):.4f} ms"
+        f"{'' if rcalls['B4'] else ' (no dense block on the ranked path)'}")
+    report.append({
+        "name": "dense_add (B4)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/accumulate.cu",
+        "replaces": "src/repro/kernels/accumulate.py:137",
+        "launches": sum(ranked_launches["B4"].values()), "path": "ranked",
+        "ranked_launches": ranked_launches["B4"], "max_abs_err": err,
+        "ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": lms,
+        "shape": {"Q": q, "width": width, "P": p}, "ok": True})
+    del codes, flat, nz, qslot, col0, act
+
+    phase_done("kernels")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
+    print(json.dumps({"phases_s": phase_s, "ranked": {
+        m: {k: v for k, v in r.items() if k != "recent"}
+        for m, r in ranked.items()}}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,9 @@ On top sit the batched paths:
     (rows, 128) tiles at its bit width rounded up to
     ``decode_fused.BW_BUCKETS``, decoded *and* probed by the CUDA kernels B5
     (one shared bitmap) and B1 (one bitmap segment per query).
+  * ``ensure_scores`` / ``fused_round_scored``: the quantized score column
+    (``index/scores.py``) beside the blocks; the ranked fused rounds unpack
+    it with kernel B3 on the same slots B1 decodes.
 
 ``stats`` counts calls and blocks per path.  An arena belongs to one
 immutable generation and one torch device.
@@ -32,7 +35,7 @@ import torch
 
 from ..core import codec as codec_lib
 from ..core.bits import cumsum_u32, ebw_np, from_np, i32, to_np, u32
-from ..kernels import decode_fused, intersect_rounds
+from ..kernels import decode_fused, intersect_rounds, topk
 from ..kernels.bitpack import LANES
 from ..kernels.intersect import bitmap_build_np
 from ..obs.trace import get_tracer
@@ -177,6 +180,7 @@ class DeviceArena:
         self._groups: dict = {}
         self._build_compressed_arenas(idx)
         self._pk = None
+        self.scores = None
         if build_fused:
             self.ensure_fused()
 
@@ -259,9 +263,14 @@ class DeviceArena:
         return self
 
     def ensure_scores(self) -> "DeviceArena":
-        raise NotImplementedError(
-            "the quantized score arena belongs to the ranked slice, not yet "
-            "ported (ROADMAP.md, step A.6)")
+        """Build the quantized impact score arena if absent: per posting
+        block one packed 128-word score column plus the block-max /
+        term-max / stripe tables (``index/scores.py``), the columns on this
+        arena's device."""
+        if self.scores is None:
+            from .scores import ScoreArena
+            self.scores = ScoreArena.from_index(self.idx, device=self.device)
+        return self
 
     @classmethod
     def from_index(cls, idx, build_fused: bool = True,
@@ -378,6 +387,49 @@ class DeviceArena:
             self.stats["fused_blocks"] += len(items)
         return np.concatenate(parts)
 
+    def _fused_rounds(self, pairs: list, cand_tiles, with_scores: bool,
+                      ubs=None):
+        """One kernel B1 call per bit-width bucket present in the work-list
+        (plus, ``with_scores``, one kernel B3 call on the bucket's score
+        slots): the shared body of the AND and ranked fused rounds, every
+        call at the exact length of its bucket.  ``ubs`` (optional, aligned
+        with ``pairs``) are per-entry quantized upper bounds, returned
+        reordered to align with the output rows.  Returns (ids, hits, codes
+        or None, qslots, ubs or None): device tensors of matching leading
+        length, then two host arrays."""
+        sa = self.ensure_scores().scores if with_scores else None
+        groups: dict = {}
+        for j, (qs, t, bi) in enumerate(pairs):
+            bw, row = self._pk_slot[(t, int(bi))]
+            groups.setdefault(bw, []).append((qs, row, j))
+        ids_l, hits_l, codes_l, qs_l, order = [], [], [], [], []
+        for bw, items in groups.items():
+            pk = self._pk[bw]
+            qs, rows, js = (np.asarray(c) for c in zip(*items))
+            ids, hits = intersect_rounds.segmented_decode_and(
+                pk["tiles"], *(_to_device(c, self.device)
+                               for c in (rows.astype(np.int32),
+                                         qs.astype(np.int32),
+                                         pk["first"][rows], pk["n"][rows])),
+                cand_tiles, bw=bw, crows=self._cand_rows)
+            ids_l.append(ids.reshape(len(items), -1))
+            hits_l.append(hits.reshape(len(items), -1))
+            if with_scores:
+                sslots = np.asarray([sa.slot[(pairs[j][1], int(pairs[j][2]))]
+                                     for j in js], np.int32)
+                codes = topk.unpack_codes(sa.tiles,
+                                          _to_device(sslots, self.device))
+                codes_l.append(codes.reshape(len(items), -1))
+            qs_l.append(qs.astype(np.int32))
+            order.append(js)
+            self.stats["fused_calls"] += 1
+            self.stats["fused_blocks"] += len(items)
+        cat = (lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs))
+        ncat = (lambda xs: xs[0] if len(xs) == 1 else np.concatenate(xs))
+        return (cat(ids_l), cat(hits_l), cat(codes_l) if with_scores else None,
+                ncat(qs_l),
+                None if ubs is None else np.asarray(ubs, np.int32)[ncat(order)])
+
     def fused_round(self, pairs: list, cand_tiles):
         """Segmented fused decode + probe for one device-resident AND round.
 
@@ -385,36 +437,17 @@ class DeviceArena:
             candidate tile block.
         cand_tiles: (Q * _cand_rows, 128) int32, the segmented bitmap.
 
-        One kernel B1 call per bit-width bucket present in the work-list.
         Returns (ids, hits, qslots): device tensors of matching leading
         length and the host qslot array; the decoded ids and hit masks never
         touch the host.
         """
-        groups: dict = {}
-        for qs, t, bi in pairs:
-            bw, row = self._pk_slot[(t, int(bi))]
-            groups.setdefault(bw, []).append((qs, row))
-        ids_parts, hit_parts, qs_parts = [], [], []
-        for bw, items in groups.items():
-            pk = self._pk[bw]
-            rows = np.asarray([r for _, r in items], np.int64)
-            qs = np.asarray([q for q, _ in items], np.int32)
-            ids, hits = intersect_rounds.segmented_decode_and(
-                pk["tiles"], *(_to_device(c, self.device)
-                               for c in (rows.astype(np.int32), qs,
-                                         pk["first"][rows], pk["n"][rows])),
-                cand_tiles, bw=bw, crows=self._cand_rows)
-            ids_parts.append(ids.reshape(len(items), -1))
-            hit_parts.append(hits.reshape(len(items), -1))
-            qs_parts.append(qs)
-            self.stats["fused_calls"] += 1
-            self.stats["fused_blocks"] += len(items)
-        if len(ids_parts) == 1:
-            return ids_parts[0], hit_parts[0], qs_parts[0]
-        return (torch.cat(ids_parts), torch.cat(hit_parts),
-                np.concatenate(qs_parts))
+        ids, hits, _, qs, _ = self._fused_rounds(pairs, cand_tiles, False)
+        return ids, hits, qs
 
     def fused_round_scored(self, pairs: list, cand_tiles, ubs=None):
-        raise NotImplementedError(
-            "ranked fused rounds (score-column unpack, kernel B3) belong to "
-            "the ranked slice, not yet ported (ROADMAP.md, step A.6)")
+        """Segmented fused decode + probe + score unpack for one ranked
+        round: like :meth:`fused_round`, and each entry's packed score words
+        also go through kernel B3, so the engine can scatter ``codes * hits``
+        straight into the segmented accumulator.  Returns (ids, hits, codes,
+        qslots, ubs); ids, hits and codes never touch the host."""
+        return self._fused_rounds(pairs, cand_tiles, True, ubs)

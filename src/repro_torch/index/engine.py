@@ -1,7 +1,8 @@
-"""Batched query engine, AND part: fused decode-and-intersect over the
-compressed index on the host, and device-resident AND rounds on the card.
+"""Batched query engine: fused decode-and-intersect over the compressed
+index on the host, and device-resident AND and ranked rounds on the card.
 
-Counterpart of the JAX package's ``index/engine.py`` for mode ``and``:
+Counterpart of the JAX package's ``index/engine.py`` for the modes ``and``,
+``or`` and ``and_scored``:
 
   1. **Host placement**: AND queries walk the rarest term first; for every
      other term the skip table prunes blocks before any decode, the kept
@@ -16,6 +17,14 @@ Counterpart of the JAX package's ``index/engine.py`` for mode ``and``:
   3. **Fused placement** (``to_device(fused=True)``): rounds >= 1 run the
      CUDA kernel B1 (unpack + prefix sum + per-query probe) over the packed
      gap tiles, and every round's survivors go through kernel B2.
+  4. **Ranked modes** (``or`` / ``and_scored``, BM25 top-k): on the host the
+     float oracle per query; on the device placements each round scatters
+     one term occurrence's quantized impact codes into a segmented score
+     accumulator (``kernels/topk``; kernel B3 unpacks the codes on the
+     fused placement, B2 and B4 add them), OR work-lists pruned by block-max
+     bounds against a static and then promoted per-query theta.  The one
+     host copy is the compacted candidate bitmap, which the block-lazy float
+     rescore ranks bit for bit as the host oracle.
 
 ``engine.plan(batch)`` resolves placement and per-term codec capabilities
 once; ``engine.execute(plan)`` follows the plan.  Entry points run on the
@@ -23,8 +32,7 @@ card: ``to_device(torch_device="cuda")`` raises without one, and the CPU is
 used only when asked for by name (``torch_device="cpu"``).
 
 Not yet ported, raising ``NotImplementedError`` with their ``ROADMAP.md``
-step: the ranked modes ``or`` / ``and_scored`` (A.6), plans on a mutated
-index (A.7) and doc-range sharded serving (A.10).
+step: plans on a mutated index (A.7) and doc-range sharded serving (A.10).
 """
 
 from __future__ import annotations
@@ -41,12 +49,13 @@ import torch
 
 from ..core import codec as codec_lib
 from ..core.bits import to_np
-from ..kernels import intersect, intersect_rounds
+from ..kernels import intersect, intersect_rounds, topk
 from ..obs.metrics import DevStatsView, MetricsRegistry
 from ..obs.trace import get_tracer
 from .device import _to_device, resolve_device
 from .invindex import InvertedIndex
 from .scores import B, K1  # noqa: F401  (re-export, as the reference does)
+from .scores import bm25_scores, topk_select
 
 # plan-time auto-placement: batches of at most this many queries are planned
 # onto the host even when arenas exist.  The reference derives a measured
@@ -92,6 +101,13 @@ def set_crossover(table: Optional[CrossoverTable] = None) -> None:
 
 _EMPTY_U32 = np.zeros(0, np.uint32)
 _EMPTY_U32.setflags(write=False)
+_EMPTY_I64 = np.zeros(0, np.int64)
+_EMPTY_I64.setflags(write=False)
+
+# per-entry quantized upper bound so large the adaptive-theta work-list
+# masking never drops the entry (``and_scored`` rounds, whose membership
+# must cover the whole intersection, always scatter)
+_UB_ALWAYS = 1 << 30
 
 # stacked-work-list memo entries kept per engine (each holds a round's
 # gathered device tensors; hot repeated batches skip the restacking)
@@ -159,8 +175,9 @@ class BlockCache:
 class QueryBatch:
     """A batch of term queries executed together for cache locality.
 
-    mode: "and" (docid arrays); "or" and "and_scored" (BM25 top-k) are the
-    ranked modes, still to be ported.
+    mode: "and" (sorted uint32 docid arrays); "or" and "and_scored" (BM25
+    top-k lists of (docid, score), descending score, ties by ascending
+    docid).
     """
     queries: list
     mode: str = "and"
@@ -172,14 +189,9 @@ PLACEMENTS = ("host", "device", "fused")
 
 
 def _check_mode(mode) -> None:
-    """Reject unknown batch modes with the nearest-name convention, and the
-    ranked modes with the step that ports them."""
-    if mode == "and":
-        return
+    """Reject unknown batch modes with the nearest-name convention."""
     if mode in MODES:
-        raise NotImplementedError(
-            f"mode {mode!r} belongs to the ranked slice, not yet ported "
-            "(ROADMAP.md, step A.6); this port serves mode 'and'")
+        return
     near = difflib.get_close_matches(str(mode), MODES, n=1)
     hint = f" (did you mean {near[0]!r}?)" if near else ""
     raise ValueError(
@@ -202,9 +214,11 @@ class TermCaps:
 
 class _ExecCtx:
     """The frozen serving view a query (or a pinned plan) executes against:
-    one immutable generation.  Mutation epochs (tombstones, a delta segment)
-    are not yet served by the port (``ROADMAP.md``, step A.7)."""
-    __slots__ = ("gen", "n_docs", "skey")
+    one immutable generation and its corpus statistics (doclen, n_docs,
+    avdl), which every BM25 site reads.  Mutation epochs (tombstones, a
+    delta segment) are not yet served by the port (``ROADMAP.md``, step
+    A.7)."""
+    __slots__ = ("gen", "doclen", "n_docs", "avdl", "skey")
 
     def __init__(self, idx):
         if getattr(idx, "mutated", False):
@@ -213,7 +227,9 @@ class _ExecCtx:
                 "yet ported (ROADMAP.md, step A.7); compact() it first")
         gen = getattr(idx, "gen", idx)
         self.gen = gen
+        self.doclen = gen.doclen
         self.n_docs = gen.n_docs
+        self.avdl = gen.avdl
         self.skey = (gen.gid, 0, 0)
 
 
@@ -245,6 +261,10 @@ _DEV_COUNTERS = (
     ("resident_rounds", "AND rounds run with candidates device-resident"),
     ("cand_syncs", "per-round candidate downloads (0 on resident paths)"),
     ("final_syncs", "end-of-batch result downloads (one per batch)"),
+    ("score_rounds", "ranked accumulate rounds run device-resident"),
+    ("score_syncs", "per-round score downloads (always 0 when resident)"),
+    ("blocks_pruned", "ranked work-list entries dropped by block-max"),
+    ("blocks_scored", "ranked work-list entries actually scored"),
     ("blocks_dense", "entries served from the dense-bitmap representation"),
 )
 _ENGINE_SEQ = itertools.count()
@@ -575,10 +595,12 @@ class QueryEngine:
         ns = np.asarray([rows[e][1] for e in pairs], np.int32)
         return mat[torch.as_tensor(sel, device=mat.device)], qs, ns
 
-    def _stack_dense(self, entries: list):
+    def _stack_dense(self, entries: list, ubs=None, with_codes: bool = False):
         """Gather a round's dense-bitmap work-list: the entries' 128-word
-        posting windows in one device gather.  Returns (words, qslots, w0,
-        act) device tensors, every entry active."""
+        posting windows and, ``with_codes``, their window-aligned score
+        tiles, in one device gather each (memoized per (gid, block-list)).
+        Returns (words, tiles or None, qslots, w0, act, ub or None) device
+        tensors, every entry active; ``ub`` only where ``ubs`` is given."""
         ctx = self._cur()
         ar = self._arena_ctx(ctx)
         dev = ar.device
@@ -587,12 +609,26 @@ class QueryEngine:
         def build():
             sel = np.asarray([ar.dense_slot[b] for b in blocks], np.int64)
             words = ar.dense_words[torch.as_tensor(sel, device=dev)]
-            return words, torch.as_tensor(ar.dense_w0[sel], device=dev)
+            tiles = None
+            if with_codes:
+                sa = ar.ensure_scores().scores
+                srows = [sa.dense_slot[b] for b in blocks]
+                tiles = sa.dense_tiles[torch.as_tensor(srows, device=dev)]
+            return words, tiles, torch.as_tensor(ar.dense_w0[sel], device=dev)
 
-        words, w0 = self._round_memo((ctx.gen.gid, "dense", blocks), build)
+        words, tiles, w0 = self._round_memo(
+            (ctx.gen.gid, "dense", with_codes, blocks), build)
         qs = np.asarray([q for q, _, _ in entries], np.int32)
-        return (words, torch.as_tensor(qs, device=dev), w0,
-                torch.ones(len(entries), dtype=torch.bool, device=dev))
+        ub = (None if ubs is None
+              else torch.as_tensor(np.asarray(ubs, np.int32), device=dev))
+        return (words, tiles, torch.as_tensor(qs, device=dev), w0,
+                torch.ones(len(entries), dtype=torch.bool, device=dev), ub)
+
+    def _score_rows(self, sa, pairs: list):
+        """Memoized ``ScoreArena.rows`` for a round's (term, block)
+        work-list."""
+        key = (self._cur().gen.gid, "codes", tuple(pairs))
+        return self._round_memo(key, lambda: sa.rows(pairs))
 
     def _and_qterms(self, queries: list, ctx: _ExecCtx) -> list:
         """Per-query known terms sorted rarest-first (df ascending)."""
@@ -664,7 +700,7 @@ class QueryEngine:
                     new, ids.reshape(len(qs), -1), _to_device(qs, dev),
                     hits.reshape(len(qs), -1))
             if dense:
-                dw, dqs, dw0, dact = self._stack_dense(dense)
+                dw, _, dqs, dw0, dact, _ = self._stack_dense(dense)
                 new = intersect_rounds.dense_round_accumulate(
                     new, dw, dqs, dw0, dact, bm, probe=probe)
             return intersect_rounds.round_commit(
@@ -746,11 +782,315 @@ class QueryEngine:
             owned = True
         return cand if owned else cand.copy()
 
+    # ---- BM25 -------------------------------------------------------------- #
+
+    def term_scores(self, t: int):
+        """(docids, float64 BM25 impacts) of term t, through the score
+        cache."""
+        ctx = self._cur()
+        key = (t,) + ctx.skey
+        v = self.score_cache.get(key)
+        if v is None:
+            ids, tfs = self.term_ids(t), self.term_tfs(t)
+            sc = bm25_scores(tfs, ctx.doclen[ids], ctx.gen.terms[t].df,
+                             ctx.n_docs, ctx.avdl)
+            v = (ids, self._freeze(sc))
+            self.score_cache.put(key, v)
+        return v
+
     def or_query(self, terms: list, k: int = 10):
-        _check_mode("or")
+        """Host top-k of the disjunction: exact BM25 summed over the known
+        terms, :func:`topk_select` order."""
+        ctx = self._cur()
+        parts = [self.term_scores(t) for t in terms if t in ctx.gen.terms]
+        if not parts:
+            return []
+        ids = np.concatenate([p[0] for p in parts])
+        sc = np.concatenate([p[1] for p in parts])
+        docs, inv = np.unique(ids, return_inverse=True)
+        if len(docs) == 0:
+            return []
+        tot = np.zeros(len(docs))
+        np.add.at(tot, inv, sc)
+        return topk_select(docs, tot, k)
+
+    def _score_docs(self, terms: list, docs: np.ndarray, k: int) -> list:
+        """The host float top-k oracle: exact BM25 over ``docs`` (term-level
+        score vectors through the score cache), accumulated in query-term
+        order and selected with :func:`topk_select`."""
+        if len(docs) == 0:
+            return []
+        ctx = self._cur()
+        scores = np.zeros(len(docs))
+        for t in terms:
+            if t not in ctx.gen.terms or not ctx.gen.terms[t].blocks:
+                continue            # unknown or zero-posting term scores 0
+            ids, sc = self.term_scores(t)
+            pos = np.searchsorted(ids, docs)
+            pos = np.clip(pos, 0, len(ids) - 1)
+            hit = ids[pos] == docs
+            scores += np.where(hit, sc[pos], 0.0)
+        return topk_select(docs, scores, k)
+
+    def _block_plans(self, t: int, docs: np.ndarray) -> np.ndarray:
+        """Per doc, the index of term t's block whose [first, last] range
+        holds it, or -1."""
+        gen = self._cur().gen
+        bi = np.searchsorted(gen.block_firsts(t), docs, side="right") - 1
+        return np.where(gen.block_lasts(t)[np.maximum(bi, 0)] >=
+                        docs.astype(np.int64), bi, -1)
+
+    def _blockwise_scores(self, t: int, docs: np.ndarray,
+                          bi: np.ndarray) -> np.ndarray:
+        """Exact BM25 of term t at ``docs`` (0 where absent), decoding only
+        the blocks ``bi`` names."""
+        ctx = self._cur()
+        df = ctx.gen.terms[t].df
+        vals = np.zeros(len(docs))
+        for b in np.unique(bi[bi >= 0]):
+            sel = np.flatnonzero(bi == b)
+            ids, tfs = self.decode_block(t, int(b))
+            pos = np.searchsorted(ids, docs[sel])
+            pos = np.clip(pos, 0, len(ids) - 1)
+            hit = ids[pos] == docs[sel]
+            sub = sel[hit]
+            vals[sub] = bm25_scores(tfs[pos[hit]], ctx.doclen[docs[sub]], df,
+                                    ctx.n_docs, ctx.avdl)
+        return vals
+
+    def _score_docs_blockwise(self, terms: list, docs: np.ndarray,
+                              k: int) -> list:
+        """Exact float rescore touching only the blocks that hold ``docs``;
+        bitwise identical to :meth:`_score_docs` (same formula, same per-doc
+        term accumulation order, same tie rule)."""
+        if len(docs) == 0:
+            return []
+        return self._rescore_batch_blockwise([terms], [docs], k)[0]
+
+    def _rescore_batch_blockwise(self, queries: list, cand: list,
+                                 k: int) -> list:
+        """Batch form of :meth:`_score_docs_blockwise`: each term scores the
+        union of its queries' candidates once (decoding only the blocks that
+        hold them), then every query accumulates its own docs in query-term
+        order from the shared per-term vectors.  Bitwise identical to the
+        per-query form: a candidate a term does not hold adds +0.0 exactly
+        as the host oracle's ``np.where`` does."""
+        union: dict = {}
+        for q, c in zip(queries, cand):
+            if len(c) == 0:
+                continue
+            for t in dict.fromkeys(q):
+                union.setdefault(t, []).append(c)
+        idx = self._cur().gen
+        plans, prefetch = [], []
+        for t, parts in union.items():
+            if t not in idx.terms or not idx.terms[t].blocks:
+                continue            # unknown or zero-posting term scores 0
+            docs = (parts[0] if len(parts) == 1
+                    else np.unique(np.concatenate(parts)))
+            bi = self._block_plans(t, docs)
+            plans.append((t, docs, bi))
+            if self.arena is not None:
+                prefetch.extend((t, int(b), f)
+                                for b in np.unique(bi[bi >= 0])
+                                for f in (0, 1))
+        if prefetch:
+            self._prefetch_blocks(prefetch)
+        shared = {t: (docs, self._blockwise_scores(t, docs, bi))
+                  for t, docs, bi in plans}
+        out = []
+        for q, c in zip(queries, cand):
+            if len(c) == 0:
+                out.append([])
+                continue
+            scores = np.zeros(len(c))
+            for t in q:             # query-term order, duplicates kept
+                e = shared.get(t)
+                if e is not None:
+                    docs, vals = e
+                    scores += vals[np.searchsorted(docs, c)]
+            out.append(topk_select(c, scores, k))
+        return out
 
     def and_query_scored(self, terms: list, k: int = 10):
-        _check_mode("and_scored")
+        return self._score_docs(terms, self.and_query(terms), k)
+
+    # ---- device-resident ranked top-k (OR / and_scored) --------------------- #
+
+    def _prune_ranked_blocks(self, sa, occs: list, r: int, theta0: int,
+                             iq: int = 1 << 16) -> tuple:
+        """Block-max prune for occurrence ``r`` of an OR query's term list:
+        drop blocks whose upper bound (own block-max, plus every other
+        occurrence's max code over the block's docid range, plus the
+        quantization margin) cannot beat ``theta0``.  Returns (keep,
+        n_pruned, ub[keep]); the kept bounds ride to the device, where later
+        rounds re-test them against the promoted theta."""
+        t = occs[r]
+        gen = self._cur().gen
+        nb = gen.n_blocks(t)
+        if nb == 0:
+            return np.arange(0), 0, _EMPTY_I64
+        firsts = gen.block_firsts(t)
+        lasts = gen.block_lasts(t)
+        base = sa.slot[(t, 0)]          # a term's slots are contiguous
+        ub = sa.block_max[base:base + nb].astype(np.int64) + len(occs)
+        for t2 in occs[:r] + occs[r + 1:]:
+            ub += sa.range_max_many(t2, firsts, lasts)
+        if theta0 <= 0:
+            return np.arange(nb), 0, ub
+        keep = np.flatnonzero(ub > (theta0 * iq) >> 16)
+        return keep, nb - len(keep), ub[keep]
+
+    def _ranked_resident(self, queries: list, k: int, mode: str,
+                         terms: Mapping[int, TermCaps] | None = None,
+                         use_fused: bool = False) -> list:
+        """Ranked top-k with scores device-resident across rounds.
+
+        Round r scatters every query's r-th strongest term occurrence into
+        the segmented score accumulator (``kernels/topk``); for
+        ``and_scored`` gated by the AND bitmap, which never leaves the card
+        (``_and_bitmap_resident``).  OR work-lists are block-max pruned
+        against the static theta0 before any decode, and after every round
+        the per-query theta is promoted on the card (``pooled_threshold``),
+        so later rounds drop entries whose bound cannot beat it.  The single
+        host copy is the compacted candidate bitmap (k-th quantized sum
+        minus the quantization margin, a superset of the float top-k), which
+        the block-lazy float rescore ranks exactly: results equal the host
+        path bit for bit, ties broken by ascending docid."""
+        ctx = self._cur()
+        nq = len(queries)
+        if nq == 0:
+            return []
+        known = [[t for t in q if t in ctx.gen.terms] for q in queries]
+        if k <= 0 or not any(known):
+            return [[] for _ in queries]
+        acc, member, margins, iq_dev, width = self._ranked_accumulate(
+            queries, k, mode, terms, use_fused, base_ts=known)
+        theta = topk.topk_threshold(acc, min(k, width))
+        cand_bm = topk.candidate_bitmap(acc, member, theta, margins, iq_dev)
+        del acc, member
+        # the single host copy: candidate bitmaps -> exact float rescore
+        self.metrics.inc("final_syncs")
+        cand = intersect_rounds.extract_ids(to_np(cand_bm), ctx.n_docs)
+        del cand_bm
+        return self._ranked_rescore(queries, cand, k, mode)
+
+    def _ranked_accumulate(self, queries: list, k: int, mode: str,
+                           terms: Mapping[int, TermCaps] | None,
+                           use_fused: bool, *, base_ts: list):
+        """The round loop of :meth:`_ranked_resident`: accumulate the batch's
+        quantized impact codes device-resident and return the final state
+        ``(acc, member, margins, iq, width)``, no threshold, no download.
+        ``margins`` is each query's known-term count (the quantization
+        margin); ``iq`` the identity Q16.16 scale of an unmutated epoch."""
+        ctx = self._cur()
+        idx = ctx.gen
+        nq = len(queries)
+        ar = self.arena
+        sa = ar.ensure_scores().scores
+        dev = ar.device
+        words, crows = intersect_rounds.bitmap_geometry(idx.n_docs)
+        width = topk.accum_width(idx.n_docs)
+        acc = torch.zeros((nq, width), dtype=torch.int32, device=dev)
+        member = torch.zeros((nq, words), dtype=torch.int32, device=dev)
+        gate = cov = None
+        if mode == "and_scored":
+            gate, _, cov = self._and_bitmap_resident(queries, terms,
+                                                     use_fused)
+        gate_tiles = None
+        if use_fused:       # the probe target of the fused rounds: the AND
+            # bitmap, or (OR mode) all ones so only lane validity gates
+            gate_tiles = (gate if gate is not None else torch.full(
+                (nq, words), -1, dtype=torch.int32, device=dev)
+                          ).reshape(nq * crows, -1)
+        order = [sorted(ts, key=lambda t: -sa.term_max[t]) for ts in base_ts]
+        margins = torch.as_tensor([len(ts) for ts in base_ts],
+                                  dtype=torch.int32, device=dev)
+        iq_dev = torch.full((nq,), 1 << 16, dtype=torch.int32, device=dev)
+        theta0 = ([sa.theta0(ts, k) for ts in base_ts] if mode == "or"
+                  else [0] * nq)
+        theta_dev = torch.as_tensor(theta0, dtype=torch.int32, device=dev)
+        nrounds = max((len(ts) for ts in order), default=0)
+        for r in range(nrounds):
+            # detached span: covers work-list selection, block-max pruning
+            # and the round's kernel calls
+            rsp = self.tracer.begin("ranked/round", lane=self.trace_lane,
+                                    r=r, mode=mode)
+            plain, fused_pairs, dense = [], [], []
+            plain_ub, fused_ub, dense_ub = [], [], []
+            for i in range(nq):
+                ts = order[i]
+                if len(ts) <= r or (cov is not None and i not in cov):
+                    continue        # done, or AND seed empty: nothing scores
+                t = ts[r]
+                if mode == "or":
+                    sel, pruned, ubs_i = self._prune_ranked_blocks(
+                        sa, ts, r, theta0[i])
+                else:
+                    sel, pruned, ubs_i = (
+                        self._select_blocks_static(t, *cov[i]), 0, None)
+                self.metrics.inc("blocks_pruned", pruned)
+                self.metrics.inc("blocks_scored", len(sel))
+                f = use_fused and (terms[t].fused if terms is not None
+                                   else ar.has_fused(t, sel))
+                n_dense = 0
+                for j, bi in enumerate(sel):
+                    e = (i, t, int(bi))
+                    u = int(ubs_i[j]) if ubs_i is not None else _UB_ALWAYS
+                    if ((t, int(bi)) in ar.dense_slot
+                            and (t, int(bi)) in sa.dense_slot):
+                        dense.append(e)
+                        dense_ub.append(u)
+                        n_dense += 1
+                    elif f:
+                        fused_pairs.append(e)
+                        fused_ub.append(u)
+                    else:
+                        plain.append(e)
+                        plain_ub.append(u)
+                self.metrics.inc("blocks_dense", n_dense)
+            self.metrics.inc("score_rounds")
+            probe = gate if gate is not None else member
+            if plain:
+                rows, qs, ns = self._stack_worklist(plain)
+                codes = self._score_rows(sa, [(t, bi) for _, t, bi in plain])
+                topk.score_round(
+                    acc, member, rows, _to_device(qs, dev), codes,
+                    _to_device(ns, dev), probe,
+                    _to_device(np.asarray(plain_ub, np.int32), dev),
+                    theta_dev, iq_dev, gated=gate is not None)
+            if fused_pairs:
+                ids, hits, codes, qs, ubf = ar.fused_round_scored(
+                    fused_pairs, gate_tiles, fused_ub)
+                topk.score_round_masked(
+                    acc, member, ids, _to_device(qs, dev), codes, hits,
+                    _to_device(ubf, dev), theta_dev, iq_dev)
+                del ids, hits, codes
+            if dense:
+                dw, dtiles, dqs, dw0, _, dub = self._stack_dense(
+                    dense, dense_ub, with_codes=True)
+                topk.dense_score_round(acc, member, dtiles, dw, dqs, dw0, dub,
+                                       theta_dev, iq_dev, probe,
+                                       gated=gate is not None)
+            if mode == "or" and k <= width // 32 and r + 1 < nrounds:
+                # adaptive promotion: the pooled k-th is a sound, monotone
+                # lower bound on the final k-th sum (only with the full k:
+                # fewer pooled groups than k would over-promote)
+                theta_dev = torch.maximum(theta_dev,
+                                          topk.pooled_threshold(acc, k))
+            self.tracer.fence(acc)
+            self.tracer.end(rsp, plain=len(plain), fused=len(fused_pairs),
+                            dense=len(dense))
+        return acc, member, margins, iq_dev, width
+
+    def _ranked_rescore(self, queries: list, cand: list, k: int,
+                        mode: str) -> list:
+        """The exact float tail: block-lazy batch rescore of the candidates
+        (sorted docids).  Span ``ranked/rescore``."""
+        with self.tracer.span("ranked/rescore", lane=self.trace_lane,
+                              nq=len(queries), mode=mode,
+                              cands=sum(len(c) for c in cand)):
+            return self._rescore_batch_blockwise(queries, cand, k)
 
     # ---- planned execution -------------------------------------------------- #
 
@@ -830,9 +1170,10 @@ class QueryEngine:
         implicitly (bit-identical results).
 
         On the host placement queries run grouped by sorted term signature
-        so queries sharing terms hit the decoded-block cache back to back;
-        on the device/fused placements the batch runs round-batched and
-        device-resident through ``_and_many_resident``."""
+        so queries sharing terms hit the decoded-block and score caches back
+        to back; on the device/fused placements the batch runs round-batched
+        and device-resident: mode ``and`` through ``_and_many_resident``,
+        the ranked modes through ``_ranked_resident``."""
         if isinstance(work, QueryBatch):
             work = self.plan(work)
         with self.tracer.span("engine/execute", lane=self.trace_lane,
@@ -857,11 +1198,13 @@ class QueryEngine:
             prev_ctx, self._ctx = self._ctx, ctx
             prev_arena, self.arena = self.arena, arena
             try:
-                return self._and_many_resident(
-                    [list(q) for q in plan.queries], plan.terms,
-                    plan.placement == "fused")
+                return self._execute_device(plan)
             finally:
                 self._ctx, self.arena = prev_ctx, prev_arena
+        fn = {"and": self.and_query,
+              "or": lambda q: self.or_query(q, plan.k),
+              "and_scored": lambda q: self.and_query_scored(q, plan.k)
+              }[plan.mode]
         order = sorted(range(len(plan.queries)),
                        key=lambda i: tuple(sorted(plan.queries[i])))
         results = [None] * len(plan.queries)
@@ -872,8 +1215,16 @@ class QueryEngine:
         prev_arena, self.arena = self.arena, None
         try:
             for i in order:
-                results[i] = self.and_query(list(plan.queries[i]))
+                results[i] = fn(list(plan.queries[i]))
         finally:
             self._ctx = prev_ctx
             self._fused, self.arena = prev_fused, prev_arena
         return results
+
+    def _execute_device(self, plan: ExecutionPlan) -> list:
+        queries = [list(q) for q in plan.queries]
+        fused = plan.placement == "fused"
+        if plan.mode == "and":
+            return self._and_many_resident(queries, plan.terms, fused)
+        return self._ranked_resident(queries, plan.k, plan.mode, plan.terms,
+                                     fused)

@@ -2,9 +2,11 @@
 beside its plain torch version.
 
 decode_fused (B5) and intersect_rounds (B1): fused unpack + prefix sum +
-candidate-bitmap probe; accumulate (B2): segmented scatter of survivor bits
-and integer contributions; intersect: host gallop/bitmap helpers;
-cuda_build: nvcc build and ctypes binding.
+candidate-bitmap probe; accumulate (B2, B4): segmented scatter of survivor
+bits and integer contributions, and the dense 4096-column window add;
+topk (B3): score-column unpack, and the ranked rounds, thresholds and
+candidate compact; intersect: host gallop/bitmap helpers; cuda_build: nvcc
+build and ctypes binding.
 
 Launch accounting lives here, in one place: each wrapper calls
 :func:`count_launch` where it launches its kernel, and nowhere else (a CPU
@@ -16,13 +18,14 @@ from __future__ import annotations
 
 import collections
 
-LAUNCHES: dict[str, int] = dict.fromkeys(("B1", "B2", "B2add", "B5"), 0)
+LAUNCHES: dict[str, int] = dict.fromkeys(
+    ("B1", "B2", "B2add", "B3", "B4", "B5"), 0)
 RECENT: collections.deque = collections.deque(maxlen=4096)
 
 
 def count_launch(kernel: str, **shape) -> None:
-    """Record one launch of ``kernel`` ("B1", "B2", "B2add" or "B5") with
-    the sizes it was launched at."""
+    """Record one launch of ``kernel`` (a key of ``LAUNCHES``) with the
+    sizes it was launched at."""
     LAUNCHES[kernel] += 1
     RECENT.append((kernel, shape))
 

@@ -14,9 +14,18 @@ accumulator.
   row-resident VMEM aliasing existed for its sequential grid; the port drops
   both.  What bounds it on the H100 is bytes: ids, masks and contributions
   read once, one 4-byte read-modify-write per survivor.
-* :func:`dense_window_gather` / :func:`dense_window_add`: 128-word window
-  probe/commit of the dense AND rounds, plain torch (the reference leaves
-  them to XLA).
+* :func:`dense_add`: kernel B4 of the port (``csrc/accumulate.cu``),
+  replacing the Pallas kernel ``kernels/accumulate.py`` ``_dense_pallas``
+  (body ``_dense_kernel``): ``acc[qslot[j], col0[j] : col0[j] + 4096] +=
+  codes[j]`` where ``act[j]``.  The TPU form relied on a sequential grid
+  (entries sorted by query, the row aliased in VMEM); two entries of one
+  query may overlap in columns within a call, so the kernel makes one
+  unsigned ``atomicAdd`` per non-zero code.  What bounds it on the H100 is
+  bytes: 16 KB of codes per entry and one read-modify-write per touched
+  word.
+* :func:`dense_window_gather` / :func:`dense_window_add` /
+  :func:`dense_window_or`: 128-word window probe/commit of the dense
+  rounds, plain torch (the reference leaves them to XLA).
 
 Both sparse forms update their state **in place** and return it: the
 reference's ``scatter_bits`` returned a freshly zeroed scatter that its
@@ -43,6 +52,8 @@ DENSE_WINDOW = 4096          # dense score window: 128 words * 32 bits
 WINDOW_WORDS = 128
 
 _SCATTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [
+    ctypes.c_void_p]
+_DENSE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
     ctypes.c_void_p]
 
 
@@ -82,15 +93,32 @@ def _flat_targets(state, cols, qslot, keep):
     return (q * state.shape[1] + cols)[keep], keep
 
 
+def _sums_at(flat, vals):
+    """(unique flat indices, int64 sum of ``vals`` at each)."""
+    uniq, inv = torch.unique(flat, return_inverse=True)
+    sums = torch.zeros(uniq.shape[0], dtype=torch.int64, device=flat.device)
+    sums.index_add_(0, inv, vals)
+    return uniq, sums
+
+
 def _add_at(state, flat, vals) -> None:
     """state.flat[flat] += vals mod 2**32, duplicates summed first."""
     if flat.numel() == 0:
         return
-    uniq, inv = torch.unique(flat, return_inverse=True)
-    sums = torch.zeros(uniq.shape[0], dtype=torch.int64, device=flat.device)
-    sums.index_add_(0, inv, vals)
+    uniq, sums = _sums_at(flat, vals)
     view = state.view(-1)
     view[uniq] = i32(u32(view[uniq]) + sums)
+
+
+def _or_at(state, flat, vals) -> None:
+    """state.flat[flat] |= vals, duplicates summed first: the reference's
+    zeroed scatter-add ORed into ``state`` (an OR where the summed values
+    share no bit)."""
+    if flat.numel() == 0:
+        return
+    uniq, sums = _sums_at(flat, vals)
+    view = state.view(-1)
+    view[uniq] = view[uniq] | i32(sums)
 
 
 # --------------------------------------------------------------------------- #
@@ -122,13 +150,8 @@ def scatter_bits_plain(bm, ids, qslot, surv):
     reference's zeroed scatter-add of ``1 << (id & 31)``, ORed into ``bm``."""
     idw = u32(ids)
     flat, keep = _flat_targets(bm, idw >> 5, qslot, surv)
-    if flat.numel():
-        uniq, inv = torch.unique(flat, return_inverse=True)
-        sums = torch.zeros(uniq.shape[0], dtype=torch.int64, device=bm.device)
-        sums.index_add_(0, inv, torch.bitwise_left_shift(
-            torch.ones_like(idw), idw & 31)[keep])
-        view = bm.view(-1)
-        view[uniq] = view[uniq] | i32(sums)
+    _or_at(bm, flat, torch.bitwise_left_shift(torch.ones_like(idw),
+                                              idw & 31)[keep])
     return bm
 
 
@@ -161,21 +184,101 @@ def scatter_add_plain(acc, ids, qslot, contrib):
 
 
 # --------------------------------------------------------------------------- #
-# 128-word window probe / commit (bitmap AND rounds), plain torch
+# B4: dense 4096-column window add (score side of bitmap blocks)
+# --------------------------------------------------------------------------- #
+
+
+def _check_dense(acc, codes, qslot, col0, act) -> None:
+    named = {"acc": (acc, torch.int32), "codes": (codes, torch.int32),
+             "qslot": (qslot, torch.int32), "col0": (col0, torch.int32),
+             "act": (act, torch.bool)}
+    for name, (t, dt) in named.items():
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.device != acc.device:
+            raise ValueError(f"{name} on {t.device}, acc on {acc.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    p = codes.shape[0]
+    if (acc.dim() != 2 or acc.shape[1] < DENSE_WINDOW
+            or tuple(codes.shape) != (p, DENSE_WINDOW)):
+        raise ValueError(f"acc must be (Q, >= {DENSE_WINDOW}) and codes "
+                         f"(P, {DENSE_WINDOW}); got {tuple(acc.shape)}, "
+                         f"{tuple(codes.shape)}")
+    for name in ("qslot", "col0", "act"):
+        if tuple(named[name][0].shape) != (p,):
+            raise ValueError(f"{name} must have shape ({p},)")
+
+
+def dense_add(acc, codes, qslot, col0, act):
+    """``acc[qslot[j], col0[j] : col0[j] + 4096] += codes[j]`` mod 2**32
+    where ``act[j]``, in place; returns ``acc``.
+
+    acc: (Q, width) int32; codes: (P, 4096) int32; qslot, col0: (P,) int32
+    (``col0`` 128-aligned, the window inside the row); act: (P,) bool.
+    Entries need no order, and two entries of one query may overlap in
+    columns.
+    """
+    _check_dense(acc, codes, qslot, col0, act)
+    if not acc.is_cuda:
+        return dense_add_plain(acc, codes, qslot, col0, act)
+    if codes.shape[0]:
+        if codes.data_ptr() % 16:
+            raise ValueError("codes must be 16-byte aligned")
+        fn = cuda_build.function("accumulate", "repro_dense_add", _DENSE_ARGS)
+        with torch.cuda.device(acc.device):
+            err = fn(acc.data_ptr(), codes.data_ptr(), qslot.data_ptr(),
+                     col0.data_ptr(), act.data_ptr(), codes.shape[0],
+                     acc.shape[0], acc.shape[1], cuda_build.stream_ptr(acc))
+        cuda_build.check(err, "accumulate",
+                         f"repro_dense_add(P={codes.shape[0]})")
+        count_launch("B4", P=codes.shape[0], Q=acc.shape[0],
+                     width=acc.shape[1])
+    return acc
+
+
+def dense_add_plain(acc, codes, qslot, col0, act):
+    """Plain torch version of :func:`dense_add` (any device): the
+    reference's CPU route ``_dense_loop``, whose ``dynamic_slice`` clamps
+    each window's row and start into the array (the kernel instead stops on
+    such a window, a caller bug)."""
+    q = qslot.long().clamp(0, acc.shape[0] - 1)
+    c0 = col0.long().clamp(0, acc.shape[1] - DENSE_WINDOW)
+    cols = c0[:, None] + torch.arange(DENSE_WINDOW, device=acc.device)
+    flat = (q[:, None] * acc.shape[1] + cols)[act]
+    _add_at(acc, flat.reshape(-1), u32(codes)[act].reshape(-1))
+    return acc
+
+
+# --------------------------------------------------------------------------- #
+# 128-word window probe / commit (bitmap rounds), plain torch
 # --------------------------------------------------------------------------- #
 
 
 def dense_window_gather(bm, qslot, w0):
     """(P, 128) int32: each entry's word window of its query's bitmap row."""
-    cols = w0.long()[:, None] + torch.arange(WINDOW_WORDS, device=bm.device)
-    return bm[qslot.long()[:, None], cols]
+    return bm.view(-1)[_window_targets(bm, qslot, w0)]
 
 
 def dense_window_add(dst, vals, qslot, w0, act):
     """dst[qslot[j], w0[j] : w0[j] + 128] += vals[j] where act[j], in place
     (mod 2**32); returns ``dst``.  An exact OR under the disjoint-bits
     contract."""
-    cols = w0.long()[:, None] + torch.arange(WINDOW_WORDS, device=dst.device)
-    flat = (qslot.long()[:, None] * dst.shape[1] + cols)[act]
+    flat = _window_targets(dst, qslot, w0)[act]
     _add_at(dst, flat.reshape(-1), u32(vals)[act].reshape(-1))
     return dst
+
+
+def dense_window_or(dst, vals, qslot, w0, act):
+    """``dst | dense_window_add(zeros_like(dst), vals, qslot, w0, act)`` in
+    place (the membership commit of the dense score rounds); returns
+    ``dst``."""
+    flat = _window_targets(dst, qslot, w0)[act]
+    _or_at(dst, flat.reshape(-1), u32(vals)[act].reshape(-1))
+    return dst
+
+
+def _window_targets(dst, qslot, w0):
+    """(P, 128) flat indices of each entry's word window."""
+    cols = w0.long()[:, None] + torch.arange(WINDOW_WORDS, device=dst.device)
+    return qslot.long()[:, None] * dst.shape[1] + cols

@@ -1,5 +1,5 @@
-// Sparse segmented accumulate: the scatter half of every device-resident
-// round (kernel B2 of the port, both forms).
+// Segmented accumulate: the scatter half of every device-resident round.
+// Kernel B2 of the port (both forms) and kernel B4 (the dense window add).
 //
 // Replaces the JAX package's Pallas kernel kernels/accumulate.py
 // _sparse_pallas (body _sparse_kernel), behind scatter_add and scatter_bits:
@@ -29,6 +29,22 @@
 // read-modify-write of one 4-byte word in L2; there is no arithmetic to
 // speak of.  Consecutive lanes of an entry hold ascending docids of one
 // block, so a warp's atomics fall on few words.
+//
+// B4 (dense_add) replaces the JAX package's Pallas kernel
+// kernels/accumulate.py _dense_pallas (body _dense_kernel):
+//   acc[qslot[j], col0[j] : col0[j] + 4096] += codes[j]    where act[j]
+// The TPU form sorted entries by qslot, held the query's row in VMEM across
+// consecutive grid steps and relied on the grid running in order.  A GPU
+// grid has neither, and two entries of one query can overlap in columns
+// within one call: a dense window starts at its first docid's word rounded
+// down to a 4-word phase and clamped at the end of the bitmap, so
+// consecutive dense blocks of one term can share words.  Their non-zero
+// codes never share a docid, but a plain read-modify-write of the shared
+// columns would race; so every non-zero code is one atomicAdd (unsigned,
+// wrapping mod 2**32 like the reference's u32 add) and zeros are skipped.
+// One thread block per entry; each thread loads 16-byte vectors of codes.
+// Bound on the H100: bytes: 16 KB of codes per active entry, its 9 B of
+// indices, and one 4-byte read-modify-write per distinct touched word.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +80,33 @@ scatter_add_kernel(uint32_t* __restrict__ acc, const uint32_t* __restrict__ ids,
   const long long col = ids[k];
   if (q < 0 || q >= n_rows || col >= width) return;
   atomicAdd(acc + q * width + col, c);
+}
+
+constexpr int WINDOW = 4096;           // dense score window: 128 words * 32
+
+__global__ void __launch_bounds__(THREADS)
+dense_add_kernel(uint32_t* __restrict__ acc, const uint4* __restrict__ codes,
+                 const int32_t* __restrict__ qslot,
+                 const int32_t* __restrict__ col0,
+                 const uint8_t* __restrict__ act, long long n_rows,
+                 long long width) {
+  const long long j = blockIdx.x;
+  if (!act[j]) return;
+  const long long q = qslot[j];
+  const long long c0 = col0[j];
+  // a window outside the accumulator is a caller bug: stop the kernel with
+  // an error the next synchronisation reports, never write stray memory
+  if (q < 0 || q >= n_rows || c0 < 0 || c0 + WINDOW > width) __trap();
+  uint32_t* row = acc + q * width + c0;
+  const uint4* src = codes + j * (WINDOW / 4);
+  for (int v = threadIdx.x; v < WINDOW / 4; v += THREADS) {
+    const uint4 c = src[v];
+    uint32_t* dst = row + 4 * v;
+    if (c.x) atomicAdd(dst, c.x);
+    if (c.y) atomicAdd(dst + 1, c.y);
+    if (c.z) atomicAdd(dst + 2, c.z);
+    if (c.w) atomicAdd(dst + 3, c.w);
+  }
 }
 
 unsigned grid_for(long long n) {
@@ -105,6 +148,23 @@ extern "C" int repro_scatter_add(void* acc, const void* ids, const void* qslot,
       static_cast<uint32_t*>(acc), static_cast<const uint32_t*>(ids),
       static_cast<const int32_t*>(qslot), static_cast<const uint32_t*>(contrib),
       n_entries, lanes, n_rows, width);
+  return (int)cudaGetLastError();
+}
+
+// acc: (n_rows, width) u32, updated in place; codes: (n_entries, 4096) u32,
+// 16-byte aligned; qslot, col0: (n_entries,) i32; act: (n_entries,) bool
+// bytes.
+extern "C" int repro_dense_add(void* acc, const void* codes, const void* qslot,
+                               const void* col0, const void* act,
+                               long long n_entries, long long n_rows,
+                               long long width, void* stream) {
+  if (n_entries <= 0) return 0;
+  if (n_entries > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  dense_add_kernel<<<(unsigned)n_entries, THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(acc), static_cast<const uint4*>(codes),
+      static_cast<const int32_t*>(qslot), static_cast<const int32_t*>(col0),
+      static_cast<const uint8_t*>(act), n_rows, width);
   return (int)cudaGetLastError();
 }
 

@@ -47,8 +47,10 @@ def assert_u32_equal(got, want, msg: str = "") -> None:
 
 
 def t32(a, device="cpu") -> torch.Tensor:
-    """numpy words -> the port's int32 bit-pattern tensor."""
-    return from_np(np.asarray(a), device)
+    """numpy words -> the port's int32 bit-pattern tensor, in memory of its
+    own: the port updates state in place, and JAX on the CPU may alias the
+    same numpy buffer while its dispatch is still running."""
+    return from_np(np.array(a), device)
 
 
 def assert_encoded_equal(got, want, msg: str = "") -> None:

@@ -75,9 +75,8 @@ def test_auto_placement_and_unported_paths_raise(gov2):
     eng = QueryEngine(idx).to_device(fused=True, torch_device="cpu")
     assert eng.plan(QueryBatch(queries[:1])).placement == "host"
     assert eng.plan(QueryBatch(queries)).placement == "fused"
-    for mode in ("or", "and_scored"):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            eng.plan(QueryBatch(queries, mode=mode))
+    for mode in ("or", "and_scored"):           # the ranked modes plan too
+        assert eng.plan(QueryBatch(queries, mode=mode)).placement == "fused"
     with pytest.raises(ValueError, match="did you mean 'and'"):
         eng.plan(QueryBatch(queries, mode="adn"))
     with pytest.raises(NotImplementedError, match="A.10"):
@@ -115,6 +114,7 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "import repro_torch.index.engine, repro_torch.index.device\n"
         "import repro_torch.kernels.intersect_rounds\n"
+        "import repro_torch.kernels.topk, repro_torch.index.scores\n"
         "import repro_torch.data.synth, repro_torch.obs\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith(('repro.', 'jax.'))]\n"

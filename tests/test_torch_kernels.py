@@ -1,11 +1,13 @@
-"""Kernels B1, B5 and B2 of the port against the JAX package's functions on
-the same inputs, bitwise.
+"""Kernels B1, B2, B3, B4 and B5 of the port, and the ranked round and
+threshold passes around them, against the JAX package's functions on the
+same inputs, bitwise.
 
 On the CPU the port's wrappers run their plain torch versions; the reference
-runs its Pallas kernels in interpret mode (B1, B5) and its XLA scatter (B2:
-``accumulate.use_pallas()`` is False off the TPU, which is the reference's
-CPU semantics).  The test marked ``cuda`` holds each CUDA kernel against its
-plain version on the card and skips where there is none."""
+runs its Pallas kernels in interpret mode (B1, B3, B5) and its CPU routes
+for the accumulates (B2: the XLA scatter; B4: ``_dense_loop``;
+``accumulate.use_pallas()`` is False off the TPU).  The tests marked
+``cuda`` hold each CUDA kernel against its plain version on the card and
+skip where there is none."""
 
 import numpy as np
 import pytest
@@ -16,10 +18,11 @@ import jax.numpy as jnp
 from repro.kernels import accumulate as ref_acc
 from repro.kernels import decode_fused as ref_df
 from repro.kernels import intersect_rounds as ref_ir
+from repro.kernels import topk as ref_topk
 from repro_torch import kernels
-from repro_torch.kernels import accumulate, decode_fused, intersect_rounds
+from repro_torch.kernels import accumulate, decode_fused, intersect_rounds, topk
 
-from _torch_parity import assert_u32_equal, cuda_device, t32  # noqa: F401
+from _torch_parity import assert_u32_equal, cuda_device, t32, u32  # noqa: F401
 
 BW_BUCKETS = decode_fused.BW_BUCKETS
 Q, CROWS = 3, 2                        # 3 queries x 256 words = 8192 docids
@@ -238,3 +241,232 @@ def test_bitmap_rounds_and_live_words_match_reference():
     np.testing.assert_array_equal(
         intersect_rounds.pack_live_words_range(dead, 300, 900, 32),
         ref_ir.pack_live_words_range(dead, 300, 900, 32))
+
+
+# --------------------------------------------------------------------------- #
+# the ranked slice: B3, B4 and the passes around them
+# --------------------------------------------------------------------------- #
+
+
+def _unpack_inputs(seed: int):
+    """A score arena of 5 packed blocks (512, 511, 100, 1 and 0 codes) and
+    a work-list that repeats and reorders its slots."""
+    rng = np.random.default_rng(seed)
+    blocks = [rng.integers(0, 256, n).astype(np.uint32)
+              for n in (512, 511, 100, 1, 0)]
+    tiles = np.stack([ref_df.pack_gaps(c, 8)[0] for c in blocks])
+    slots = np.array([3, 0, 0, 4, 1, 2, 0], np.int32)
+    return blocks, tiles, slots
+
+
+def test_unpack_codes_matches_reference():
+    """B3's plain version against the Pallas kernel (interpret mode)."""
+    blocks, tiles, slots = _unpack_inputs(0)
+    want = ref_topk.unpack_codes(jnp.asarray(tiles), jnp.asarray(slots),
+                                 interpret=True)
+    got = topk.unpack_codes(t32(tiles), t32(slots))
+    assert_u32_equal(got, want, "B3")
+    rows = np.asarray(want).reshape(len(slots), -1)
+    for j, s in enumerate(slots):           # and what the codes mean
+        c = blocks[s]
+        np.testing.assert_array_equal(rows[j, :len(c)], c)
+        assert not rows[j, len(c):].any()
+
+
+def _dense_inputs(seed: int, q: int = 3, width: int = 4 * 4096):
+    """8 dense-window entries over ``q`` queries, unsorted; entries 0 and 1
+    belong to one query and overlap in 3584 columns (codes at disjoint
+    positions, as two blocks of one term hold disjoint docids); entry 5 is
+    inactive.  Codes cover the whole u32 range to exercise the wrap."""
+    rng = np.random.default_rng(seed)
+    p = 8
+    qslot = rng.integers(0, q, p).astype(np.int32)
+    qslot[1] = qslot[0]
+    col0 = (rng.integers(0, (width - 4096) // 128 + 1, p) * 128).astype(
+        np.int32)
+    col0[0], col0[1] = 1024, 1024 + 512
+    codes = rng.integers(0, 1 << 32, (p, 4096), dtype=np.int64).astype(
+        np.uint32)
+    codes[rng.random(codes.shape) < 0.4] = 0
+    pos = rng.random(4096) < 0.5            # entries 0 and 1: disjoint docs
+    codes[0, 512:][~pos[:-512]] = 0
+    codes[1, :-512][pos[:-512]] = 0
+    act = np.ones(p, bool)
+    act[5] = False
+    acc = rng.integers(0, 1 << 32, (q, width), dtype=np.int64).astype(
+        np.uint32)
+    return acc, codes, qslot, col0, act
+
+
+def test_dense_add_matches_reference():
+    """B4's plain version against the reference's CPU route
+    ``_dense_loop`` (entries in order, each window added in turn)."""
+    acc, codes, qslot, col0, act = _dense_inputs(1)
+    want = ref_acc._dense_loop(jnp.asarray(acc), jnp.asarray(codes),
+                               jnp.asarray(qslot), jnp.asarray(col0),
+                               jnp.asarray(act))
+    got = t32(acc.copy())
+    out = accumulate.dense_add(got, t32(codes), t32(qslot), t32(col0),
+                               torch.as_tensor(act))
+    assert out is got
+    assert_u32_equal(got, want, "B4")
+    # the inactive entry wrote nothing, the overlapping pair both landed
+    assert_u32_equal(got, ref_acc.dense_add(
+        jnp.asarray(acc), jnp.asarray(codes), jnp.asarray(qslot),
+        jnp.asarray(col0), jnp.asarray(act)), "B4 public")
+    moved = u32(got) != acc
+    assert moved[qslot[0], 1024:1024 + 4096 + 512].any()
+
+
+def test_dense_add_refuses_bad_arguments():
+    acc, codes, qslot, col0, act = _dense_inputs(2)
+    args = [t32(acc), t32(codes), t32(qslot), t32(col0), torch.as_tensor(act)]
+    with pytest.raises(TypeError, match="act"):
+        accumulate.dense_add(*args[:4], args[4].int())
+    with pytest.raises(ValueError, match="codes"):
+        accumulate.dense_add(args[0], args[1][:, :128].contiguous(),
+                             *args[2:])
+
+
+def _sparse_acc(seed: int, q: int = 5, width: int = 2048):
+    """Accumulator rows as the ranked rounds leave them: mostly zero, a few
+    sums below 2**16, a few above (where the descend saturates), and row 4
+    with fewer non-zeros than any k used."""
+    rng = np.random.default_rng(seed)
+    acc = np.where(rng.random((q, width)) < 0.05,
+                   rng.integers(1, 600, (q, width)), 0)
+    acc[1, rng.integers(0, width, 6)] = rng.integers(1 << 16, 1 << 20, 6)
+    acc[4] = 0
+    acc[4, [3, 70]] = [9, 5]
+    return acc.astype(np.uint32)
+
+
+CHUNKS = {"one pass": None, "rows of 2": 2 * 2048, "rows of 1": 1}
+
+
+@pytest.mark.parametrize("chunk", sorted(CHUNKS))
+def test_threshold_passes_match_reference(chunk, monkeypatch):
+    """``_kth_descend`` (through ``topk_threshold``), ``topk_stats``,
+    ``pooled_threshold`` and ``candidate_bitmap`` equal the reference,
+    whole and in row chunks (the last chunk ragged)."""
+    if CHUNKS[chunk] is not None:
+        monkeypatch.setattr(topk, "CHUNK_ELEMS", CHUNKS[chunk])
+    acc = _sparse_acc(3)
+    q, width = acc.shape
+    rng = np.random.default_rng(4)
+    member = rng.integers(0, 1 << 32, (q, width // 32),
+                          dtype=np.int64).astype(np.uint32)
+    margin = np.array([0, 2, 3, 1, 2], np.int32)
+    iq = np.array([1 << 16, 40000, 1 << 16, 1, 65535], np.uint32)
+    for k in (1, 3, 7, 10):
+        want = ref_topk.topk_threshold(jnp.asarray(acc), k)
+        theta = topk.topk_threshold(t32(acc), k)
+        assert_u32_equal(theta, want, f"topk_threshold k={k}")
+        for g, w in zip(topk.topk_stats(t32(acc), k),
+                        ref_topk.topk_stats(jnp.asarray(acc), k)):
+            assert_u32_equal(g, w, f"topk_stats k={k}")
+        assert_u32_equal(topk.pooled_threshold(t32(acc), k),
+                         ref_topk.pooled_threshold(jnp.asarray(acc), k),
+                         f"pooled_threshold k={k}")
+        got = topk.candidate_bitmap(t32(acc), t32(member), theta,
+                                    t32(margin), t32(iq))
+        assert_u32_equal(got, ref_topk.candidate_bitmap(
+            jnp.asarray(acc), jnp.asarray(member), want, jnp.asarray(margin),
+            jnp.asarray(iq)), f"candidate_bitmap k={k}")
+    assert_u32_equal(topk._scale_q16(t32(np.array([0, 7, 65535, 65536, 123456,
+                                                   (1 << 31) - 1])),
+                                     t32(np.array([1 << 16, 3, 40000, 1,
+                                                   65535, 1 << 16]))),
+                     ref_topk._scale_q16(
+                         jnp.asarray(np.array([0, 7, 65535, 65536, 123456,
+                                               (1 << 31) - 1], np.uint32)),
+                         jnp.asarray(np.array([1 << 16, 3, 40000, 1, 65535,
+                                               1 << 16], np.uint32))),
+                     "scale_q16")
+
+
+def _round_state(seed: int, q: int = 4, words: int = 64):
+    rng = np.random.default_rng(seed)
+    acc = rng.integers(0, 1 << 20, (q, words * 32)).astype(np.uint32)
+    member = rng.integers(0, 1 << 32, (q, words), dtype=np.int64).astype(
+        np.uint32)
+    gate = rng.integers(0, 1 << 32, (q, words), dtype=np.int64).astype(
+        np.uint32)
+    theta = np.array([0, 300, 1000, 65535], np.uint32)[:q]
+    iq = np.array([1 << 16, 1 << 16, 30000, 1 << 16], np.uint32)[:q]
+    return acc, member, gate, theta, iq
+
+
+@pytest.mark.parametrize("gated", (False, True))
+def test_score_rounds_match_reference(gated):
+    """``score_round`` (probing the gate or not) and ``score_round_masked``:
+    entries whose bound cannot beat the scaled theta scatter nothing."""
+    acc, member, gate, theta, iq = _round_state(5)
+    ids, qslot, hits = _scatter_inputs(6)
+    rng = np.random.default_rng(7)
+    codes = rng.integers(0, 256, ids.shape).astype(np.uint32)
+    ns = rng.integers(0, 513, len(qslot)).astype(np.int32)
+    ub = rng.integers(0, 1200, len(qslot)).astype(np.int32)
+    args = (ids, qslot, codes, ns, gate, ub, theta, iq)
+    want = ref_topk.score_round(jnp.asarray(acc), jnp.asarray(member),
+                                *map(jnp.asarray, args), gated=gated)
+    got = topk.score_round(t32(acc), t32(member), *map(t32, args),
+                           gated=gated)
+    for g, w, what in zip(got, want, ("acc", "member")):
+        assert_u32_equal(g, w, f"score_round gated={gated} {what}")
+    args = (ids, qslot, codes, hits.astype(np.uint32), ub, theta, iq)
+    want = ref_topk.score_round_masked(jnp.asarray(acc), jnp.asarray(member),
+                                       *map(jnp.asarray, args))
+    got = topk.score_round_masked(t32(acc), t32(member), *map(t32, args))
+    for g, w, what in zip(got, want, ("acc", "member")):
+        assert_u32_equal(g, w, f"score_round_masked {what}")
+
+
+@pytest.mark.parametrize("chunked", (False, True))
+@pytest.mark.parametrize("gated", (False, True))
+def test_dense_score_round_matches_reference(gated, chunked, monkeypatch):
+    """The dense round (window codes through B4, membership by window OR),
+    whole and with the entries split into chunks of 3."""
+    if chunked:
+        monkeypatch.setattr(topk, "CHUNK_ELEMS", 3 * 4096)
+    acc, member, gate, theta, iq = _round_state(8, words=512)
+    rng = np.random.default_rng(9)
+    p = 8
+    qslot = rng.integers(0, 4, p).astype(np.int32)
+    w0 = (rng.integers(0, (512 - 128) // 4 + 1, p) * 4).astype(np.int32)
+    qslot[1], w0[0], w0[1] = qslot[0], 40, 56     # overlapping windows
+    words = rng.integers(0, 1 << 32, (p, 128), dtype=np.int64).astype(
+        np.uint32)
+    words[1, :112] &= ~words[0, 16:]                 # disjoint docs
+    tiles = rng.integers(0, 1 << 32, (p, 1024), dtype=np.int64).astype(
+        np.uint32)
+    ub = rng.integers(0, 1200, p).astype(np.int32)
+    args = (tiles, words, qslot, w0, ub, theta, iq, gate)
+    want = ref_topk.dense_score_round(jnp.asarray(acc), jnp.asarray(member),
+                                      *map(jnp.asarray, args), gated=gated)
+    got = topk.dense_score_round(t32(acc), t32(member), *map(t32, args),
+                                 gated=gated)
+    for g, w, what in zip(got, want, ("acc", "member")):
+        assert_u32_equal(g, w, f"dense_score_round gated={gated} {what}")
+
+
+@pytest.mark.cuda
+def test_cuda_score_kernels_match_their_plain_versions(cuda_device):
+    """On the card: B3 and B4 against their plain versions, bitwise, and
+    each launch counted."""
+    _, tiles, slots = _unpack_inputs(0)
+    args = (t32(tiles, cuda_device), t32(slots, cuda_device))
+    n0 = kernels.LAUNCHES["B3"]
+    assert_u32_equal(topk.unpack_codes(*args), topk.unpack_codes_plain(*args),
+                     "B3 cuda")
+    assert kernels.LAUNCHES["B3"] == n0 + 1
+    acc, codes, qslot, col0, act = _dense_inputs(1)
+    args = [t32(codes, cuda_device), t32(qslot, cuda_device),
+            t32(col0, cuda_device), torch.as_tensor(act, device=cuda_device)]
+    start = t32(acc, cuda_device)
+    n0 = kernels.LAUNCHES["B4"]
+    got = accumulate.dense_add(start.clone(), *args)
+    assert kernels.LAUNCHES["B4"] == n0 + 1
+    assert_u32_equal(got, accumulate.dense_add_plain(start.clone(), *args),
+                     "B4 cuda")
+    torch.cuda.synchronize()
