@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Drives the port's main paths, fused device-resident AND serving and ranked
-BM25 top-k serving (modes ``or`` and ``and_scored``), through the entry
-points a user calls, at the real document count of the TREC GOV2
-collection, and holds every CUDA kernel of the paths against its plain
-torch version on the card:
+Drives the port's main paths, fused device-resident AND serving, ranked
+BM25 top-k serving (modes ``or`` and ``and_scored``) and the stream codec
+(encode and decode of every posting list), through the entry points a user
+calls, at the real document count of the TREC GOV2 collection, and holds
+every CUDA kernel of the paths against its plain torch version on the
+card:
 
   card       the card, its power limit, torch / CUDA / nvcc versions
   build      nvcc builds every kernels/csrc/*.cu (one process per source)
@@ -31,15 +32,32 @@ torch version on the card:
              final_syncs == 1, score_syncs == cand_syncs == 0, and kernels
              B1, B2 (both forms) and B3 launched, B4 too where the batch
              scored dense-bitmap blocks.
-  kernels    B1 (every bit-width bucket), B5, B2 (both forms), B3 and B4 on
-             inputs made from --seed at the largest shape any main path gave
-             each kernel (B1 probed against a random bitmap and against all
-             ones, as the ``or`` rounds probe; B2's add form at the AND
-             path's shape, as first recorded, and at the ranked path's),
-             compared bitwise with their plain versions; CUDA-event times
-             (median of 30 after warm-up) of kernel, plain version and, for
-             B2 and B4, one ``index_put_(accumulate=True)``; the bytes
-             bound.
+  stream     the stream codec (``kernels/ops.py``) on every one of the
+             corpus's 200 posting lists, counts set to 0 just before: the
+             d-gaps uploaded, ``select_bw`` (B9) equal to numpy's per-frame
+             widths, ``pack_stream`` (B7a) at the list's widest frame, the
+             fused decode ``unpack_delta_stream`` (B6) and the two-pass one,
+             ``unpack_stream`` (B7b) then ``prefix_sum`` (B8), each equal to
+             numpy (gaps, docids); then ``bitmap_intersect_np(use_pallas=
+             True)`` (B10) on the two longest lists equal to
+             ``np.intersect1d``; B6-B10 launched.  Then the whole-corpus
+             decode rate, fused and two-pass, in postings per second: CUDA
+             events around the 200 lists, warm, host enqueue included.
+  kernels    B1 (every bit-width bucket), B5, B2 (both forms), B3, B4 and
+             B6-B10 on inputs made from --seed at the largest shape any main
+             path gave each kernel (B1 probed against a random bitmap and
+             against all ones, as the ``or`` rounds probe; B2's add form at
+             the AND path's shape, as first recorded, and at the ranked
+             path's), compared bitwise with their plain versions; B6, B7a
+             and B7b also at every bit width 1..32, B8 also on a sum that
+             wraps past 2**32 and a ragged row count.  CUDA-event times
+             (median of 30 after warm-up, each call queued behind a spin of
+             the card so the events bracket device work, not the host's
+             enqueue) of kernel, plain version and the library call where
+             one computes the same function (``index_put_(accumulate=True)``
+             for B2 and B4, ``torch.cumsum`` for B8, ``torch.bitwise_and``
+             for B10); for B6-B10 also the time of one call from an idle
+             queue (host enqueue included); the bytes bound.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed phase raises and the script exits nonzero without that
@@ -63,6 +81,8 @@ import time
 GOV2_DOCS = 25_205_179          # documents in the TREC GOV2 collection
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 TIMED_RUNS = 30
+SPIN_CYCLES = 2_000_000         # about 1 ms of the card's clock
+DECODE_RUNS = 5                 # whole-corpus decode passes timed per form
 QUERIES = 256                   # queries per batch on the main paths
 LEGACY_QUERIES = 16             # of the AND queries, through and_many
 RANKED_K = 10                   # top-k of the ranked batches
@@ -86,15 +106,20 @@ def run_cmd(cmd: list) -> str:
 # --------------------------------------------------------------------------- #
 
 
-def cuda_ms(fn, torch) -> float:
+def cuda_ms(fn, torch, primed: bool = True) -> float:
     """Median CUDA-event time of ``fn()`` over TIMED_RUNS calls, after two
-    warm-up calls."""
+    warm-up calls.  ``primed``: each call is queued behind a spin of the
+    card (``torch.cuda._sleep``, about 1 ms), so the events bracket its
+    device work and not the host's time to enqueue it; otherwise the call
+    starts from an idle queue and the host's enqueue counts."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(TIMED_RUNS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if primed:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -237,8 +262,13 @@ def main() -> int:
     from repro_torch import kernels as K
     from repro_torch.index.invindex import InvertedIndex
     from repro_torch.index.scores import bm25_scores, topk_select
-    from repro_torch.kernels import (accumulate, cuda_build, decode_fused,
-                                     intersect_rounds, topk)
+    from repro_torch.core.bits import ebw_np, from_np, to_np
+    from repro_torch.core.dgap import dgap_encode_np
+    from repro_torch.kernels import (accumulate, bitpack, cuda_build,
+                                     decode_fused, intersect,
+                                     intersect_rounds, ops, quadmax, scan_add,
+                                     topk, unpack_delta)
+    from repro_torch.kernels.bitpack import FRAME_INTS
     from repro_torch.kernels.decode_fused import BW_BUCKETS, rows_per_block
     from repro_torch.obs.trace import enable_tracing
 
@@ -531,11 +561,104 @@ def main() -> int:
     ranked_launches = {k: {m: v["launches"][k] for m, v in ranked.items()}
                        for k in ("B1", "B2", "B2add", "B3", "B4")}
     n_docs = idx.n_docs
-    del eng, idx, ar, sa, again, postings, legacy, term_sc, buf
+    del eng, idx, ar, sa, again, legacy, term_sc, buf
     torch.cuda.empty_cache()
 
-    # ---- kernels ---------------------------------------------------------- #
+    # ---- stream codec path ------------------------------------------------ #
     phase_done("ranked path")
+    log("== stream codec path: select_bw, pack, fused and two-pass decode "
+        "(B6-B10)")
+    t0 = time.perf_counter()
+    lists = []                  # (docids, gaps, numpy's per-frame widths)
+    for t in terms:
+        ids = postings[t][0]
+        gaps = dgap_encode_np(ids)
+        f = -(-len(gaps) // FRAME_INTS)
+        tiles = np.zeros(f * FRAME_INTS, np.uint32)
+        tiles[:len(gaps)] = gaps
+        lists.append((ids, gaps, np.maximum(ebw_np(np.bitwise_or.reduce(
+            tiles.reshape(f, -1), axis=1)), 1)))
+    del postings
+    n_stream = sum(len(ids) for ids, _, _ in lists)
+    log(f"numpy d-gaps and widths of {len(lists)} lists, {n_stream} "
+        f"postings: {time.perf_counter() - t0:.2f} s")
+
+    def same(what, got, want):
+        if not np.array_equal(to_np(got), want):
+            raise AssertionError(f"stream phase, {what}: differs from numpy")
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    packed_all, packed_words = [], 0
+    for i, (ids, gaps, want_bws) in enumerate(lists):
+        g = from_np(gaps, dev)
+        same(f"list {i} select_bw", ops.select_bw(g), want_bws)
+        bw, n = int(want_bws.max()), len(ids)
+        packed = ops.pack_stream(g, bw)
+        same(f"list {i} fused decode", ops.unpack_delta_stream(packed, bw, n),
+             ids)
+        back = ops.unpack_stream(packed, bw, n)
+        same(f"list {i} unpack", back, gaps)
+        same(f"list {i} two-pass decode", ops.prefix_sum(back), ids)
+        packed_all.append((packed, bw, n))
+        packed_words += packed.numel()
+    a, b = sorted((ids for ids, _, _ in lists), key=len)[-2:]
+    both = intersect.bitmap_intersect_np(a, b, use_pallas=True)
+    if not np.array_equal(both, np.intersect1d(a, b)):
+        raise AssertionError("bitmap_intersect_np(use_pallas=True) differs "
+                             "from np.intersect1d")
+    torch.cuda.synchronize()
+    dt_stream = time.perf_counter() - t0
+    stream_launches = {k: K.LAUNCHES[k] for k in
+                       ("B6", "B7a", "B7b", "B8", "B9", "B10")}
+    scalls = {k: [sh for n_, sh in K.RECENT if n_ == k]
+              for k in stream_launches}
+    log(f"{len(lists)} lists encoded and decoded both ways, all equal to "
+        f"numpy, and the intersection of the two longest ({len(a)}, "
+        f"{len(b)} postings: {len(both)} docids) equal to np.intersect1d, "
+        f"in {dt_stream:.2f} s; launches {stream_launches}")
+    log(f"packed size {packed_words * 32 / n_stream:.4f} bits per posting "
+        f"(list widths {min(bw for _, bw, _ in packed_all)}-"
+        f"{max(bw for _, bw, _ in packed_all)})")
+    if min(stream_launches.values()) <= 0:
+        raise AssertionError(f"stream phase missed a kernel: "
+                             f"{stream_launches}")
+
+    def decode_all(fused):
+        for packed, bw, n in packed_all:
+            if fused:
+                ops.unpack_delta_stream(packed, bw, n)
+            else:
+                ops.prefix_sum(ops.unpack_stream(packed, bw, n))
+
+    decode = {}
+    for form, fused in (("fused", True), ("two_pass", False)):
+        decode_all(fused)
+        times = []
+        for _ in range(DECODE_RUNS):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            decode_all(fused)
+            ev1.record()
+            ev1.synchronize()
+            times.append(ev0.elapsed_time(ev1))
+        times.sort()
+        ms = times[len(times) // 2]
+        decode[form] = {"ms": ms, "postings_per_s": n_stream / ms * 1e3,
+                        "runs_ms": times}
+        log(f"whole-corpus {form} decode: {n_stream} postings of "
+            f"{len(lists)} lists in {ms:.4f} ms (median of {DECODE_RUNS}, "
+            f"CUDA events, warm, host enqueue included) = "
+            f"{n_stream / ms * 1e3:.4e} postings/s; {smi}")
+    stream = {"seconds": dt_stream, "launches": stream_launches,
+              "postings": n_stream, "lists": len(lists),
+              "bits_per_posting": packed_words * 32 / n_stream,
+              "decode": decode}
+    del packed_all, lists, a, b, both
+
+    # ---- kernels ---------------------------------------------------------- #
+    phase_done("stream path")
     log("== kernels vs plain versions (bitwise)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -869,12 +992,123 @@ def main() -> int:
         "shape": {"Q": q, "width": width, "P": p}, "ok": True})
     del codes, flat, nz, qslot, col0, act
 
+    # B6, B7a and B7b at every bit width 1..32, three frames each (the
+    # corpus reaches only the widths its lists need); B8 on sums that wrap
+    # past 2**32 and on a row count that is no multiple of its 32-row tile
+    sweep = {"B7a": 0, "B7b": 0, "B6": 0, "B8": 0}
+    for bw in range(1, 33):
+        x = rand_words((3 * 32, 128))
+        packed = bitpack.pack_frames(x, bw)
+        sweep["B7a"] = max(sweep["B7a"], max_abs_err(
+            [packed], [bitpack.pack_frames_plain(x, bw)], torch))
+        sweep["B7b"] = max(sweep["B7b"], max_abs_err(
+            [bitpack.unpack_frames(packed, bw)],
+            [bitpack.unpack_frames_plain(packed, bw)], torch))
+        sweep["B6"] = max(sweep["B6"], max_abs_err(
+            [unpack_delta.unpack_delta_frames(packed, bw)],
+            [unpack_delta.unpack_delta_frames_plain(packed, bw)], torch))
+    wrap = torch.where(rand_int(2, 64 * 32 * 128).reshape(-1, 128) == 0,
+                       -(1 << 31), rand_words((64 * 32, 128)))
+    for x in (wrap, rand_words((37, 128))):
+        sweep["B8"] = max(sweep["B8"], max_abs_err(
+            [scan_add.prefix_sum_blocks(x)],
+            [scan_add.prefix_sum_blocks_plain(x)], torch))
+    torch.cuda.synchronize()
+    log(f"B6/B7a/B7b at bw 1..32 and B8 on wrapping and ragged inputs: "
+        f"max_abs_err {sweep}")
+    if any(sweep.values()):
+        raise AssertionError(f"stream kernel sweep disagrees: {sweep}")
+    del wrap, x, packed
+
+    def largest(k, key):
+        return max(scalls[k], key=lambda c: c[key])
+
+    def stream_case(key, name, source, replaces, run, run_plain, nbytes,
+                    shape, library=None, library_name=None):
+        """A stream kernel at the stream phase's largest call: bitwise
+        against its plain version, then timed (primed and from an idle
+        queue), its plain version and its library call timed; whether the
+        library call gives the same bit patterns."""
+        got = run()
+        want = run_plain()
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [want], torch)
+        if err:
+            raise AssertionError(f"{key} disagrees with its plain version")
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/{source}",
+                 "replaces": replaces, "launches": stream_launches[key],
+                 "path": "stream", "max_abs_err": max(err, sweep.get(key, 0)),
+                 "ms": cuda_ms(run, torch), "plain_ms": cuda_ms(run_plain, torch),
+                 "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                 "library_ms": cuda_ms(library, torch) if library else None,
+                 "call_ms": cuda_ms(run, torch, primed=False),
+                 "library": library_name, "shape": shape, "ok": True}
+        if library:
+            entry["library_equal"] = bool(torch.equal(library().view(-1),
+                                                      got.view(-1)))
+        lms = entry["library_ms"]
+        log(f"{key} {shape}: err {err} kernel {entry['ms']:.4f} ms (one call "
+            f"from an idle queue {entry['call_ms']:.4f} ms) plain "
+            f"{entry['plain_ms']:.4f} ms "
+            + (f"{library_name} {lms:.4f} ms " if library else "")
+            + f"bound {bound_ms(nbytes):.4f} ms")
+        report.append(entry)
+
+    c = largest("B7a", "frames")
+    f, bw = c["frames"], c["bw"]
+    x = rand_words((f * 32, 128))
+    stream_case("B7a", "pack_frames (B7a)", "stream.cu",
+                "src/repro/kernels/bitpack.py:78",
+                lambda: bitpack.pack_frames(x, bw),
+                lambda: bitpack.pack_frames_plain(x, bw),
+                f * FRAME_INTS * 4 + f * bw * 512, {"frames": f, "bw": bw})
+    for key, wrapper, plain, name, replaces in (
+            ("B7b", bitpack.unpack_frames, bitpack.unpack_frames_plain,
+             "unpack_frames (B7b)", "src/repro/kernels/bitpack.py:96"),
+            ("B6", unpack_delta.unpack_delta_frames,
+             unpack_delta.unpack_delta_frames_plain,
+             "unpack_delta_frames (B6)",
+             "src/repro/kernels/unpack_delta.py:46")):
+        c = largest(key, "frames")
+        f, bw = c["frames"], c["bw"]
+        packed = rand_words((f * bw, 128))
+        stream_case(key, name, "stream.cu", replaces,
+                    lambda: wrapper(packed, bw), lambda: plain(packed, bw),
+                    f * bw * 512 + f * FRAME_INTS * 4,
+                    {"frames": f, "bw": bw})
+    c = largest("B8", "rows")
+    x = rand_words((c["rows"], 128))
+    flat = x.view(-1)
+    stream_case("B8", "prefix_sum_blocks (B8)", "stream.cu",
+                "src/repro/kernels/scan_add.py:38",
+                lambda: scan_add.prefix_sum_blocks(x),
+                lambda: scan_add.prefix_sum_blocks_plain(x),
+                2 * c["rows"] * 512, {"rows": c["rows"]},
+                lambda: torch.cumsum(flat, 0, dtype=torch.int32),
+                "torch.cumsum(dtype=torch.int32)")
+    c = largest("B9", "frames")
+    x = rand_words((c["frames"] * 32, 128))
+    stream_case("B9", "frame_or (B9)", "stream.cu",
+                "src/repro/kernels/quadmax.py:29",
+                lambda: quadmax.frame_or(x), lambda: quadmax.frame_or_plain(x),
+                c["frames"] * (FRAME_INTS * 4 + 512), {"frames": c["frames"]})
+    c = largest("B10", "rows")
+    a, b = rand_words((c["rows"], 128)), rand_words((c["rows"], 128))
+    stream_case("B10", "bitmap_and_tiles (B10)", "intersect.cu",
+                "src/repro/kernels/intersect.py:115",
+                lambda: intersect.bitmap_and_tiles(a, b),
+                lambda: intersect.bitmap_and_tiles_plain(a, b),
+                3 * c["rows"] * 512, {"rows": c["rows"]},
+                lambda: torch.bitwise_and(a, b), "torch.bitwise_and")
+    del x, flat, packed, a, b
+
     phase_done("kernels")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"phases_s": phase_s, "ranked": {
         m: {k: v for k, v in r.items() if k != "recent"}
-        for m, r in ranked.items()}}), flush=True)
+        for m, r in ranked.items()}, "stream": stream}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

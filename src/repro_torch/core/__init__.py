@@ -6,8 +6,9 @@ device-arena decoders in torch (counterpart of the JAX package's ``core``).
   bits: the int32-bit-pattern word rules every torch module follows
 """
 
-from . import bits, codec, dense_bitmap, dgap, group_simple, layout, stream_vbyte
+from . import (bits, bp_tpu, codec, dense_bitmap, dgap, group_simple, layout,
+               stream_vbyte)
 from .encoded import Encoded
 
-__all__ = ["bits", "codec", "dense_bitmap", "dgap", "group_simple", "layout",
-           "stream_vbyte", "Encoded"]
+__all__ = ["bits", "bp_tpu", "codec", "dense_bitmap", "dgap", "group_simple",
+           "layout", "stream_vbyte", "Encoded"]

@@ -2,9 +2,10 @@
 device arenas and the tests discover codecs through.
 
 Counterpart of the JAX package's ``core/codec.py``, holding the three codecs
-the inverted index stores: ``group_simple`` (long lists), ``stream_vbyte``
-(lists under 64 postings) and ``dense_bitmap`` (dense blocks).  Any other
-name raises the reference's ``KeyError`` with the nearest-name hint.
+the inverted index stores, ``group_simple`` (long lists), ``stream_vbyte``
+(lists under 64 postings) and ``dense_bitmap`` (dense blocks), and the
+stream codec's host codec ``bp_tpu`` (no arena, as in the reference).  Any
+other name raises the reference's ``KeyError`` with the nearest-name hint.
 
 A :class:`Codec` provides the host surface
 
@@ -27,7 +28,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
-from . import dense_bitmap, group_simple, stream_vbyte
+from . import bp_tpu, dense_bitmap, group_simple, stream_vbyte
 from .encoded import Encoded
 
 # One posting block of the inverted index is at most this many integers; all
@@ -188,7 +189,7 @@ def names(category: str | None = None, group_only: bool = False) -> list[str]:
 
 
 # --------------------------------------------------------------------------- #
-# arena layouts of the three registered codecs
+# arena layouts of the three index codecs
 # --------------------------------------------------------------------------- #
 
 _GS_PMAX = ARENA_BLOCK // 4            # max Group-Simple vectors per block
@@ -244,3 +245,5 @@ register(Codec("group_simple", "word", group_simple.encode,
                group_simple.decode_np, is_group=True, arena=_GS_ARENA))
 register(Codec("dense_bitmap", "word", dense_bitmap.encode,
                dense_bitmap.decode_np, arena=_DENSE_ARENA))
+register(Codec("bp_tpu", "frame", bp_tpu.encode, bp_tpu.decode_np,
+               is_group=True))

@@ -6,18 +6,33 @@ shorter, and a packed-bitmap AND when both are dense over a shared range.
 ``intersect_sorted`` dispatches between them and is what the engine's host
 placement calls per posting block.
 
-Counterpart of the numpy helpers of the JAX package's ``kernels/intersect.py``;
-its Pallas tile AND (``bitmap_and_tiles``, B10) is still to be ported, so the
-AND here is the host ``&``.
+Counterpart of the JAX package's ``kernels/intersect.py``.  Its Pallas tile
+AND is kernel B10 of the port, :func:`bitmap_and_tiles`
+(``csrc/intersect.cu``, replacing ``bitmap_and_tiles``, body
+``_and_kernel``): one thread per word, bound on the H100 by bytes (two words
+read and one written per word).  Only ``use_pallas=True`` callers of
+:func:`bitmap_and_words` / :func:`bitmap_intersect_np` reach it, as in the
+reference (the keyword keeps its name for the same API); they run it on
+``torch_device``, the card by default.  Without the keyword the AND is the
+host ``&``.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+import torch
+
+from ..core.bits import from_np, to_np
+from . import count_launch, cuda_build
+from .bitpack import LANES, check_tiles
 
 # bitmap intersection pays off when the shorter list covers at least this
 # fraction of the candidate docid span (one uint32 word per 32 docids)
 BITMAP_DENSITY = 1.0 / 16.0
+
+_AND_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
 
 
 def gallop_contains_np(haystack: np.ndarray, needles: np.ndarray) -> np.ndarray:
@@ -53,13 +68,53 @@ def bitmap_extract_np(words: np.ndarray, lo: int) -> np.ndarray:
     return (np.flatnonzero(bits) + lo).astype(np.uint32)
 
 
-def bitmap_and_words(wa: np.ndarray, wb: np.ndarray) -> np.ndarray:
-    """AND two equal-length uint32 bitmap word streams (host)."""
-    return wa & wb
+def bitmap_and_tiles(a, b):
+    """(R, 128) int32 bitmap tiles -> their elementwise AND.  CPU tensors
+    take the plain version; CUDA tensors kernel B10."""
+    rows = check_tiles(a, "a")
+    check_tiles(b, "b")
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError(f"a {tuple(a.shape)} on {a.device} and b "
+                         f"{tuple(b.shape)} on {b.device} differ")
+    if not a.is_cuda:
+        return bitmap_and_tiles_plain(a, b)
+    out = torch.empty_like(a)
+    if rows:
+        fn = cuda_build.function("intersect", "repro_bitmap_and", _AND_ARGS)
+        with torch.cuda.device(a.device):
+            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                     rows * LANES, cuda_build.stream_ptr(a))
+        cuda_build.check(err, "intersect", f"repro_bitmap_and(rows={rows})")
+        count_launch("B10", rows=rows)
+    return out
 
 
-def bitmap_intersect_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Intersect two sorted unique arrays via packed-bitmap AND."""
+def bitmap_and_tiles_plain(a, b):
+    """Plain torch version of :func:`bitmap_and_tiles`."""
+    return a & b
+
+
+def bitmap_and_words(wa: np.ndarray, wb: np.ndarray, use_pallas: bool = False,
+                     torch_device="cuda") -> np.ndarray:
+    """AND two equal-length uint32 bitmap word streams.
+
+    ``use_pallas`` routes through the tile kernel B10 on ``torch_device``
+    (padding to whole (rows, 128) tiles); the default is the host AND.
+    """
+    if not use_pallas:
+        return wa & wb
+    n = len(wa)
+    rows = max(1, -(-n // LANES))
+    pad = rows * LANES - n
+    ta, tb = (from_np(np.concatenate([w, np.zeros(pad, np.uint32)])
+                      .reshape(rows, LANES), torch_device) for w in (wa, wb))
+    return to_np(bitmap_and_tiles(ta, tb)).reshape(-1)[:n]
+
+
+def bitmap_intersect_np(a: np.ndarray, b: np.ndarray, use_pallas: bool = False,
+                        torch_device="cuda") -> np.ndarray:
+    """Intersect two sorted unique arrays via packed-bitmap AND
+    (``use_pallas``: on kernel B10, see :func:`bitmap_and_words`)."""
     if len(a) == 0 or len(b) == 0:
         return np.zeros(0, np.uint32)
     lo = int(max(a[0], b[0]))
@@ -72,7 +127,8 @@ def bitmap_intersect_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
         return np.zeros(0, np.uint32)
     wa = bitmap_build_np(a, lo, hi)
     wb = bitmap_build_np(b, lo, hi)
-    return bitmap_extract_np(bitmap_and_words(wa, wb), lo)
+    return bitmap_extract_np(bitmap_and_words(wa, wb, use_pallas,
+                                              torch_device), lo)
 
 
 def intersect_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -1,14 +1,18 @@
 """The port's codecs against the JAX package's: encoded words equal, and the
 torch arena decode (batched over blocks) equal to the reference's
-``decode_arena_block`` at the boundaries of ``test_codec_protocol.py``."""
+``decode_arena_block`` at the boundaries of ``test_codec_protocol.py``; the
+stream codec's host codec ``bp_tpu`` on GOV2-statistics streams."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
+from repro.core import bp_tpu as ref_bp_tpu
 from repro.core import codec as ref_codec
+from repro_torch.core import bp_tpu
 from repro_torch.core import codec as port_codec
+from repro_torch.data import synth
 
 from _torch_parity import assert_encoded_equal, assert_u32_equal, t32
 
@@ -32,7 +36,8 @@ def _cases(max_bits: int) -> dict:
 
 
 def test_registry_holds_the_three_index_codecs():
-    assert port_codec.names() == sorted(CODECS)
+    assert port_codec.names() == sorted(CODECS + ("bp_tpu",))
+    assert port_codec.get("bp_tpu").arena is None
     with pytest.raises(KeyError, match="did you mean 'group_simple'"):
         port_codec.get("group_simpel")
     with pytest.raises(KeyError, match="registered codecs"):
@@ -83,3 +88,39 @@ def test_arena_block_decode_matches_reference(name):
     assert tuple(got.shape) == (len(encs), lay.out_width)
     for row, enc in zip(got, encs):
         assert_u32_equal(row, _ref_arena_decode(ref, enc), f"{name}/n={enc.n}")
+
+
+def _gov2_streams() -> dict:
+    """The d-gaps of the 40 most frequent GOV2-statistics lists, one stream
+    (11 frames of several widths, a ragged tail), one list's docids (wide
+    values), and the boundary cases."""
+    lists = synth.make_dataset("gov2", n_lists=40)
+    return {"gov2_gaps": np.concatenate([pl.dgaps for pl in lists]),
+            "gov2_docids": lists[3].docids,
+            "empty": np.zeros(0, np.uint32),
+            "single_max": np.array([(1 << 32) - 1], np.uint32),
+            "one_frame": np.arange(4096, dtype=np.uint32)}
+
+
+@pytest.mark.parametrize("case", sorted(_gov2_streams()))
+def test_bp_tpu_matches_reference(case):
+    x = _gov2_streams()[case]
+    got, want = bp_tpu.encode(x), ref_bp_tpu.encode(x)
+    assert (got.codec, got.n) == (want.codec, want.n)
+    for f in ("control", "data"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype, f
+        assert_u32_equal(a.astype(np.uint32), b.astype(np.uint32), f)
+    for f in ("control_bits", "data_bits", "header_bits"):
+        assert getattr(got, f) == getattr(want, f), f
+    np.testing.assert_array_equal(got.meta["bws"], want.meta["bws"])
+    assert got.meta["bws"].dtype == want.meta["bws"].dtype
+    assert len(got.meta.get("parts", ())) == len(want.meta.get("parts", ()))
+    for (gb, gs), (wb, ws) in zip(got.meta.get("parts", ()),
+                                  want.meta.get("parts", ())):
+        assert gb == wb and np.array_equal(gs, ws)
+    if case == "gov2_gaps":
+        assert len(np.unique(got.meta["bws"])) > 1
+    np.testing.assert_array_equal(bp_tpu.decode_np(got), x)
+    np.testing.assert_array_equal(ref_bp_tpu.decode_np(got), x)
+    np.testing.assert_array_equal(port_codec.get("bp_tpu").decode(want), x)

@@ -116,6 +116,8 @@ def test_port_imports_without_jax():
         "import repro_torch.kernels.intersect_rounds\n"
         "import repro_torch.kernels.topk, repro_torch.index.scores\n"
         "import repro_torch.data.synth, repro_torch.obs\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.kernels.intersect, repro_torch.core.bp_tpu\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith(('repro.', 'jax.'))]\n"
         "assert not bad, bad\n"

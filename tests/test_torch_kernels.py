@@ -470,3 +470,51 @@ def test_cuda_score_kernels_match_their_plain_versions(cuda_device):
     assert_u32_equal(got, accumulate.dense_add_plain(start.clone(), *args),
                      "B4 cuda")
     torch.cuda.synchronize()
+
+
+def _stream_words(rng, shape, bits: int = 32) -> np.ndarray:
+    return rng.integers(0, 1 << bits, shape, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_kernels_match_their_plain_versions(cuda_device):
+    """On the card: B6, B7a and B7b at every bit width 1..32 (values wider
+    than the width, so B7a's mask counts), B9, B8 on a row count that is no
+    multiple of 32 and on sums that wrap past 2**32, and B10, each against
+    its plain version, bitwise, and each launch counted."""
+    from repro_torch.kernels import (bitpack, intersect, quadmax, scan_add,
+                                     unpack_delta)
+    rng = np.random.default_rng(11)
+    for bw in range(1, 33):
+        frames = 1 + bw % 3
+        x = t32(_stream_words(rng, (frames * 32, 128)), cuda_device)
+        n0 = dict(kernels.LAUNCHES)
+        packed = bitpack.pack_frames(x, bw)
+        assert_u32_equal(packed, bitpack.pack_frames_plain(x, bw),
+                         f"B7a cuda bw={bw}")
+        assert_u32_equal(bitpack.unpack_frames(packed, bw),
+                         bitpack.unpack_frames_plain(packed, bw),
+                         f"B7b cuda bw={bw}")
+        assert_u32_equal(unpack_delta.unpack_delta_frames(packed, bw),
+                         unpack_delta.unpack_delta_frames_plain(packed, bw),
+                         f"B6 cuda bw={bw}")
+        for k in ("B7a", "B7b", "B6"):
+            assert kernels.LAUNCHES[k] == n0[k] + 1, k
+    x = t32(_stream_words(rng, (5 * 32, 128)), cuda_device)
+    assert_u32_equal(quadmax.frame_or(x), quadmax.frame_or_plain(x), "B9 cuda")
+    for rows, bits in ((37, 32), (1, 32), (300, 20)):
+        x = t32(_stream_words(rng, (rows, 128), bits), cuda_device)
+        assert_u32_equal(scan_add.prefix_sum_blocks(x),
+                         scan_add.prefix_sum_blocks_plain(x),
+                         f"B8 cuda rows={rows}")
+    x = torch.full((64 * 32, 128), -(1 << 31), dtype=torch.int32,
+                   device=cuda_device)                # 2**31 each: wraps
+    got = scan_add.prefix_sum_blocks(x)
+    assert_u32_equal(got, scan_add.prefix_sum_blocks_plain(x), "B8 wrap")
+    assert int(got[0, 1]) == 0 and int(got[0, 2]) == -(1 << 31)
+    a, b = (t32(_stream_words(rng, (9, 128)), cuda_device) for _ in range(2))
+    n0 = kernels.LAUNCHES["B10"]
+    assert_u32_equal(intersect.bitmap_and_tiles(a, b),
+                     intersect.bitmap_and_tiles_plain(a, b), "B10 cuda")
+    assert kernels.LAUNCHES["B10"] == n0 + 1
+    torch.cuda.synchronize()
