@@ -50,14 +50,20 @@ card:
              the AND path's shape, as first recorded, and at the ranked
              path's), compared bitwise with their plain versions; B6, B7a
              and B7b also at every bit width 1..32, B8 also on a sum that
-             wraps past 2**32 and a ragged row count.  CUDA-event times
+             wraps past 2**32, a ragged row count, 1,001 tiles with a
+             ragged end (more than the card holds at once) and two calls
+             queued back to back on inputs of one shape.  CUDA-event times
              (median of 30 after warm-up, each call queued behind a spin of
              the card so the events bracket device work, not the host's
              enqueue) of kernel, plain version and the library call where
              one computes the same function (``index_put_(accumulate=True)``
              for B2 and B4, ``torch.cumsum`` for B8, ``torch.bitwise_and``
              for B10); for B6-B10 also the time of one call from an idle
-             queue (host enqueue included); the bytes bound.
+             queue (host enqueue included); the bytes bound.  For B8 and
+             B10 the grid launches and memsets one call puts on the card,
+             counted from a ``torch.profiler`` trace; B10 and
+             ``torch.bitwise_and`` also at 65,536 rows (3 x 32 MiB, above
+             the 50 MB L2).
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed phase raises and the script exits nonzero without that
@@ -127,6 +133,29 @@ def cuda_ms(fn, torch, primed: bool = True) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ops(fn, torch) -> dict:
+    """Kernels and memsets that one call of ``fn()`` puts on the card,
+    counted from a ``torch.profiler`` trace of that call (after one
+    warm-up call).  Raises if the trace holds no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {"grid_launches": 0, "memsets": 0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.key.startswith("Memset"):
+                ops["memsets"] += e.count
+            elif not e.key.startswith("Memcpy"):
+                ops["grid_launches"] += e.count
+    if not ops["grid_launches"]:
+        raise AssertionError("the torch.profiler trace holds no kernel")
+    return ops
 
 
 def max_abs_err(got, want, torch) -> int:
@@ -994,7 +1023,10 @@ def main() -> int:
 
     # B6, B7a and B7b at every bit width 1..32, three frames each (the
     # corpus reaches only the widths its lists need); B8 on sums that wrap
-    # past 2**32 and on a row count that is no multiple of its 32-row tile
+    # past 2**32, on row counts that are no multiple of its tile (one of
+    # them 1,001 tiles, more than the card holds resident at once), and
+    # twice queued back to back on inputs of one shape (the second call's
+    # scratch reuses the first's memory: no stale tile status)
     sweep = {"B7a": 0, "B7b": 0, "B6": 0, "B8": 0}
     for bw in range(1, 33):
         x = rand_words((3 * 32, 128))
@@ -1009,26 +1041,33 @@ def main() -> int:
             [unpack_delta.unpack_delta_frames_plain(packed, bw)], torch))
     wrap = torch.where(rand_int(2, 64 * 32 * 128).reshape(-1, 128) == 0,
                        -(1 << 31), rand_words((64 * 32, 128)))
-    for x in (wrap, rand_words((37, 128))):
+    many = rand_words((32 * 2000 + 7, 128))
+    for x in (wrap, rand_words((37, 128)), many):
         sweep["B8"] = max(sweep["B8"], max_abs_err(
             [scan_add.prefix_sum_blocks(x)],
             [scan_add.prefix_sum_blocks_plain(x)], torch))
+    again = rand_words(many.shape)
+    both = [scan_add.prefix_sum_blocks(many), scan_add.prefix_sum_blocks(again)]
+    sweep["B8"] = max(sweep["B8"], max_abs_err(
+        both, [scan_add.prefix_sum_blocks_plain(y) for y in (many, again)],
+        torch))
     torch.cuda.synchronize()
-    log(f"B6/B7a/B7b at bw 1..32 and B8 on wrapping and ragged inputs: "
-        f"max_abs_err {sweep}")
+    log(f"B6/B7a/B7b at bw 1..32 and B8 on wrapping, ragged and many-tile "
+        f"inputs and back to back: max_abs_err {sweep}")
     if any(sweep.values()):
         raise AssertionError(f"stream kernel sweep disagrees: {sweep}")
-    del wrap, x, packed
+    del wrap, x, packed, many, again, both
 
     def largest(k, key):
         return max(scalls[k], key=lambda c: c[key])
 
     def stream_case(key, name, source, replaces, run, run_plain, nbytes,
-                    shape, library=None, library_name=None):
+                    shape, library=None, library_name=None, per_call=False):
         """A stream kernel at the stream phase's largest call: bitwise
         against its plain version, then timed (primed and from an idle
         queue), its plain version and its library call timed; whether the
-        library call gives the same bit patterns."""
+        library call gives the same bit patterns; ``per_call``: the grid
+        launches and memsets of one call."""
         got = run()
         want = run_plain()
         torch.cuda.synchronize()
@@ -1047,12 +1086,15 @@ def main() -> int:
         if library:
             entry["library_equal"] = bool(torch.equal(library().view(-1),
                                                       got.view(-1)))
+        if per_call:
+            entry["per_call"] = device_ops(run, torch)
         lms = entry["library_ms"]
         log(f"{key} {shape}: err {err} kernel {entry['ms']:.4f} ms (one call "
             f"from an idle queue {entry['call_ms']:.4f} ms) plain "
             f"{entry['plain_ms']:.4f} ms "
             + (f"{library_name} {lms:.4f} ms " if library else "")
-            + f"bound {bound_ms(nbytes):.4f} ms")
+            + f"bound {bound_ms(nbytes):.4f} ms"
+            + (f"; per call {entry['per_call']}" if per_call else ""))
         report.append(entry)
 
     c = largest("B7a", "frames")
@@ -1086,7 +1128,7 @@ def main() -> int:
                 lambda: scan_add.prefix_sum_blocks_plain(x),
                 2 * c["rows"] * 512, {"rows": c["rows"]},
                 lambda: torch.cumsum(flat, 0, dtype=torch.int32),
-                "torch.cumsum(dtype=torch.int32)")
+                "torch.cumsum(dtype=torch.int32)", per_call=True)
     c = largest("B9", "frames")
     x = rand_words((c["frames"] * 32, 128))
     stream_case("B9", "frame_or (B9)", "stream.cu",
@@ -1100,7 +1142,23 @@ def main() -> int:
                 lambda: intersect.bitmap_and_tiles(a, b),
                 lambda: intersect.bitmap_and_tiles_plain(a, b),
                 3 * c["rows"] * 512, {"rows": c["rows"]},
-                lambda: torch.bitwise_and(a, b), "torch.bitwise_and")
+                lambda: torch.bitwise_and(a, b), "torch.bitwise_and",
+                per_call=True)
+    # B10 above the 50 MB L2: 3 x 32 MiB, so repeats read from HBM
+    rows = 65536
+    a, b = rand_words((rows, 128)), rand_words((rows, 128))
+    err = max_abs_err([intersect.bitmap_and_tiles(a, b)],
+                      [intersect.bitmap_and_tiles_plain(a, b)], torch)
+    if err:
+        raise AssertionError("B10 disagrees with its plain version above L2")
+    big = {"rows": rows, "max_abs_err": err,
+           "ms": cuda_ms(lambda: intersect.bitmap_and_tiles(a, b), torch),
+           "library_ms": cuda_ms(lambda: torch.bitwise_and(a, b), torch),
+           "bound_ms": bound_ms(3 * rows * 512)}
+    report[-1]["above_l2"] = big
+    log(f"B10 above L2 {{'rows': {rows}}}: err {err} kernel {big['ms']:.4f} "
+        f"ms torch.bitwise_and {big['library_ms']:.4f} ms bound "
+        f"{big['bound_ms']:.4f} ms")
     del x, flat, packed, a, b
 
     phase_done("kernels")

@@ -32,6 +32,7 @@ from ..core.codec import ARENA_BLOCK, ArenaColumn
 from ..core.codec import get as codec_get
 from ..kernels.intersect_rounds import bitmap_geometry
 from ..kernels.topk import unpack_codes
+from .device import resolve_device
 
 K1, B = 1.2, 0.75
 
@@ -96,7 +97,9 @@ def unpack_words_np(words: np.ndarray, n: int) -> np.ndarray:
 
 
 class ScoreArena:
-    """Device-resident quantized impact scores for one generation.
+    """Device-resident quantized impact scores for one generation, on
+    ``device``: the card unless the caller names another (``"cpu"``); with
+    no card the default raises, as ``DeviceArena``'s does.
 
     tiles:     (S, 128) int32 tensor; slot s holds block s's packed codes.
     block_max: (S,) int32 numpy, the max code per slot.
@@ -117,7 +120,8 @@ class ScoreArena:
     delta:     the quantization scale (global max impact / 255).
     """
 
-    def __init__(self, idx, device="cpu"):
+    def __init__(self, idx, device="cuda"):
+        device = resolve_device(device)
         self.idx = idx
         n_docs = idx.n_docs
         doclen = np.asarray(idx.doclen)
@@ -197,7 +201,7 @@ class ScoreArena:
                             if dense_tiles else None)
 
     @classmethod
-    def from_index(cls, idx, device="cpu") -> "ScoreArena":
+    def from_index(cls, idx, device="cuda") -> "ScoreArena":
         return cls(idx, device=device)
 
     # ---- device decode ------------------------------------------------------ #

@@ -57,6 +57,14 @@ def check_tiles(t, name: str, rows_of: int = 1) -> int:
     return t.shape[0] // rows_of
 
 
+def check_aligned(t, name: str) -> None:
+    """Check that a kernel's word tensor starts on a 16-byte boundary, as
+    the kernels that load and store it as uint4 need."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (its "
+                         f"data_ptr is {t.data_ptr():#x}); pass a copy")
+
+
 def check_bw(bw) -> int:
     if not 1 <= int(bw) <= 32 or int(bw) != bw:
         raise ValueError(f"bit width must be an int in 1..32, got {bw!r}")

@@ -18,21 +18,40 @@
 //
 // B6 and B8 are inclusive prefix sums, mod 2**32, in linear order.  On the
 // TPU the grid ran in order and carried the running sum in SMEM from step to
-// step; a CUDA grid has no order, so both are reduce-then-scan, three
-// launches on the caller's stream:
-//   1. per tile (a frame, or 32 rows of B8's input) its total, summed in
-//      registers (B6 unpacks and sums, writing no gaps);
-//   2. one block of 1024 threads scans the tile totals, exclusive, in place;
-//   3. per tile the scan of its 32 rows in row-major order (warp shuffles
+// step; a CUDA grid has no order.
+//
+// B6 is reduce-then-scan, three launches on the caller's stream:
+//   1. per frame its total, unpacked and summed in registers (no gaps
+//      written);
+//   2. one block of 1024 threads scans the frame totals, exclusive, in place;
+//   3. per frame the scan of its 32 rows in row-major order (warp shuffles
 //      within a row, a 4-word exchange across its warps), plus its carry.
+//
+// B8 is one grid launch (after one memset of its scratch): a single-pass
+// scan with decoupled look-back (Merrill and Garland, "Single-pass Parallel
+// Prefix Scan with Decoupled Look-back", NVIDIA 2016).  A block takes its
+// tile (8192 words, 64 rows) from an atomicAdd ticket, so it only ever waits
+// on tiles that started before it and the look-back cannot deadlock on a
+// tile that is not resident.  A warp loads 8 runs of 128 consecutive words,
+// one uint4 (16 bytes) a thread per run, so every load is 512 contiguous
+// bytes and no shared-memory transpose is needed: a thread scans its uint4
+// serially, warp shuffles scan a run, a carry goes from run to run, and the
+// 8 warp totals meet in shared memory.  The block publishes the tile's
+// aggregate, and one warp sums its predecessors' published words 32 at a
+// time back to the first inclusive prefix.  A status word is flag and value
+// in one 64-bit store, read with one 64-bit acquire load, so no value is
+// read before its flag.  The tile then publishes its inclusive prefix and
+// stores its words, plus the prefix, as uint4.  The scratch (status words
+// and ticket) is zeroed by a memset on the same stream before each launch.
 // The frame tiling knobs of the TPU form (frames_per_block, rows_per_block)
 // sized VMEM blocks and are not carried over.
 //
 // Bound on the H100: bytes.  B7a reads 16 KB and writes 512 BW bytes per
 // frame, B7b and B6 the reverse, B9 reads 16 KB and writes 512 B, B8 reads
 // and writes 512 B per row; the arithmetic is a few integer ops per value.
-// B6 and B8 read their input twice (passes 1 and 3), B6 its packed words
-// only, which the fused decode keeps below the two-pass decode's bytes.
+// B8 reads its input once and writes it once.  B6 reads its packed words
+// twice (passes 1 and 3), which the fused decode keeps below the two-pass
+// decode's bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,26 +100,28 @@ __device__ __forceinline__ uint32_t block_sum(uint32_t s, uint32_t* red) {
   return red[0] + red[1] + red[2] + red[3];
 }
 
-// Inclusive scan of a tile of up to 32 rows in row-major order, starting from
-// base; thread = lane holds v[r] = element (r, lane).  Writes rows < rows.
+__device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t x, int wl) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (wl >= d) x += y;
+  }
+  return x;
+}
+
+// Inclusive scan of a frame's 32 rows in row-major order, starting from
+// base; thread = lane holds v[r] = element (r, lane).
 __device__ __forceinline__ void scan_rows_store(uint32_t (&v)[FRAME_ROWS],
                                                 uint32_t base,
-                                                uint32_t* __restrict__ out,
-                                                int rows) {
+                                                uint32_t* __restrict__ out) {
   __shared__ uint32_t warp_tot[FRAME_ROWS][WARPS];
   const int lane = threadIdx.x;
   const int warp = lane >> 5;
   const int wl = lane & 31;
 #pragma unroll
   for (int r = 0; r < FRAME_ROWS; ++r) {
-    uint32_t x = v[r];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-      if (wl >= d) x += y;
-    }
-    v[r] = x;
-    if (wl == 31) warp_tot[r][warp] = x;
+    v[r] = warp_inclusive_scan(v[r], wl);
+    if (wl == 31) warp_tot[r][warp] = v[r];
   }
   __syncthreads();
 #pragma unroll
@@ -112,7 +133,7 @@ __device__ __forceinline__ void scan_rows_store(uint32_t (&v)[FRAME_ROWS],
       if (k < warp) pre += t;
       base += t;
     }
-    if (r < rows) out[r * LANES + lane] = pre + v[r];
+    out[r * LANES + lane] = pre + v[r];
   }
 }
 
@@ -168,7 +189,7 @@ frame_or_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out) {
   out[f * LANES + lane] = acc;
 }
 
-// ---- scan pass 2: exclusive scan of the tile totals, one block ----------- //
+// ---- B6 pass 2: exclusive scan of the frame totals, one block ---------- //
 
 __global__ void __launch_bounds__(SCAN_THREADS)
 exclusive_scan_kernel(uint32_t* __restrict__ t, long long n) {
@@ -180,23 +201,10 @@ exclusive_scan_kernel(uint32_t* __restrict__ t, long long n) {
   for (long long base = 0; base < n; base += SCAN_THREADS) {
     const long long i = base + tid;
     const uint32_t x = i < n ? t[i] : 0u;
-    uint32_t s = x;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, s, d);
-      if (wl >= d) s += y;
-    }
+    const uint32_t s = warp_inclusive_scan(x, wl);
     if (wl == 31) warp_tot[warp] = s;
     __syncthreads();
-    if (warp == 0) {
-      uint32_t u = warp_tot[wl];
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, u, d);
-        if (wl >= d) u += y;
-      }
-      warp_tot[wl] = u;
-    }
+    if (warp == 0) warp_tot[wl] = warp_inclusive_scan(warp_tot[wl], wl);
     __syncthreads();
     if (i < n) t[i] = carry + (warp ? warp_tot[warp - 1] : 0u) + s - x;
     carry += warp_tot[SCAN_THREADS / 32 - 1];
@@ -204,34 +212,124 @@ exclusive_scan_kernel(uint32_t* __restrict__ t, long long n) {
   }
 }
 
-// ---- B8: prefix sum of (rows, 128) words in row-major order -------------- //
+// ---- B8: single-pass prefix sum of (rows, 128) words, row-major -------- //
 
-__global__ void __launch_bounds__(LANES)
-row_tile_total_kernel(const uint32_t* __restrict__ x,
-                      uint32_t* __restrict__ totals, long long rows) {
-  __shared__ uint32_t red[WARPS];
-  const long long r0 = (long long)blockIdx.x * FRAME_ROWS;
-  const long long left = rows - r0;
-  const int n = left < FRAME_ROWS ? (int)left : FRAME_ROWS;
-  const uint32_t* in = x + r0 * LANES + threadIdx.x;
-  uint32_t s = 0;
-  for (int r = 0; r < n; ++r) s += in[r * LANES];
-  s = block_sum(s, red);
-  if (threadIdx.x == 0) totals[blockIdx.x] = s;
+constexpr int SCAN_TPB = 256;                          // threads per block
+constexpr int SCAN_VECS = 8;                           // uint4 per thread
+constexpr int SCAN_RUN = 32 * 4;                       // words of a warp load
+constexpr int SCAN_TILE = (SCAN_TPB / 32) * SCAN_VECS * SCAN_RUN;   // words
+static_assert(SCAN_TILE % LANES == 0, "a B8 tile is whole rows");
+
+// status word of a tile: (value << 32) | flag; 0 until the tile publishes
+constexpr unsigned long long ST_AGGREGATE = 1;         // the tile's own sum
+constexpr unsigned long long ST_INCLUSIVE = 2;         // sum of tiles 0..t
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
 }
 
-__global__ void __launch_bounds__(LANES)
-scan_add_kernel(const uint32_t* __restrict__ x,
-                const uint32_t* __restrict__ carry,
-                uint32_t* __restrict__ out, long long rows) {
-  const long long r0 = (long long)blockIdx.x * FRAME_ROWS;
-  const long long left = rows - r0;
-  const int n = left < FRAME_ROWS ? (int)left : FRAME_ROWS;
-  const uint32_t* in = x + r0 * LANES + threadIdx.x;
-  uint32_t v[FRAME_ROWS];
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v)
+               : "memory");
+}
+
+// Sum of the tiles before `tile`, by one warp: lane l reads the status of
+// tile end - l, waiting until that tile has published; the window's words
+// are summed back to the nearest inclusive one, else the window moves 32
+// tiles down.  Tiles below 0 count as an inclusive 0 (tile 0 publishes
+// inclusive, so the walk stops there).
+__device__ __forceinline__ uint32_t look_back(
+    const unsigned long long* status, long long tile, int wl) {
+  uint32_t prefix = 0;
+  for (long long end = tile - 1;; end -= 32) {
+    const long long i = end - wl;
+    unsigned long long s = ST_INCLUSIVE;
+    if (i >= 0) {
+      do {
+        s = ld_acquire(status + i);
+      } while ((s & 3u) == 0);
+    }
+    const unsigned incl = __ballot_sync(0xFFFFFFFFu, (s & 3u) == ST_INCLUSIVE);
+    const int stop = incl ? __ffs(incl) - 1 : 31;
+    uint32_t v = wl <= stop ? (uint32_t)(s >> 32) : 0u;
 #pragma unroll
-  for (int r = 0; r < FRAME_ROWS; ++r) v[r] = r < n ? in[r * LANES] : 0u;
-  scan_rows_store(v, carry[blockIdx.x], out + r0 * LANES, n);
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
+    prefix += v;
+    if (incl) return prefix;
+  }
+}
+
+__device__ __forceinline__ uint4 add4(uint4 q, uint32_t c) {
+  return make_uint4(q.x + c, q.y + c, q.z + c, q.w + c);
+}
+
+// x, out: n4 uint4 (the words in linear order); status: one word per tile;
+// ticket: the next tile to hand out.  status and ticket start at 0.
+__global__ void __launch_bounds__(SCAN_TPB)
+lookback_scan_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+                     long long n4, unsigned long long* __restrict__ status,
+                     unsigned int* __restrict__ ticket) {
+  __shared__ uint32_t warp_tot[SCAN_TPB / 32];
+  __shared__ unsigned int s_tile;
+  __shared__ uint32_t s_prefix;
+  const int warp = threadIdx.x >> 5;
+  const int wl = threadIdx.x & 31;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const long long tile = s_tile;
+  // the warp's run j is 32 consecutive uint4; lane wl takes the wl-th
+  const long long v0 = tile * (SCAN_TILE / 4)
+                       + warp * (SCAN_VECS * SCAN_RUN / 4) + wl;
+  uint4 q[SCAN_VECS];
+#pragma unroll
+  for (int j = 0; j < SCAN_VECS; ++j) {
+    const long long v = v0 + j * 32;
+    q[j] = v < n4 ? x[v] : make_uint4(0u, 0u, 0u, 0u);
+  }
+  uint32_t carry = 0;                        // the warp's sum of runs < j
+#pragma unroll
+  for (int j = 0; j < SCAN_VECS; ++j) {
+    q[j].y += q[j].x;
+    q[j].z += q[j].y;
+    q[j].w += q[j].z;
+    const uint32_t s = warp_inclusive_scan(q[j].w, wl);
+    q[j] = add4(q[j], carry + s - q[j].w);
+    carry += __shfl_sync(0xFFFFFFFFu, s, 31);
+  }
+  if (wl == 31) warp_tot[warp] = carry;
+  __syncthreads();
+  uint32_t wpre = 0, agg = 0;
+#pragma unroll
+  for (int k = 0; k < SCAN_TPB / 32; ++k) {
+    const uint32_t t = warp_tot[k];
+    if (k < warp) wpre += t;
+    agg += t;
+  }
+  if (warp == 0) {
+    uint32_t prefix = 0;
+    if (tile > 0) {
+      if (wl == 0) st_release(status + tile,
+                              ((unsigned long long)agg << 32) | ST_AGGREGATE);
+      prefix = look_back(status, tile, wl);
+    }
+    if (wl == 0) {
+      st_release(status + tile,
+                 ((unsigned long long)(prefix + agg) << 32) | ST_INCLUSIVE);
+      s_prefix = prefix;
+    }
+  }
+  __syncthreads();
+  const uint32_t add = s_prefix + wpre;
+#pragma unroll
+  for (int j = 0; j < SCAN_VECS; ++j) {
+    const long long v = v0 + j * 32;
+    if (v < n4) out[v] = add4(q[j], add);
+  }
 }
 
 // ---- B6: fused unpack + prefix sum ---------------------------------------- //
@@ -262,7 +360,7 @@ unpack_delta_kernel(const uint32_t* __restrict__ packed,
   uint32_t v[FRAME_ROWS];
 #pragma unroll
   for (int r = 0; r < FRAME_ROWS; ++r) v[r] = field<BW>(w, r);
-  scan_rows_store(v, carry[f], out + f * FRAME_INTS, FRAME_ROWS);
+  scan_rows_store(v, carry[f], out + f * FRAME_INTS);
 }
 
 template <int BW>
@@ -337,23 +435,27 @@ extern "C" int repro_frame_or(const void* x, void* out, long long frames,
   return (int)cudaGetLastError();
 }
 
-// x, out: (rows, 128) u32; totals: ceil(rows / 32) u32 scratch.
-extern "C" int repro_prefix_sum(const void* x, void* out, void* totals,
-                                long long rows, void* stream) {
+// x, out: (rows, 128) u32, 16-byte aligned; scratch: scratch_words u64,
+// at least one status word per tile of SCAN_TILE words (64 rows) plus the
+// ticket, zeroed here on the stream before the one grid launch.
+extern "C" int repro_prefix_sum(const void* x, void* out, void* scratch,
+                                long long scratch_words, long long rows,
+                                void* stream) {
   if (rows == 0) return 0;
-  const long long tiles = (rows + FRAME_ROWS - 1) / FRAME_ROWS;
-  if (rows < 0 || bad_frames(tiles)) return (int)cudaErrorInvalidValue;
+  const long long tiles = (rows * LANES + SCAN_TILE - 1) / SCAN_TILE;
+  if (rows < 0 || bad_frames(tiles) || scratch_words < tiles + 1 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out))
+       & 15u))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* in = static_cast<const uint32_t*>(x);
-  uint32_t* t = static_cast<uint32_t*>(totals);
-  row_tile_total_kernel<<<(unsigned)tiles, LANES, 0, s>>>(in, t, rows);
-  cudaError_t err = cudaGetLastError();
+  unsigned long long* status = static_cast<unsigned long long*>(scratch);
+  cudaError_t err = cudaMemsetAsync(
+      status, 0, (size_t)(tiles + 1) * sizeof(unsigned long long), s);
   if (err != cudaSuccess) return (int)err;
-  exclusive_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(t, tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_add_kernel<<<(unsigned)tiles, LANES, 0, s>>>(
-      in, t, static_cast<uint32_t*>(out), rows);
+  lookback_scan_kernel<<<(unsigned)tiles, SCAN_TPB, 0, s>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(out),
+      rows * (LANES / 4), status,
+      reinterpret_cast<unsigned int*>(status + tiles));
   return (int)cudaGetLastError();
 }
 

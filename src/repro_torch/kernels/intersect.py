@@ -9,8 +9,9 @@ placement calls per posting block.
 Counterpart of the JAX package's ``kernels/intersect.py``.  Its Pallas tile
 AND is kernel B10 of the port, :func:`bitmap_and_tiles`
 (``csrc/intersect.cu``, replacing ``bitmap_and_tiles``, body
-``_and_kernel``): one thread per word, bound on the H100 by bytes (two words
-read and one written per word).  Only ``use_pallas=True`` callers of
+``_and_kernel``): one uint4 (4 words) of each input per thread, bound on
+the H100 by bytes (two words read and one written per word); the tensors
+must start on a 16-byte boundary.  Only ``use_pallas=True`` callers of
 :func:`bitmap_and_words` / :func:`bitmap_intersect_np` reach it, as in the
 reference (the keyword keeps its name for the same API); they run it on
 ``torch_device``, the card by default.  Without the keyword the AND is the
@@ -26,7 +27,7 @@ import torch
 
 from ..core.bits import from_np, to_np
 from . import count_launch, cuda_build
-from .bitpack import LANES, check_tiles
+from .bitpack import LANES, check_aligned, check_tiles
 
 # bitmap intersection pays off when the shorter list covers at least this
 # fraction of the candidate docid span (one uint32 word per 32 docids)
@@ -78,6 +79,8 @@ def bitmap_and_tiles(a, b):
                          f"{tuple(b.shape)} on {b.device} differ")
     if not a.is_cuda:
         return bitmap_and_tiles_plain(a, b)
+    check_aligned(a, "a")
+    check_aligned(b, "b")
     out = torch.empty_like(a)
     if rows:
         fn = cuda_build.function("intersect", "repro_bitmap_and", _AND_ARGS)

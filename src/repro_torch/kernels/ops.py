@@ -35,13 +35,15 @@ def _words(x):
 
 def pad_to_frames(x):
     """Flat (n,) -> (F*32, 128) row-major tiles (linear order preserved;
-    at least one frame, zero-padded)."""
+    at least one frame, zero-padded, starting on a 16-byte boundary)."""
     x = _words(x)
     n = x.shape[0]
     f = max(1, -(-n // FRAME_INTS))
     pad = f * FRAME_INTS - n
     if pad:
         x = torch.cat([x, x.new_zeros(pad)])
+    elif x.data_ptr() % 16:        # B8 loads uint4: a copy of its own
+        x = x.clone()
     return x.reshape(f * FRAME_ROWS, LANES)
 
 

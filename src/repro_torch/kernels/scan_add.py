@@ -7,12 +7,16 @@ docids from d-gaps is a prefix sum; sums wrap mod 2**32 (docids < 2**32).
 :func:`prefix_sum_blocks` is kernel B8 (``csrc/stream.cu``), replacing the
 Pallas kernel ``prefix_sum_blocks`` (body ``_scan_kernel``).  The TPU grid
 ran in order and carried the running sum in SMEM from block to block; a
-CUDA grid has no order, so the kernel is reduce-then-scan in three launches:
-per 32-row tile its total, one block's exclusive scan of the tile totals,
-then per tile the row-major scan of its rows plus its carry.  No pass is
-``torch.cumsum``.  What bounds it on the H100 is bytes: 512 B read and
-512 B written per row (the kernel reads its input twice).  A CPU tensor runs
-the plain version; a CUDA tensor launches the kernel or raises.
+CUDA grid has no order.  The kernel is a single-pass scan with decoupled
+look-back: one grid launch, after one memset of its scratch (a status word
+per 64-row tile and the ticket that hands tiles out in launch order).  Each
+tile scans its 8192 words in registers, publishes its sum, and adds the
+sums its predecessors published.  What bounds it on the H100 is bytes:
+512 B read and 512 B written per row, and it reads and writes each word
+once.  No pass is ``torch.cumsum``.  The tensor must start on a 16-byte
+boundary (uint4 loads); the tiles of ``ops.pad_to_frames`` do.  A CPU
+tensor runs the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import torch
 
 from ..core.bits import U32_MASK, cumsum_u32, i32
 from . import count_launch, cuda_build
-from .bitpack import FRAME_ROWS, check_tiles
+from .bitpack import check_aligned, check_tiles
 
-_SCAN_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+TILE_ROWS = 64          # rows a block of the kernel scans (SCAN_TILE / 128)
+# x, out, scratch, scratch words, rows, stream
+_SCAN_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 
 
 def prefix_sum_blocks(x):
@@ -34,14 +40,16 @@ def prefix_sum_blocks(x):
     rows = check_tiles(x, "x")
     if not x.is_cuda:
         return prefix_sum_blocks_plain(x)
+    check_aligned(x, "x")
     out = torch.empty_like(x)
     if rows:
-        totals = torch.empty(-(-rows // FRAME_ROWS), dtype=torch.int32,
-                             device=x.device)
+        # one status word per tile, then the ticket
+        scratch = torch.empty(-(-rows // TILE_ROWS) + 1, dtype=torch.int64,
+                              device=x.device)
         fn = cuda_build.function("stream", "repro_prefix_sum", _SCAN_ARGS)
         with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), out.data_ptr(), totals.data_ptr(), rows,
-                     cuda_build.stream_ptr(x))
+            err = fn(x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                     scratch.numel(), rows, cuda_build.stream_ptr(x))
         cuda_build.check(err, "stream", f"repro_prefix_sum(rows={rows})")
         count_launch("B8", rows=rows)
     return out

@@ -20,7 +20,8 @@ from repro.kernels import decode_fused as ref_df
 from repro.kernels import intersect_rounds as ref_ir
 from repro.kernels import topk as ref_topk
 from repro_torch import kernels
-from repro_torch.kernels import accumulate, decode_fused, intersect_rounds, topk
+from repro_torch.kernels import (accumulate, decode_fused, intersect,
+                                 intersect_rounds, scan_add, topk)
 
 from _torch_parity import assert_u32_equal, cuda_device, t32, u32  # noqa: F401
 
@@ -518,3 +519,86 @@ def test_cuda_stream_kernels_match_their_plain_versions(cuda_device):
                      intersect.bitmap_and_tiles_plain(a, b), "B10 cuda")
     assert kernels.LAUNCHES["B10"] == n0 + 1
     torch.cuda.synchronize()
+
+
+# B8's single-pass scan: (rows, bits of each word, fill), fill a constant
+# word instead of random ones.  "many_tiles_ragged" has more tiles (1,001
+# of 64 rows) than the card holds resident at once and a last tile of 7
+# rows.
+B8_CASES = {
+    "many_tiles_ragged": (32 * 2000 + 7, 32, None),
+    "one_row": (1, 32, None),
+    "one_tile": (scan_add.TILE_ROWS, 32, None),
+    "narrow_words": (300, 20, None),
+    "wrap": (32 * 300 + 3, 32, 0xFFFFFFFF),
+}
+
+
+def _b8_input(case: str, seed: int, device):
+    rows, bits, fill = B8_CASES[case]
+    rng = np.random.default_rng(seed)
+    x = (np.full((rows, 128), fill, np.uint32) if fill is not None
+         else _stream_words(rng, (rows, 128), bits))
+    return t32(x, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(B8_CASES))
+def test_cuda_prefix_sum_blocks_cases(case, cuda_device):
+    """B8 against its plain version, bitwise, one counted launch a call."""
+    x = _b8_input(case, 21, cuda_device)
+    n0 = kernels.LAUNCHES["B8"]
+    got = scan_add.prefix_sum_blocks(x)
+    assert kernels.LAUNCHES["B8"] == n0 + 1
+    assert_u32_equal(got, scan_add.prefix_sum_blocks_plain(x), f"B8 {case}")
+    if case == "wrap":                       # -1 each: the sums count down
+        assert int(got.view(-1)[-1]) == -x.numel()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_sum_blocks_back_to_back(cuda_device):
+    """Two B8 calls queued back to back on different inputs of one shape:
+    the second's scratch reuses the first's memory, and it must not read
+    the first's tile status words.  Then a shorter call after both."""
+    xs = [_b8_input("many_tiles_ragged", s, cuda_device) for s in (1, 2)]
+    xs.append(_b8_input("narrow_words", 3, cuda_device))
+    n0 = kernels.LAUNCHES["B8"]
+    got = [scan_add.prefix_sum_blocks(x) for x in xs]
+    assert kernels.LAUNCHES["B8"] == n0 + len(xs)
+    for i, (g, x) in enumerate(zip(got, xs)):
+        assert_u32_equal(g, scan_add.prefix_sum_blocks_plain(x),
+                         f"B8 call {i}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", (1, 9, 6154))
+def test_cuda_bitmap_and_tiles_rows(rows, cuda_device):
+    """B10 against its plain version, bitwise, one counted launch a call."""
+    rng = np.random.default_rng(rows)
+    a, b = (t32(_stream_words(rng, (rows, 128)), cuda_device)
+            for _ in range(2))
+    n0 = kernels.LAUNCHES["B10"]
+    got = intersect.bitmap_and_tiles(a, b)
+    assert kernels.LAUNCHES["B10"] == n0 + 1
+    assert_u32_equal(got, intersect.bitmap_and_tiles_plain(a, b),
+                     f"B10 rows={rows}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ("B8", "B10"))
+def test_cuda_uint4_kernels_refuse_misaligned_views(kernel, cuda_device):
+    """A (R, 128) view 4 bytes into its storage raises ValueError and
+    launches nothing."""
+    rows = 5
+    flat = torch.zeros(rows * 128 + 1, dtype=torch.int32, device=cuda_device)
+    view = flat[1:].view(rows, 128)
+    n0 = kernels.LAUNCHES[kernel]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        if kernel == "B8":
+            scan_add.prefix_sum_blocks(view)
+        else:
+            intersect.bitmap_and_tiles(view, flat[:-1].view(rows, 128))
+    assert kernels.LAUNCHES[kernel] == n0

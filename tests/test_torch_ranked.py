@@ -12,6 +12,7 @@ plain torch version.  Every comparison is exact."""
 
 import numpy as np
 import pytest
+import torch
 
 from repro.index.engine import QueryBatch as RefBatch
 from repro.index.engine import QueryEngine as RefEngine
@@ -144,6 +145,22 @@ def test_ranked_accumulator_and_candidates_match_reference(name, placement,
     assert_u32_equal(theta, np.asarray(rtheta)[:nq], "theta")
     assert_u32_equal(cand, np.asarray(rcand)[:nq], "candidate bitmap")
     assert np.asarray(rcand)[:nq].any()
+
+
+def test_score_arena_defaults_to_the_card():
+    """``ScoreArena.from_index`` with no device runs on the card, as the
+    reference's puts its tiles on the default accelerator; with no card it
+    raises before it quantizes anything (the CPU is asked for by name)."""
+    _, idx, _, _ = _indexes("default")
+    if torch.cuda.is_available():
+        assert scores.ScoreArena.from_index(idx.gen).tiles.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            scores.ScoreArena.from_index(idx.gen)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            scores.ScoreArena(idx.gen)
+    assert scores.ScoreArena.from_index(idx.gen, device="cpu").tiles.device \
+        == torch.device("cpu")
 
 
 @pytest.mark.parametrize("name", sorted(CORPORA))

@@ -20,8 +20,8 @@ from repro.kernels import ref as ref_ref
 from repro.kernels import scan_add as ref_scan
 from repro.kernels import unpack_delta as ref_ud
 from repro_torch.core.bits import ebw_np
-from repro_torch.kernels import (bitpack, ops, quadmax, ref, scan_add,
-                                 unpack_delta)
+from repro_torch.kernels import (bitpack, intersect, ops, quadmax, ref,
+                                 scan_add, unpack_delta)
 
 from _torch_parity import assert_u32_equal, t32
 
@@ -159,3 +159,24 @@ def test_stream_wrappers_refuse_bad_arguments():
         quadmax.frame_or(x.long())
     with pytest.raises(ValueError, match="contiguous"):
         scan_add.prefix_sum_blocks(torch.zeros((128, 4), dtype=torch.int32).t())
+
+
+def test_uint4_kernels_refuse_misaligned_tiles():
+    """B8 and B10 load and store uint4: the check their wrappers make on a
+    CUDA tensor refuses a view 4 bytes into its storage, and takes the
+    tiles ``pad_to_frames`` hands B8, which it copies onto a 16-byte
+    boundary when the stream it is given is such a view."""
+    rows = 3
+    flat = torch.arange(rows * 128 + 4, dtype=torch.int32)
+    view = flat[1:1 + rows * 128].view(rows, 128)
+    assert view.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        bitpack.check_aligned(view, "x")
+    bitpack.check_aligned(flat[4:].view(rows, 128), "x")
+    tiles = ops.pad_to_frames(torch.arange(4096 + 1, dtype=torch.int32)[1:])
+    assert tiles.data_ptr() % 16 == 0
+    assert_u32_equal(tiles.reshape(-1), np.arange(1, 4097, dtype=np.uint32))
+    assert_u32_equal(scan_add.prefix_sum_blocks(view),
+                     np.cumsum(np.arange(1, rows * 128 + 1)).astype(np.uint32)
+                     .reshape(rows, 128), "B8 plain on a view")
+    assert_u32_equal(intersect.bitmap_and_tiles(view, view), view, "B10 plain")
