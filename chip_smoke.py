@@ -31,7 +31,9 @@ card:
              term scores added in query-term order, ``topk_select``'s rule);
              final_syncs == 1, score_syncs == cand_syncs == 0, and kernels
              B1, B2 (both forms) and B3 launched, B4 too where the batch
-             scored dense-bitmap blocks.
+             scored dense-bitmap blocks, packed and at most once a round.
+             Each mode's warm-up batch leaves host copies of its largest
+             B2-add and B4 calls for the kernel phase.
   stream     the stream codec (``kernels/ops.py``) on every one of the
              corpus's 200 posting lists, counts set to 0 just before: the
              d-gaps uploaded, ``select_bw`` (B9) equal to numpy's per-frame
@@ -48,7 +50,15 @@ card:
              path gave each kernel (B1 probed against a random bitmap and
              against all ones, as the ``or`` rounds probe; B2's add form at
              the AND path's shape, as first recorded, and at the ranked
-             path's), compared bitwise with their plain versions; B6, B7a
+             path's; B4 unpacked, packed and packed gated on the same
+             codes), compared bitwise with their plain versions; B2's
+             masked add form and B4's packed form also on the captured
+             calls, with B2's probes (every contribution 0, ids made
+             contiguous, the where pass) and
+             the unpacked dense round (unpack and gate in plain torch,
+             then the unpacked form) timed beside the packed form, gated
+             and ungated; zero shares, touched words and 32-byte sectors and
+             each sector floor (inputs + 64 B a sector); B6, B7a
              and B7b also at every bit width 1..32, B8 also on a sum that
              wraps past 2**32, a ragged row count, 1,001 tiles with a
              ragged end (more than the card holds at once) and two calls
@@ -78,6 +88,8 @@ line.  Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -171,6 +183,31 @@ def max_abs_err(got, want, torch) -> int:
 
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+@contextlib.contextmanager
+def keep_largest(module, name: str, store: dict, pick):
+    """While open, every call of ``module.<name>`` first offers its
+    arguments to ``pick(*args, **kwargs)``, which returns (size, {key:
+    value}); the values of the largest call so far replace ``store``'s,
+    tensors as host copies (so the card's peak memory does not see them).
+    The ranked phase's real kernel inputs are taken this way."""
+    orig = getattr(module, name)
+
+    def hook(*args, **kwargs):
+        size, values = pick(*args, **kwargs)
+        if size > store.get("size", -1):
+            store.clear()
+            store["size"] = size
+            store.update({k: v.cpu() if hasattr(v, "cpu") else v
+                          for k, v in values.items()})
+        return orig(*args, **kwargs)
+
+    setattr(module, name, hook)
+    try:
+        yield store
+    finally:
+        setattr(module, name, orig)
 
 
 # --------------------------------------------------------------------------- #
@@ -518,6 +555,10 @@ def main() -> int:
         return res, time.perf_counter() - t0
 
     ranked = {}
+    # each mode's largest B2-add and B4 calls, kept from its warm-up batch
+    # for the kernel phase
+    captured = {"B2add": {}, "B4": {}}
+    warm_dense = {}             # each warm-up batch's dense blocks
     for mode in ("or", "and_scored"):
         t0 = time.perf_counter()
         (warm_q, warm_want), (rq, rwant), (traced_q, traced_want) = (
@@ -525,9 +566,33 @@ def main() -> int:
         log(f"{mode}: numpy oracle, 3 batches: "
             f"{time.perf_counter() - t0:.2f} s")
         torch.cuda.reset_peak_memory_stats()
-        warm, dt = run_ranked(warm_q, mode)
+        with keep_largest(topk, "_scatter",
+                          captured["B2add"].setdefault(mode, {}),
+                          lambda acc, member, ids, qslot, codes, surv: (
+                              ids.shape[0], {"ids": ids, "qslot": qslot,
+                                             "codes": codes, "surv": surv,
+                                             "Q": acc.shape[0],
+                                             "width": acc.shape[1]})), \
+                keep_largest(accumulate, "dense_add_packed",
+                             captured["B4"].setdefault(mode, {}),
+                             lambda acc, tiles, win, qslot, col0, act, *,
+                             gated: (tiles.shape[0], {
+                                 "tiles": tiles, "win": win, "qslot": qslot,
+                                 "col0": col0, "act": act, "gated": gated,
+                                 "Q": acc.shape[0],
+                                 "width": acc.shape[1]})), \
+                eng.metrics.scoped() as ws:
+            warm, dt = run_ranked(warm_q, mode)
+        warm_dense[mode] = ws.delta("blocks_dense")
         log(f"{mode} warm-up batch: {dt:.2f} s")
         check_ranked(f"{mode} warm-up batch", warm_q, warm, warm_want)
+        # the kernel phase replays these captures: an empty one means the
+        # hook fell off the call path
+        if not captured["B2add"][mode]:
+            raise AssertionError(f"{mode}: no B2-add call captured")
+        if warm_dense[mode] > 0 and not captured["B4"][mode]:
+            raise AssertionError(f"{mode}: {warm_dense[mode]} dense blocks "
+                                 f"but no dense_add_packed call captured")
 
         fused0 = ar.stats["fused_blocks"]
         K.reset_launches()
@@ -559,6 +624,11 @@ def main() -> int:
         if stats["blocks_dense"] > 0 and launches["B4"] <= 0:
             raise AssertionError(f"{mode} scored dense blocks without B4: "
                                  f"{launches}")
+        b4_forms = [sh["packed"] for n, sh in rrecent if n == "B4"]
+        if not all(b4_forms) or len(b4_forms) > stats["score_rounds"]:
+            raise AssertionError(f"{mode}: B4 must run packed, at most once "
+                                 f"a round: {len(b4_forms)} launches, packed "
+                                 f"{b4_forms}, {stats['score_rounds']} rounds")
 
         tracer = enable_tracing(True, fenced=True)
         tracer.clear()
@@ -591,6 +661,7 @@ def main() -> int:
                        for k in ("B1", "B2", "B2add", "B3", "B4")}
     n_docs = idx.n_docs
     del eng, idx, ar, sa, again, legacy, term_sc, buf
+    gc.collect()        # free the engine's arenas before the kernel phase
     torch.cuda.empty_cache()
 
     # ---- stream codec path ------------------------------------------------ #
@@ -689,6 +760,7 @@ def main() -> int:
     # ---- kernels ---------------------------------------------------------- #
     phase_done("stream path")
     log("== kernels vs plain versions (bitwise)")
+    log(f"memory_allocated {torch.cuda.memory_allocated()} bytes at the start")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
 
@@ -864,12 +936,16 @@ def main() -> int:
           "shape_path": b2_path, "ok": True}
     del bm, got, ref, flat, vals
 
-    def accumulate_case(what, q, width, run, run_plain, flat, vals):
+    def accumulate_case(what, q, width, run, run_plain, flat, vals,
+                        probes=None):
         """Run a kernel that adds ``vals`` at flat indices ``flat`` of a
         (q, width) accumulator, and its plain version, in turn on ONE
         zeroed accumulator (at GOV2 scale it is 256 x 25.2 M words), and
-        compare them where they wrote; then time kernel, plain version and
-        one ``index_put_(accumulate=True)`` on the precomputed indices."""
+        compare them where they wrote; then time kernel, plain version,
+        one ``index_put_(accumulate=True)`` on the precomputed indices and
+        each of ``probes`` ({name: fn(acc)}) on the same accumulator.
+        Returns a dict with the error, the times, and the distinct words
+        and 32-byte sectors the targets touch."""
         acc = torch.zeros((q, width), dtype=torch.int32, device=dev)
         uniq = torch.unique(flat)
         run(acc)
@@ -887,17 +963,21 @@ def main() -> int:
         torch.cuda.synchronize()
         err = max_abs_err([got], [ref], torch)
         del got, ref
-        ms = cuda_ms(lambda: run(acc), torch)
-        pms = cuda_ms(lambda: run_plain(acc), torch)
-        acc_flat = acc.view(-1)
-        lms = cuda_ms(lambda: acc_flat.index_put_((flat,), vals,
-                                                  accumulate=True), torch)
         if err:
             raise AssertionError(f"{what} disagrees with its plain version")
-        touched = uniq.numel()
+        out = {"max_abs_err": err, "ms": cuda_ms(lambda: run(acc), torch),
+               "plain_ms": cuda_ms(lambda: run_plain(acc), torch)}
+        acc_flat = acc.view(-1)
+        out["library_ms"] = cuda_ms(lambda: acc_flat.index_put_(
+            (flat,), vals, accumulate=True), torch)
+        out["probes_ms"] = {name: cuda_ms(lambda: fn(acc), torch)
+                            for name, fn in (probes or {}).items()}
+        # width is a multiple of 8, so flat >> 3 is (row, column >> 3)
+        out["touched"] = uniq.numel()
+        out["sectors"] = torch.unique_consecutive(uniq >> 3).numel()
         del acc, acc_flat, uniq
         torch.cuda.empty_cache()
-        return err, ms, pms, lms, touched
+        return out
 
     # B2, add form, at the AND path's largest scatter shape, as first
     # recorded: entries into a (Q, docs) accumulator, full-range
@@ -909,51 +989,136 @@ def main() -> int:
     width = words * 32
     qslot, ids = distinct_ids(q, p, lanes, width)
     contrib = rand_words((p, lanes))
-    err, ms, pms, lms, touched = accumulate_case(
+    r = accumulate_case(
         "B2 add form", q, width,
         lambda a: accumulate.scatter_add(a, ids, qslot, contrib),
         lambda a: accumulate.scatter_add_plain(a, ids, qslot, contrib),
         (qslot.long()[:, None] * width + ids.long()).reshape(-1),
         contrib.reshape(-1))
-    nbytes = 2 * p * lanes * 4 + p * 4 + touched * 8
-    log(f"B2 add Q={q} width={width} P={p} L={lanes}: err {err} kernel "
-        f"{ms:.4f} ms plain {pms:.4f} ms index_put_ {lms:.4f} ms bound "
-        f"{bound_ms(nbytes):.4f} ms")
+    nbytes = 2 * p * lanes * 4 + p * 4 + r["touched"] * 8
+    log(f"B2 add Q={q} width={width} P={p} L={lanes}: err {r['max_abs_err']} "
+        f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms index_put_ "
+        f"{r['library_ms']:.4f} ms bound {bound_ms(nbytes):.4f} ms")
     b2["add_form"] = {"launches_on_and_path": main_launches["B2add"],
-                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                      "bound_ms": bound_ms(nbytes), "library_ms": lms,
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": bound_ms(nbytes),
+                      "library_ms": r["library_ms"],
                       "shape": {"Q": q, "width": width, "P": p, "L": lanes}}
-    b2["max_abs_err"] = max(b2["max_abs_err"], err)
     report.append(b2)
     del contrib, ids, qslot
+
+    def scatter_add_case(what, q, width, ids, qslot, codes, surv=None,
+                         probes=None):
+        """B2's add form on one input, ``scatter_add(codes)`` or, given
+        ``surv``, ``scatter_add_masked(codes, surv)``, against its plain
+        version, timed.  Its bytes bound counts what the data needs: the
+        mask (1 B a lane) or the codes (4 B a lane), the code of each live
+        lane, the id of each non-zero contribution, 4 B of qslot an entry
+        and 8 B of read-modify-write per distinct touched word; its sector
+        floor the same inputs and 64 B per distinct touched 32-byte
+        sector (a sector read and written back)."""
+        p, lanes = ids.shape
+        live = ((ids.long() & 0xFFFFFFFF) < width) & (codes != 0)
+        if surv is None:
+            run = (lambda a: accumulate.scatter_add(a, ids, qslot, codes))
+            run_plain = (lambda a: accumulate.scatter_add_plain(
+                a, ids, qslot, codes))
+            inputs = p * lanes * 4
+        else:
+            run = (lambda a: accumulate.scatter_add_masked(
+                a, ids, qslot, codes, surv))
+            run_plain = (lambda a: accumulate.scatter_add_masked_plain(
+                a, ids, qslot, codes, surv))
+            inputs = p * lanes + int(surv.sum()) * 4
+            live &= surv
+        n_live = int(live.sum())
+        flat = (qslot.long()[:, None] * width + ids.long())[live]
+        r = accumulate_case(what, q, width, run, run_plain, flat, codes[live],
+                            probes)
+        inputs += n_live * 4 + p * 4
+        r.update(bound_ms=bound_ms(inputs + r["touched"] * 8),
+                 sector_floor_ms=bound_ms(inputs + r["sectors"] * 64),
+                 zero_share=1.0 - n_live / (p * lanes),
+                 shape={"Q": q, "width": width, "P": p, "L": lanes,
+                        "masked": surv is not None})
+        log(f"{what} Q={q} width={width} P={p} L={lanes}: err "
+            f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms index_put_ {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms sector floor "
+            f"{r['sector_floor_ms']:.4f} ms ({r['sectors']} sectors, "
+            f"{r['touched']} words, zero share {r['zero_share']:.4f})")
+        return r
 
     # B2, add form, at the ranked path's largest scatter: u8 codes
     c = max(rcalls["B2add"], key=lambda c: c["P"])
     q, width, p, lanes = c["Q"], c["width"], c["P"], c["L"]
     qslot, ids = distinct_ids(q, p, lanes, width)
     codes = rand_int(256, p * lanes).reshape(p, lanes)
-    flat = (qslot.long()[:, None] * width + ids.long())[codes != 0]
-    err, ms, pms, lms, touched = accumulate_case(
-        "B2 add form (ranked)", q, width,
-        lambda a: accumulate.scatter_add(a, ids, qslot, codes),
-        lambda a: accumulate.scatter_add_plain(a, ids, qslot, codes),
-        flat, codes[codes != 0])
-    nbytes = 2 * p * lanes * 4 + p * 4 + touched * 8
-    log(f"B2 add (ranked shape) Q={q} width={width} P={p} L={lanes}: err "
-        f"{err} kernel {ms:.4f} ms plain {pms:.4f} ms index_put_ {lms:.4f} "
-        f"ms bound {bound_ms(nbytes):.4f} ms")
+    b2add = scatter_add_case("B2 add (ranked shape)", q, width, ids, qslot,
+                             codes)
+    del codes, ids, qslot
+    torch.cuda.empty_cache()
+
+    # the masked form, as the ranked rounds call it, on each mode's own
+    # largest scatter (captured from its warm-up batch: the path's docid
+    # spread and dead lanes), with probes of where the time goes, all
+    # through scatter_add on where(surv, codes, 0): (a) as it is; (b) every
+    # contribution 0 (reads and integer work, no atomic); (c) each query's
+    # ids made contiguous (the atomics without the scatter: 8 lanes a
+    # sector); and the where pass alone, which the mask saves
+    # (tools/b2_add_order.py times other thread mappings and spreads)
+    real = {}
+    for mode, cap in captured["B2add"].items():
+        if not cap:
+            raise AssertionError(f"{mode}: no B2-add call captured")
+        ids, qslot, codes, surv = (cap[k].to(dev) for k in
+                                   ("ids", "qslot", "codes", "surv"))
+        contrib = torch.where(surv, codes, 0)
+        p, lanes = ids.shape
+        order = torch.argsort(qslot, stable=True)
+        sq = qslot[order]
+        rank = torch.empty_like(order)
+        rank[order] = (torch.arange(p, device=dev)
+                       - torch.searchsorted(sq, sq, right=False))
+        contiguous = (rank[:, None] * lanes
+                      + torch.arange(lanes, device=dev)).to(torch.int32)
+        zeros = torch.zeros_like(contrib)
+        probes = {"a_unmasked": lambda a: accumulate.scatter_add(
+                      a, ids, qslot, contrib),
+                  "b_zero_contributions": lambda a: accumulate.scatter_add(
+                      a, ids, qslot, zeros),
+                  "c_contiguous_ids": lambda a: accumulate.scatter_add(
+                      a, contiguous, qslot, contrib),
+                  "where_pass": lambda a: torch.where(surv, codes, 0)}
+        r = real[mode] = scatter_add_case(
+            f"B2 add masked (captured, {mode})", cap["Q"], cap["width"], ids,
+            qslot, codes, surv, probes)
+        pr = r["probes_ms"]
+        log(f"B2 add probes ({mode}): masked {r['ms']:.4f} ms; (a) "
+            f"{pr['a_unmasked']:.4f} ms; (b) every contribution 0 "
+            f"{pr['b_zero_contributions']:.4f} ms; (c) ids contiguous per "
+            f"query {pr['c_contiguous_ids']:.4f} ms; (d) sector floor "
+            f"{r['sector_floor_ms']:.4f} ms; where pass "
+            f"{pr['where_pass']:.4f} ms; a-b "
+            f"{pr['a_unmasked'] - pr['b_zero_contributions']:.4f} ms, b-c "
+            f"{pr['b_zero_contributions'] - pr['c_contiguous_ids']:.4f} ms")
+        del ids, qslot, codes, surv, contrib, contiguous, zeros, rank
+        del order, sq
+        torch.cuda.empty_cache()
     report.append({
         "name": "scatter_add (B2, add form)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/accumulate.cu",
         "replaces": "src/repro/kernels/accumulate.py:85",
         "launches": sum(ranked_launches["B2add"].values()),
         "path": "ranked", "ranked_launches": ranked_launches["B2add"],
-        "max_abs_err": err, "ms": ms, "plain_ms": pms,
-        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-        "library_ms": lms,
-        "shape": {"Q": q, "width": width, "P": p, "L": lanes}, "ok": True})
-    del flat, codes, ids, qslot
-    torch.cuda.empty_cache()
+        "max_abs_err": max([b2add["max_abs_err"]]
+                           + [r["max_abs_err"] for r in real.values()]),
+        "ms": b2add["ms"], "plain_ms": b2add["plain_ms"],
+        "bound_ms": b2add["bound_ms"], "bound_by": "bytes",
+        "library_ms": b2add["library_ms"],
+        "sector_floor_ms": b2add["sector_floor_ms"],
+        "zero_share": b2add["zero_share"], "sectors": b2add["sectors"],
+        "shape": b2add["shape"], "captured": real, "ok": True})
 
     # B3 at the ranked path's largest unpack (random slots into an arena of
     # the real row count)
@@ -984,42 +1149,157 @@ def main() -> int:
         "shape": {"W": w, "tiles": n_tiles}, "ok": True})
     del tiles, slots, got, ref
 
-    # B4 at the ranked path's largest dense add: windows at random
-    # 128-aligned columns, half the codes zero
-    b4_calls = rcalls["B4"] or [{"P": 1, "Q": q, "width": width}]
-    c = max(b4_calls, key=lambda c: c["P"])
-    p, q, width = c["P"], c["Q"], c["width"]
     win = accumulate.DENSE_WINDOW
+
+    def dense_case(what, q, width, codes, tiles, wbits, qslot, col0, act,
+                   gated, probes=None):
+        """B4's packed form (``tiles``; or, with ``tiles`` None, the
+        unpacked form on ``codes``) against its plain version on one input,
+        timed; ``codes`` are the (P, 4096) codes it adds (gated and masked
+        by ``act``).  Its bytes bound: an act byte per entry; per active
+        entry 8 B of indices and the codes it needs (16 KB unpacked, 4 KB
+        packed; gated, the window's 512 B and the 32-byte sector of codes
+        under each non-zero window word); 8 B of read-modify-write per
+        distinct touched word.  Its sector floor: the same inputs and 64 B
+        per distinct touched sector."""
+        p = codes.shape[0]
+        n_act = int(act.sum())
+        if tiles is None:
+            run = (lambda a: accumulate.dense_add(a, codes, qslot, col0,
+                                                  act))
+            run_plain = (lambda a: accumulate.dense_add_plain(
+                a, codes, qslot, col0, act))
+            code_bytes = n_act * win * 4
+        else:
+            run = (lambda a: accumulate.dense_add_packed(
+                a, tiles, wbits, qslot, col0, act, gated=gated))
+            run_plain = (lambda a: accumulate.dense_add_packed_plain(
+                a, tiles, wbits, qslot, col0, act, gated=gated))
+            code_bytes = n_act * win
+            if gated:
+                live_words = int(((wbits != 0) & act[:, None]).sum())
+                code_bytes = n_act * win // 8 + live_words * 32
+        nz = (codes != 0) & act[:, None]
+        e, pos = nz.nonzero(as_tuple=True)
+        flat = qslot.long()[e] * width + col0.long()[e] + pos
+        r = accumulate_case(what, q, width, run, run_plain, flat, codes[nz],
+                            probes)
+        del e, pos, flat
+        inputs = p + n_act * 8 + code_bytes
+        r.update(bound_ms=bound_ms(inputs + r["touched"] * 8),
+                 sector_floor_ms=bound_ms(inputs + r["sectors"] * 64),
+                 zero_share=1.0 - int(nz.sum()) / (p * win),
+                 code_bytes=code_bytes,
+                 shape={"Q": q, "width": width, "P": p,
+                        "active": n_act, "gated": gated})
+        log(f"{what} Q={q} width={width} P={p} gated={gated}: err "
+            f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms index_put_ {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.4f} ms sector floor "
+            f"{r['sector_floor_ms']:.4f} ms ({r['sectors']} sectors, "
+            f"{r['touched']} words, {code_bytes} code bytes needed, zero "
+            f"share {r['zero_share']:.4f})")
+        return r
+
+    def unpacked_round(acc, tiles, wbits, qslot, col0, act, gated):
+        """The dense round's add with the codes unpacked first: plain torch
+        unpacks (and gates) them, CHUNK_ELEMS at a time, for B4's unpacked
+        form (the ranked rounds' add before the packed form)."""
+        step = accumulate.CHUNK_ELEMS // win
+        for s in range(0, tiles.shape[0], step):
+            part = slice(s, s + step)
+            codes = accumulate._window_codes(tiles[part])
+            if gated:
+                codes = codes * accumulate._window_bits(wbits[part])
+            accumulate.dense_add(acc, codes, qslot[part], col0[part],
+                                 act[part])
+
+    # B4 on 65,536 windows (one chunk of the plain packed form; fewer if
+    # the path's largest call had fewer) at random 128-aligned columns of
+    # the ranked accumulator, half the codes zero:
+    # the unpacked form on the codes, the packed form on the same codes
+    # packed, ungated and gated by random window bits
+    b4_calls = rcalls["B4"] or [{"P": 1, "Q": q, "width": width}]
+    log(f"B4 launches on the ranked path, entries: "
+        f"{[c['P'] for c in b4_calls]}")
+    c = max(b4_calls, key=lambda c: c["P"])
+    p, q, width = (min(c["P"], accumulate.CHUNK_ELEMS // win), c["Q"],
+                   c["width"])
     qslot = torch.sort(rand_int(q, p)).values
     col0 = rand_int((width - win) // 128 + 1, p) * 128
     codes = torch.where(rand_int(2, p * win).reshape(p, win) == 0, 0,
                         rand_int(256, p * win).reshape(p, win))
+    tiles = codes.to(torch.uint8).view(torch.int32)     # byte p: position p
+    wbits = rand_words((p, accumulate.WINDOW_WORDS))
     act = torch.ones(p, dtype=torch.bool, device=dev)
-    nz = codes != 0
-    flat = (qslot.long()[:, None] * width + col0.long()[:, None]
-            + torch.arange(win, device=dev))[nz]
-    err, ms, pms, lms, touched = accumulate_case(
-        "B4", q, width,
-        lambda a: accumulate.dense_add(a, codes, qslot, col0, act),
-        lambda a: accumulate.dense_add_plain(a, codes, qslot, col0, act),
-        flat, codes[nz])
-    # 16 KB of codes and 9 B of indices per entry, 8 B of read-modify-write
-    # per distinct word a non-zero code touches
-    nbytes = p * win * 4 + p * 9 + touched * 8
-    log(f"B4 Q={q} width={width} P={p}: err {err} kernel {ms:.4f} ms plain "
-        f"{pms:.4f} ms index_put_ {lms:.4f} ms bound "
-        f"{bound_ms(nbytes):.4f} ms"
-        f"{'' if rcalls['B4'] else ' (no dense block on the ranked path)'}")
+    b4u = dense_case("B4 unpacked", q, width, codes, None, None, qslot, col0,
+                     act, False)
+    b4 = dense_case("B4 packed", q, width, codes, tiles, wbits, qslot, col0,
+                    act, False)
+    b4g = dense_case("B4 packed", q, width,
+                     codes * accumulate._window_bits(wbits), tiles, wbits,
+                     qslot, col0, act, True)
+    if not rcalls["B4"]:
+        log("(no dense block on the ranked path)")
+    del codes, tiles, wbits, qslot, col0, act
+    torch.cuda.empty_cache()
+
+    # the packed form on each mode's own largest dense round (captured from
+    # its warm-up batch: the real windows, overlaps and dead positions), and
+    # the unpacked round (unpack and gate in plain torch, then the unpacked
+    # form) against it on the same inputs, gated and ungated
+    b4_real = {}
+    for mode, cap in captured["B4"].items():
+        if not cap:
+            if warm_dense[mode] > 0:
+                raise AssertionError(f"{mode}: no dense round captured")
+            continue
+        tiles, wbits, qslot, col0, act = (cap[k].to(dev) for k in (
+            "tiles", "win", "qslot", "col0", "act"))
+        gated = cap["gated"]
+        codes = accumulate._window_codes(tiles)
+        if gated:
+            codes = codes * accumulate._window_bits(wbits)
+        probes = {}
+        for g in (False, True):
+            probes[f"unpacked_round_gated_{g}"] = (
+                lambda a, g=g: unpacked_round(a, tiles, wbits, qslot, col0,
+                                              act, g))
+            probes[f"packed_gated_{g}"] = (
+                lambda a, g=g: accumulate.dense_add_packed(
+                    a, tiles, wbits, qslot, col0, act, gated=g))
+        r = b4_real[mode] = dense_case(
+            f"B4 packed (captured, {mode})", cap["Q"], cap["width"], codes,
+            tiles, wbits, qslot, col0, act, gated, probes)
+        pr = r["probes_ms"]
+        for g in (False, True):
+            unp, pk = (pr[f"unpacked_round_gated_{g}"],
+                       pr[f"packed_gated_{g}"])
+            log(f"B4 dense round ({mode}'s captured inputs, gated={g}): "
+                f"unpack{' and gate' if g else ''} + unpacked kernel "
+                f"{unp:.4f} ms, packed kernel {pk:.4f} ms: {unp / pk:.2f}x")
+        del tiles, wbits, qslot, col0, act, codes
+        torch.cuda.empty_cache()
+    # the entry's own numbers: the ranked path's largest captured round
+    main = max(b4_real.values(), key=lambda r: r["shape"]["P"], default=b4)
     report.append({
         "name": "dense_add (B4)", "route": "cuda",
+        "form": "ms, bound_ms and library_ms: the packed form "
+                "(dense_add_packed, the ranked path's form) on the ranked "
+                "path's largest captured round; synthetic.unpacked: the "
+                "unpacked form on synthetic windows",
         "source": "src/repro_torch/kernels/csrc/accumulate.cu",
         "replaces": "src/repro/kernels/accumulate.py:137",
         "launches": sum(ranked_launches["B4"].values()), "path": "ranked",
-        "ranked_launches": ranked_launches["B4"], "max_abs_err": err,
-        "ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
-        "bound_by": "bytes", "library_ms": lms,
-        "shape": {"Q": q, "width": width, "P": p}, "ok": True})
-    del codes, flat, nz, qslot, col0, act
+        "ranked_launches": ranked_launches["B4"],
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           (b4, b4g, b4u, *b4_real.values())),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                "sector_floor_ms", "zero_share", "sectors",
+                                "shape")},
+        "bound_by": "bytes", "captured": b4_real,
+        "synthetic": {"packed": b4, "packed_gated": b4g, "unpacked": b4u},
+        "ok": True})
 
     # B6, B7a and B7b at every bit width 1..32, three frames each (the
     # corpus reaches only the widths its lists need); B8 on sums that wrap

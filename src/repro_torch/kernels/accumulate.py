@@ -8,21 +8,33 @@ accumulator.
 * :func:`scatter_bits` / :func:`scatter_add`: kernel B2 of the port
   (``csrc/accumulate.cu``), replacing the JAX package's Pallas kernel
   ``kernels/accumulate.py`` ``_sparse_pallas`` (body ``_sparse_kernel``).
-  One thread per (entry, lane) and one atomic per survivor: ``atomicOr`` for
-  the bits, ``atomicAdd`` on unsigned int (wrapping mod 2**32 like the
-  reference's u32) for the adds.  The TPU form's sort by query slot and
-  row-resident VMEM aliasing existed for its sequential grid; the port drops
-  both.  What bounds it on the H100 is bytes: ids, masks and contributions
-  read once, one 4-byte read-modify-write per survivor.
-* :func:`dense_add`: kernel B4 of the port (``csrc/accumulate.cu``),
-  replacing the Pallas kernel ``kernels/accumulate.py`` ``_dense_pallas``
-  (body ``_dense_kernel``): ``acc[qslot[j], col0[j] : col0[j] + 4096] +=
-  codes[j]`` where ``act[j]``.  The TPU form relied on a sequential grid
-  (entries sorted by query, the row aliased in VMEM); two entries of one
-  query may overlap in columns within a call, so the kernel makes one
-  unsigned ``atomicAdd`` per non-zero code.  What bounds it on the H100 is
-  bytes: 16 KB of codes per entry and one read-modify-write per touched
-  word.
+  One atomic per survivor: ``atomicOr`` for the bits, ``atomicAdd`` on
+  unsigned int (wrapping mod 2**32 like the reference's u32) for the adds.
+  The TPU form's sort by query slot and row-resident VMEM aliasing existed
+  for its sequential grid; the port drops both.  What bounds both forms on
+  the H100 is sector traffic: a round's docids lie far apart in a state
+  array much larger than L2, so each update reads and writes back a 32-byte
+  sector of its own (64 B), beside the inputs read once; how near the add
+  form gets to that depends on the order its atomics reach memory, so it
+  keeps one thread per (entry, lane) in the array's order (one block per
+  256 lanes of one entry, no per-lane division).
+  :func:`scatter_add_masked`, the ranked rounds' form, takes the survivor
+  mask beside the codes and reads a dead lane's code and id never.
+* :func:`dense_add` / :func:`dense_add_packed`: kernel B4 of the port
+  (``csrc/accumulate.cu``), replacing the Pallas kernel
+  ``kernels/accumulate.py`` ``_dense_pallas`` (body ``_dense_kernel``):
+  ``acc[qslot[j], col0[j] : col0[j] + 4096] += codes[j]`` where ``act[j]``.
+  The TPU form relied on a sequential grid (entries sorted by query, the row
+  aliased in VMEM); two entries of one query may overlap in columns within a
+  call, so the kernel makes one unsigned ``atomicAdd`` per non-zero code,
+  each warp-wide atomic on 32 consecutive words.  :func:`dense_add` takes
+  (P, 4096) codes; :func:`dense_add_packed`, the ranked rounds' form, takes
+  the packed (P, 1024) score tiles and, gated, the (P, 128) window bits, so
+  the codes are never unpacked into memory; gated, it reads a window word
+  before its 32 codes and fetches none of them where the word is 0.  What
+  bounds it on the H100 is bytes: per active entry 16 KB (unpacked), 4 KB
+  (packed) or, gated, 512 B of window and 32 B per non-zero window word,
+  and one read-modify-write per touched word.
 * :func:`dense_window_gather` / :func:`dense_window_add` /
   :func:`dense_window_or`: 128-word window probe/commit of the dense
   rounds, plain torch (the reference leaves them to XLA).
@@ -50,11 +62,19 @@ from . import count_launch, cuda_build
 
 DENSE_WINDOW = 4096          # dense score window: 128 words * 32 bits
 WINDOW_WORDS = 128
+TILE_WORDS = DENSE_WINDOW // 4   # packed score window: four u8 codes a word
 
-_SCATTER_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [
+# elements per chunk of the plain packed dense add's unpacked codes (1 GB
+# of int32)
+CHUNK_ELEMS = 1 << 28
+
+_BITS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [
     ctypes.c_void_p]
-_DENSE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
+_ADD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 + [
     ctypes.c_void_p]
+_DENSE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [
+    ctypes.c_int, ctypes.c_void_p]
+_UNPACKED, _PACKED, _PACKED_GATED = 0, 1, 2    # repro_dense_add's forms
 
 
 def _check_scatter(state, ids, qslot, vals, vals_dtype, what: str) -> None:
@@ -75,12 +95,14 @@ def _check_scatter(state, ids, qslot, vals, vals_dtype, what: str) -> None:
                          f"{tuple(ids.shape)}")
 
 
-def _scatter_launch(symbol: str, state, ids, qslot, vals) -> None:
-    fn = cuda_build.function("accumulate", symbol, _SCATTER_ARGS)
+def _scatter_launch(symbol: str, argtypes, state, ids, qslot, *vals):
+    """Launch ``repro_scatter_bits(..., surv, ...)`` or
+    ``repro_scatter_add(..., contrib, surv or None, ...)`` on ``state``."""
+    fn = cuda_build.function("accumulate", symbol, argtypes)
     with torch.cuda.device(state.device):
         err = fn(state.data_ptr(), ids.data_ptr(), qslot.data_ptr(),
-                 vals.data_ptr(), ids.shape[0], ids.shape[1],
-                 state.shape[0], state.shape[1],
+                 *(None if v is None else v.data_ptr() for v in vals),
+                 ids.shape[0], ids.shape[1], state.shape[0], state.shape[1],
                  cuda_build.stream_ptr(state))
     cuda_build.check(err, "accumulate", f"{symbol}(P={ids.shape[0]})")
 
@@ -139,7 +161,8 @@ def scatter_bits(bm, ids, qslot, surv):
     if not bm.is_cuda:
         return scatter_bits_plain(bm, ids, qslot, surv)
     if ids.numel():
-        _scatter_launch("repro_scatter_bits", bm, ids, qslot, surv)
+        _scatter_launch("repro_scatter_bits", _BITS_ARGS, bm, ids, qslot,
+                        surv)
         count_launch("B2", P=ids.shape[0], L=ids.shape[1], Q=bm.shape[0],
                      words=bm.shape[1])
     return bm
@@ -162,14 +185,15 @@ def scatter_bits_plain(bm, ids, qslot, surv):
 
 def scatter_add(acc, ids, qslot, contrib):
     """``acc[qslot[j], ids[j, l]] += contrib[j, l]`` mod 2**32, in place;
-    returns ``acc``.  acc: (Q, width) int32; ids, contrib: (P, L) int32;
-    qslot: (P,) int32.  Exact: docids are distinct per entry and masked
-    lanes carry contrib == 0."""
+    returns ``acc``.  acc: (Q, width) int32, width < 2**31; ids, contrib:
+    (P, L) int32; qslot: (P,) int32.  Exact, duplicates included (masked
+    lanes carry contrib == 0)."""
     _check_scatter(acc, ids, qslot, contrib, torch.int32, "contrib")
     if not acc.is_cuda:
         return scatter_add_plain(acc, ids, qslot, contrib)
     if ids.numel():
-        _scatter_launch("repro_scatter_add", acc, ids, qslot, contrib)
+        _scatter_launch("repro_scatter_add", _ADD_ARGS, acc, ids, qslot,
+                        contrib, None)
         count_launch("B2add", P=ids.shape[0], L=ids.shape[1], Q=acc.shape[0],
                      width=acc.shape[1])
     return acc
@@ -183,15 +207,39 @@ def scatter_add_plain(acc, ids, qslot, contrib):
     return acc
 
 
+def scatter_add_masked(acc, ids, qslot, codes, surv):
+    """:func:`scatter_add` of ``torch.where(surv, codes, 0)``, in place,
+    without making it: the ranked rounds' scatter.  surv: (P, L) bool; the
+    rest as :func:`scatter_add`.  The kernel reads a dead lane's code and
+    id never."""
+    _check_scatter(acc, ids, qslot, codes, torch.int32, "codes")
+    _check_scatter(acc, ids, qslot, surv, torch.bool, "surv")
+    if not acc.is_cuda:
+        return scatter_add_masked_plain(acc, ids, qslot, codes, surv)
+    if ids.numel():
+        _scatter_launch("repro_scatter_add", _ADD_ARGS, acc, ids, qslot,
+                        codes, surv)
+        count_launch("B2add", P=ids.shape[0], L=ids.shape[1], Q=acc.shape[0],
+                     width=acc.shape[1])
+    return acc
+
+
+def scatter_add_masked_plain(acc, ids, qslot, codes, surv):
+    """Plain torch version of :func:`scatter_add_masked` (any device)."""
+    return scatter_add_plain(acc, ids, qslot, torch.where(surv, codes, 0))
+
+
 # --------------------------------------------------------------------------- #
 # B4: dense 4096-column window add (score side of bitmap blocks)
 # --------------------------------------------------------------------------- #
 
 
-def _check_dense(acc, codes, qslot, col0, act) -> None:
+def _check_dense(acc, codes, cols, qslot, col0, act, win=None) -> None:
     named = {"acc": (acc, torch.int32), "codes": (codes, torch.int32),
              "qslot": (qslot, torch.int32), "col0": (col0, torch.int32),
              "act": (act, torch.bool)}
+    if win is not None:
+        named["win"] = (win, torch.int32)
     for name, (t, dt) in named.items():
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
@@ -201,13 +249,28 @@ def _check_dense(acc, codes, qslot, col0, act) -> None:
             raise ValueError(f"{name} must be contiguous")
     p = codes.shape[0]
     if (acc.dim() != 2 or acc.shape[1] < DENSE_WINDOW
-            or tuple(codes.shape) != (p, DENSE_WINDOW)):
+            or tuple(codes.shape) != (p, cols)):
         raise ValueError(f"acc must be (Q, >= {DENSE_WINDOW}) and codes "
-                         f"(P, {DENSE_WINDOW}); got {tuple(acc.shape)}, "
+                         f"(P, {cols}); got {tuple(acc.shape)}, "
                          f"{tuple(codes.shape)}")
+    if win is not None and tuple(win.shape) != (p, WINDOW_WORDS):
+        raise ValueError(f"win must have shape ({p}, {WINDOW_WORDS})")
     for name in ("qslot", "col0", "act"):
         if tuple(named[name][0].shape) != (p,):
             raise ValueError(f"{name} must have shape ({p},)")
+
+
+def _dense_launch(acc, codes, win, qslot, col0, act, form: int) -> None:
+    fn = cuda_build.function("accumulate", "repro_dense_add", _DENSE_ARGS)
+    with torch.cuda.device(acc.device):
+        err = fn(acc.data_ptr(), codes.data_ptr(),
+                 None if win is None else win.data_ptr(), qslot.data_ptr(),
+                 col0.data_ptr(), act.data_ptr(), codes.shape[0],
+                 acc.shape[0], acc.shape[1], form, cuda_build.stream_ptr(acc))
+    cuda_build.check(err, "accumulate",
+                     f"repro_dense_add(P={codes.shape[0]}, form={form})")
+    count_launch("B4", P=codes.shape[0], Q=acc.shape[0], width=acc.shape[1],
+                 packed=form != _UNPACKED, gated=form == _PACKED_GATED)
 
 
 def dense_add(acc, codes, qslot, col0, act):
@@ -219,21 +282,11 @@ def dense_add(acc, codes, qslot, col0, act):
     Entries need no order, and two entries of one query may overlap in
     columns.
     """
-    _check_dense(acc, codes, qslot, col0, act)
+    _check_dense(acc, codes, DENSE_WINDOW, qslot, col0, act)
     if not acc.is_cuda:
         return dense_add_plain(acc, codes, qslot, col0, act)
     if codes.shape[0]:
-        if codes.data_ptr() % 16:
-            raise ValueError("codes must be 16-byte aligned")
-        fn = cuda_build.function("accumulate", "repro_dense_add", _DENSE_ARGS)
-        with torch.cuda.device(acc.device):
-            err = fn(acc.data_ptr(), codes.data_ptr(), qslot.data_ptr(),
-                     col0.data_ptr(), act.data_ptr(), codes.shape[0],
-                     acc.shape[0], acc.shape[1], cuda_build.stream_ptr(acc))
-        cuda_build.check(err, "accumulate",
-                         f"repro_dense_add(P={codes.shape[0]})")
-        count_launch("B4", P=codes.shape[0], Q=acc.shape[0],
-                     width=acc.shape[1])
+        _dense_launch(acc, codes, None, qslot, col0, act, _UNPACKED)
     return acc
 
 
@@ -247,6 +300,56 @@ def dense_add_plain(acc, codes, qslot, col0, act):
     cols = c0[:, None] + torch.arange(DENSE_WINDOW, device=acc.device)
     flat = (q[:, None] * acc.shape[1] + cols)[act]
     _add_at(acc, flat.reshape(-1), u32(codes)[act].reshape(-1))
+    return acc
+
+
+def _window_codes(tiles):
+    """(P, 1024) packed code windows -> (P, 4096) codes, position p from
+    byte p & 3 of word p >> 2."""
+    shifts = 8 * torch.arange(4, dtype=torch.int32, device=tiles.device)
+    return ((tiles[:, :, None] >> shifts) & 0xFF).reshape(tiles.shape[0], -1)
+
+
+def _window_bits(words):
+    """(P, 128) bitmap windows -> (P, 4096) 0/1, position p from bit p & 31
+    of word p >> 5."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, :, None] >> shifts) & 1).reshape(words.shape[0], -1)
+
+
+def dense_add_packed(acc, tiles, win, qslot, col0, act, *, gated: bool):
+    """:func:`dense_add` of the codes packed in ``tiles``, times the window
+    bits of ``win`` when ``gated``, in place; returns ``acc``.
+
+    tiles: (P, 1024) int32 packed code windows, position p at byte p & 3 of
+    word p >> 2 (positions without a posting carry 0); win: (P, 128) int32
+    window words, position p at bit p & 31 of word p >> 5 (read only when
+    ``gated``); the rest as :func:`dense_add`.  Ungated, every code of the
+    window adds, as in the reference's ungated round.
+    """
+    _check_dense(acc, tiles, TILE_WORDS, qslot, col0, act, win)
+    if not acc.is_cuda:
+        return dense_add_packed_plain(acc, tiles, win, qslot, col0, act,
+                                      gated=gated)
+    if tiles.shape[0]:
+        _dense_launch(acc, tiles, win, qslot, col0, act,
+                      _PACKED_GATED if gated else _PACKED)
+    return acc
+
+
+def dense_add_packed_plain(acc, tiles, win, qslot, col0, act, *,
+                           gated: bool):
+    """Plain torch version of :func:`dense_add_packed` (any device): unpack
+    (and gate) the codes, then :func:`dense_add_plain`.  The unpacked codes
+    cost 16 KB an entry, so entries go in chunks of CHUNK_ELEMS // 4096;
+    adds commute, so chunking changes no result."""
+    step = max(1, CHUNK_ELEMS // DENSE_WINDOW)
+    for s in range(0, tiles.shape[0], step):
+        part = slice(s, s + step)
+        codes = _window_codes(tiles[part])
+        if gated:
+            codes = codes * _window_bits(win[part])
+        dense_add_plain(acc, codes, qslot[part], col0[part], act[part])
     return acc
 
 

@@ -9,10 +9,9 @@
 //
 // The TPU form sorted entries by qslot and kept the owning query's row
 // aliased in VMEM across consecutive grid steps, because its grid runs in
-// order on one core.  Here every (entry, lane) is one thread and the update
-// is one atomic: atomicAdd on unsigned int wraps mod 2**32 exactly like the
-// reference's u32 add, and atomicOr sets the survivor bit.  No sort, no
-// row residency.
+// order on one core.  Here every update is one atomic: atomicAdd on
+// unsigned int wraps mod 2**32 exactly like the reference's u32 add, and
+// atomicOr sets the survivor bit.  No sort, no row residency.
 //
 // The bits form ORs into the caller's bitmap in place.  The reference ORs a
 // freshly zeroed scatter into it (intersect_rounds.py round_accumulate,
@@ -24,13 +23,33 @@
 // Out-of-range rows or columns are dropped, as the reference's XLA scatter
 // drops them.
 //
-// Bound on the H100: bytes.  Each thread reads one id (4 B), one mask byte
-// or contribution (1 or 4 B) and its entry's qslot, and does one
-// read-modify-write of one 4-byte word in L2; there is no arithmetic to
-// speak of.  Consecutive lanes of an entry hold ascending docids of one
-// block, so a warp's atomics fall on few words.
+// What bounds both forms on the H100 is sector traffic.  In a round an
+// entry's docids lie tens to hundreds of docs apart, in a state array far
+// larger than the 50 MB L2 (the ranked accumulator is 25.8 GB at GOV2's
+// size), so nearly every non-zero contribution lands in a 32-byte sector of
+// its own: the card reads that sector and writes it back, 64 B for one
+// 4-byte update.  The floor is the inputs plus 64 B per distinct touched
+// sector (chip_smoke.py counts both); a bitmap word holds 32 docs, so the
+// bits form's survivors share sectors more often.
 //
-// B4 (dense_add) replaces the JAX package's Pallas kernel
+// The order in which the atomics reach memory decides how close the add
+// form comes to that floor: the memory favours updates close in time that
+// are close in address, and the resident threads of a launch are the
+// updates in flight.  So the add form keeps one thread per (entry, lane)
+// in the array's order: one block per 256 consecutive lanes of one entry,
+// coalesced 4-byte loads, each warp-wide atomic on 32 consecutive lanes,
+// and one unsigned atomicAdd (a RED, its result unused) per non-zero
+// contribution, exact for duplicates across entries too.  Mappings that
+// give a thread four lanes (one warp per entry loading uint4, a warp per
+// 128 lanes handing lanes across through shared memory) widen the span of
+// addresses in flight and took 18 % and 7 % longer on scattered ids on the
+// H100, though the last needs a quarter of the threads where nearly every
+// lane is dead (tools/b2_add_order.py, PERF.md).  Its masked entry point (scatter_add_masked, the ranked rounds'
+// form) reads the survivor byte first and a dead lane's code and id never,
+// which saves the plain pass that zeroed the dead lanes first.  The bits
+// form keeps one thread per (entry, lane) from a flat index.
+
+// B4 (dense_add, dense_add_packed) replaces the JAX package's Pallas kernel
 // kernels/accumulate.py _dense_pallas (body _dense_kernel):
 //   acc[qslot[j], col0[j] : col0[j] + 4096] += codes[j]    where act[j]
 // The TPU form sorted entries by qslot, held the query's row in VMEM across
@@ -42,9 +61,18 @@
 // codes never share a docid, but a plain read-modify-write of the shared
 // columns would race; so every non-zero code is one atomicAdd (unsigned,
 // wrapping mod 2**32 like the reference's u32 add) and zeros are skipped.
-// One thread block per entry; each thread loads 16-byte vectors of codes.
-// Bound on the H100: bytes: 16 KB of codes per active entry, its 9 B of
-// indices, and one 4-byte read-modify-write per distinct touched word.
+// One kernel body, two ways to read a code: unpacked, (P, 4096) words;
+// packed, the ranked path's (P, 1024) score tiles read as 4096 bytes
+// (position p is byte p), times bit p & 31 of word p >> 5 of the (P, 128)
+// window when gated, so no (P, 4096) array is ever made.  One block per
+// entry; thread t takes positions t, t + 256, ..., so each warp-wide atomic
+// covers 32 consecutive words (4 sectors) and each warp-wide load 32
+// consecutive codes; the window word is a broadcast load, read before the
+// codes, so a gated window reads only the code sectors its set bits name.
+// Bound on the H100: bytes: per active entry its 8 B of indices and the
+// codes it needs (16 KB unpacked; 4 KB packed; gated, 512 B of window and
+// 32 B per non-zero window word), one act byte per entry, and one 4-byte
+// read-modify-write per distinct touched word.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,25 +95,43 @@ scatter_bits_kernel(uint32_t* __restrict__ bm, const uint32_t* __restrict__ ids,
   atomicOr(bm + q * words + word, 1u << (id & 31u));
 }
 
+// One block per THREADS consecutive lanes of one entry, so the grid walks
+// the (entry, lane) array in order and each warp-wide atomic covers 32
+// consecutive lanes: ascending docids, as close in the accumulator as an
+// entry's docids get.  The entry index comes from the block index, one
+// 32-bit division (no 64-bit division a lane).  MASKED: lane l adds
+// contrib[l] only where surv[l] (a bool byte), and a dead lane reads
+// nothing else.
+template <bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 scatter_add_kernel(uint32_t* __restrict__ acc, const uint32_t* __restrict__ ids,
                    const int32_t* __restrict__ qslot,
-                   const uint32_t* __restrict__ contrib, long long n_entries,
-                   long long lanes, long long n_rows, long long width) {
-  const long long k = blockIdx.x * (long long)THREADS + threadIdx.x;
-  if (k >= n_entries * lanes) return;
+                   const uint32_t* __restrict__ contrib,
+                   const uint8_t* __restrict__ surv, unsigned chunks,
+                   int lanes, int n_rows, uint32_t width) {
+  const unsigned j = blockIdx.x / chunks;
+  const int l = (int)(blockIdx.x - j * chunks) * THREADS + (int)threadIdx.x;
+  if (l >= lanes) return;
+  const size_t k = (size_t)j * lanes + l;
+  if (MASKED && !surv[k]) return;
   const uint32_t c = contrib[k];
   if (c == 0u) return;                      // adds nothing: skip the atomic
-  const long long q = qslot[k / lanes];
-  const long long col = ids[k];
+  const int q = qslot[j];
+  const uint32_t col = ids[k];
   if (q < 0 || q >= n_rows || col >= width) return;
-  atomicAdd(acc + q * width + col, c);
+  atomicAdd(acc + (size_t)q * width + col, c);
 }
 
 constexpr int WINDOW = 4096;           // dense score window: 128 words * 32
 
+enum DenseForm { UNPACKED = 0, PACKED = 1, PACKED_GATED = 2 };
+
+// UNPACKED: codes (P, 4096) u32.  PACKED: codes (P, 1024) u32 read as 4096
+// bytes; PACKED_GATED: and each code times its bit of win (P, 128) u32.
+template <int FORM>
 __global__ void __launch_bounds__(THREADS)
-dense_add_kernel(uint32_t* __restrict__ acc, const uint4* __restrict__ codes,
+dense_add_kernel(uint32_t* __restrict__ acc, const void* __restrict__ codes,
+                 const uint32_t* __restrict__ win,
                  const int32_t* __restrict__ qslot,
                  const int32_t* __restrict__ col0,
                  const uint8_t* __restrict__ act, long long n_rows,
@@ -98,14 +144,19 @@ dense_add_kernel(uint32_t* __restrict__ acc, const uint4* __restrict__ codes,
   // an error the next synchronisation reports, never write stray memory
   if (q < 0 || q >= n_rows || c0 < 0 || c0 + WINDOW > width) __trap();
   uint32_t* row = acc + q * width + c0;
-  const uint4* src = codes + j * (WINDOW / 4);
-  for (int v = threadIdx.x; v < WINDOW / 4; v += THREADS) {
-    const uint4 c = src[v];
-    uint32_t* dst = row + 4 * v;
-    if (c.x) atomicAdd(dst, c.x);
-    if (c.y) atomicAdd(dst + 1, c.y);
-    if (c.z) atomicAdd(dst + 2, c.z);
-    if (c.w) atomicAdd(dst + 3, c.w);
+#pragma unroll
+  for (int i = 0; i < WINDOW / THREADS; ++i) {
+    const int p = threadIdx.x + i * THREADS;
+    // gated, the bit first: a warp's 32 positions are one window word and
+    // one 32-byte sector of codes, so a word of 0 fetches no code at all
+    if constexpr (FORM == PACKED_GATED)
+      if (!((win[j * (WINDOW / 32) + (p >> 5)] >> (p & 31)) & 1u)) continue;
+    uint32_t c;
+    if constexpr (FORM == UNPACKED)
+      c = static_cast<const uint32_t*>(codes)[j * WINDOW + p];
+    else
+      c = static_cast<const uint8_t*>(codes)[j * WINDOW + p];
+    if (c != 0u) atomicAdd(row + p, c);
   }
 }
 
@@ -133,36 +184,50 @@ extern "C" int repro_scatter_bits(void* bm, const void* ids, const void* qslot,
   return (int)cudaGetLastError();
 }
 
-// acc: (n_rows, width) u32, updated in place; ids, contrib:
-// (n_entries, lanes) u32; qslot: (n_entries,) i32.
+// acc: (n_rows, width) u32, updated in place, width < 2**31; ids, contrib:
+// (n_entries, lanes) u32; qslot: (n_entries,) i32; surv: null, or
+// (n_entries, lanes) bool bytes masking contrib.  Any lane count and
+// alignment.
 extern "C" int repro_scatter_add(void* acc, const void* ids, const void* qslot,
-                                 const void* contrib, long long n_entries,
-                                 long long lanes, long long n_rows,
-                                 long long width, void* stream) {
-  const long long n = n_entries * lanes;
-  if (n <= 0) return 0;
-  if ((n + THREADS - 1) / THREADS > 0x7FFFFFFFLL)
+                                 const void* contrib, const void* surv,
+                                 long long n_entries, long long lanes,
+                                 long long n_rows, long long width,
+                                 void* stream) {
+  if (n_entries <= 0 || lanes <= 0) return 0;
+  const long long chunks = (lanes + THREADS - 1) / THREADS;
+  if (lanes > 0x7FFFFFFFLL || n_rows > 0x7FFFFFFFLL || width > 0x7FFFFFFFLL ||
+      n_entries * chunks > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
-  scatter_add_kernel<<<grid_for(n), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  decltype(&scatter_add_kernel<true>) kernel =
+      surv ? scatter_add_kernel<true> : scatter_add_kernel<false>;
+  kernel<<<(unsigned)(n_entries * chunks), THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(acc), static_cast<const uint32_t*>(ids),
       static_cast<const int32_t*>(qslot), static_cast<const uint32_t*>(contrib),
-      n_entries, lanes, n_rows, width);
+      static_cast<const uint8_t*>(surv), (unsigned)chunks, (int)lanes,
+      (int)n_rows, (uint32_t)width);
   return (int)cudaGetLastError();
 }
 
-// acc: (n_rows, width) u32, updated in place; codes: (n_entries, 4096) u32,
-// 16-byte aligned; qslot, col0: (n_entries,) i32; act: (n_entries,) bool
-// bytes.
-extern "C" int repro_dense_add(void* acc, const void* codes, const void* qslot,
-                               const void* col0, const void* act,
-                               long long n_entries, long long n_rows,
-                               long long width, void* stream) {
+// acc: (n_rows, width) u32, updated in place; codes: (n_entries, 4096) u32
+// (form 0) or the packed (n_entries, 1024) u32 tiles (forms 1, 2); win:
+// (n_entries, 128) u32, read by form 2 only (may be null otherwise); qslot,
+// col0: (n_entries,) i32; act: (n_entries,) bool bytes.
+extern "C" int repro_dense_add(void* acc, const void* codes, const void* win,
+                               const void* qslot, const void* col0,
+                               const void* act, long long n_entries,
+                               long long n_rows, long long width, int form,
+                               void* stream) {
   if (n_entries <= 0) return 0;
-  if (n_entries > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  dense_add_kernel<<<(unsigned)n_entries, THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(acc), static_cast<const uint4*>(codes),
+  if (n_entries > 0x7FFFFFFFLL || form < UNPACKED || form > PACKED_GATED)
+    return (int)cudaErrorInvalidValue;
+  decltype(&dense_add_kernel<UNPACKED>) kernel =
+      form == UNPACKED ? dense_add_kernel<UNPACKED>
+      : form == PACKED ? dense_add_kernel<PACKED>
+                       : dense_add_kernel<PACKED_GATED>;
+  kernel<<<(unsigned)n_entries, THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(acc), codes, static_cast<const uint32_t*>(win),
       static_cast<const int32_t*>(qslot), static_cast<const int32_t*>(col0),
       static_cast<const uint8_t*>(act), n_rows, width);
   return (int)cudaGetLastError();

@@ -84,7 +84,7 @@ def _scatter(acc, member, ids, qslot, codes, surv):
     """Exact scatter, in place: per round a (query, term occurrence)
     contributes every docid at most once, so the integer add is a plain sum
     and the bit add an exact OR."""
-    accumulate.scatter_add(acc, ids, qslot, torch.where(surv, codes, 0))
+    accumulate.scatter_add_masked(acc, ids, qslot, codes, surv)
     accumulate.scatter_bits(member, ids, qslot, surv)
     return acc, member
 
@@ -193,20 +193,6 @@ def candidate_bitmap(acc, member, theta, margin, iq):
 # --------------------------------------------------------------------------- #
 
 
-def _window_codes(tiles):
-    """(P, 1024) packed code windows -> (P, 4096) codes, position p from
-    byte p & 3 of word p >> 2."""
-    shifts = 8 * torch.arange(4, dtype=torch.int32, device=tiles.device)
-    return ((tiles[:, :, None] >> shifts) & 0xFF).reshape(tiles.shape[0], -1)
-
-
-def _window_bits(words):
-    """(P, 128) bitmap windows -> (P, 4096) 0/1, position p from bit p & 31
-    of word p >> 5."""
-    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
-    return ((words[:, :, None] >> shifts) & 1).reshape(words.shape[0], -1)
-
-
 def dense_score_round(acc, member, tiles, words, qslot, w0, ub, theta, iq,
                       gate, *, gated: bool):
     """One ranked round over the batch's dense-bitmap entries, in place;
@@ -217,22 +203,15 @@ def dense_score_round(acc, member, tiles, words, qslot, w0, ub, theta, iq,
     int32 posting bitmap windows; w0: (P,) int32 first word of each window
     (4-word aligned, so column ``w0 * 32`` is 128-aligned).  Codes add as
     one 4096-column window each (kernel B4); membership and the gate stay
-    word-parallel.  The unpacked codes cost 16 KB per entry, so entries go
-    to B4 in chunks of CHUNK_ELEMS // 4096; adds commute, so chunking
-    changes no result.
+    word-parallel.  The codes go to B4 packed, in one call: no (P, 4096)
+    array of unpacked codes is made on the card.
     """
     act = ub > _scale_q16(theta, iq)[qslot.long()]
     win = words
     if gated:
         win = win & accumulate.dense_window_gather(gate, qslot, w0)
-    col0 = w0 * 32
-    step = max(1, CHUNK_ELEMS // accumulate.DENSE_WINDOW)
-    for s in range(0, tiles.shape[0], step):
-        part = slice(s, s + step)
-        codes = _window_codes(tiles[part])
-        if gated:
-            codes = codes * _window_bits(win[part])
-        accumulate.dense_add(acc, codes, qslot[part], col0[part], act[part])
+    accumulate.dense_add_packed(acc, tiles, win, qslot, w0 * 32, act,
+                                gated=gated)
     accumulate.dense_window_or(member, win, qslot, w0, act)
     return acc, member
 

@@ -157,6 +157,25 @@ def test_scatter_add_matches_reference():
     assert_u32_equal(got, want, "B2 add")
 
 
+def test_scatter_add_masked_matches_reference():
+    """The ranked rounds' scatter: the reference's ``scatter_add`` of
+    ``where(surv, codes, 0)``, with overlapping entries of one query."""
+    rng = np.random.default_rng(12)
+    width = 2048
+    ids, _, surv = _scatter_inputs(13, width // 32)
+    qslot = rng.integers(0, 4, len(ids)).astype(np.int32)
+    codes = rng.integers(0, 1 << 32, ids.shape, dtype=np.int64).astype(
+        np.uint32)
+    acc = rng.integers(0, 1 << 32, (4, width), dtype=np.int64).astype(
+        np.uint32)
+    want = np.asarray(ref_acc.scatter_add(
+        jnp.asarray(acc), jnp.asarray(ids), jnp.asarray(qslot),
+        jnp.where(jnp.asarray(surv), jnp.asarray(codes), jnp.uint32(0))))
+    got = accumulate.scatter_add_masked(t32(acc.copy()), t32(ids), t32(qslot),
+                                        t32(codes), torch.as_tensor(surv))
+    assert_u32_equal(got, want, "B2 add masked")
+
+
 def test_dense_window_round_matches_reference():
     rng = np.random.default_rng(4)
     words = 1024
@@ -329,6 +348,78 @@ def test_dense_add_refuses_bad_arguments():
                              *args[2:])
 
 
+def _packed_inputs(seed: int):
+    """``_dense_inputs``' windows (an overlapping pair of one query, an
+    inactive entry) with packed (P, 1024) code tiles and (P, 128) window
+    words in place of the codes, and entry 7's window at the row's end.
+    The tiles carry codes at every position, so an ungated add that masks
+    by anything shows."""
+    acc, _, qslot, col0, act = _dense_inputs(seed)
+    rng = np.random.default_rng(seed + 50)
+    p = len(qslot)
+    col0[7] = acc.shape[1] - 4096
+    tiles = rng.integers(0, 1 << 32, (p, 1024), dtype=np.int64).astype(
+        np.uint32)
+    win = rng.integers(0, 1 << 32, (p, 128), dtype=np.int64).astype(
+        np.uint32)
+    return acc, tiles, win, qslot, col0, act
+
+
+def _ref_dense_packed(acc, tiles, win, qslot, col0, act, gated: bool):
+    """The reference's dense round composition: ``ref_topk``'s unpack and
+    gate (``dense_score_round``), then ``ref_acc.dense_add``."""
+    p = tiles.shape[0]
+    t = jnp.asarray(tiles)
+    shifts = jnp.uint32(8) * jnp.arange(4, dtype=jnp.uint32)
+    codes = ((t[:, :, None] >> shifts) & jnp.uint32(0xFF)).reshape(p, -1)
+    if gated:
+        w = jnp.asarray(win)
+        codes = codes * ((w[:, :, None] >> jnp.arange(32, dtype=jnp.uint32))
+                         & jnp.uint32(1)).reshape(p, -1)
+    return ref_acc.dense_add(jnp.asarray(acc), codes, jnp.asarray(qslot),
+                             jnp.asarray(col0), jnp.asarray(act))
+
+
+@pytest.mark.parametrize("chunked", (False, True))
+@pytest.mark.parametrize("gated", (False, True))
+def test_dense_add_packed_matches_reference(gated, chunked, monkeypatch):
+    """B4's packed form (its plain version here) against the reference's
+    unpack, gate and ``dense_add``, whole and in chunks of 3 entries."""
+    if chunked:
+        monkeypatch.setattr(accumulate, "CHUNK_ELEMS", 3 * 4096)
+    acc, tiles, win, qslot, col0, act = _packed_inputs(3)
+    got = t32(acc.copy())
+    out = accumulate.dense_add_packed(got, t32(tiles), t32(win), t32(qslot),
+                                      t32(col0), torch.as_tensor(act),
+                                      gated=gated)
+    assert out is got
+    assert_u32_equal(got, _ref_dense_packed(acc, tiles, win, qslot, col0,
+                                            act, gated),
+                     f"B4 packed gated={gated}")
+    # the inactive entry's window alone moved nothing; the last one did
+    moved = u32(got) != acc
+    assert moved[qslot[7], -4096:].any()
+
+
+def test_dense_add_packed_refuses_bad_arguments():
+    acc, tiles, win, qslot, col0, act = _packed_inputs(4)
+    args = [t32(acc), t32(tiles), t32(win), t32(qslot), t32(col0),
+            torch.as_tensor(act)]
+    with pytest.raises(TypeError, match="win"):
+        accumulate.dense_add_packed(*args[:2], args[2].long(), *args[3:],
+                                    gated=True)
+    with pytest.raises(ValueError, match="codes"):
+        accumulate.dense_add_packed(args[0], t32(np.zeros((8, 4096),
+                                                          np.uint32)),
+                                    *args[2:], gated=False)
+    with pytest.raises(ValueError, match="win"):
+        accumulate.dense_add_packed(*args[:2], args[2][:, :64].contiguous(),
+                                    *args[3:], gated=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        accumulate.dense_add_packed(args[0], args[1].t().contiguous().t(),
+                                    *args[2:], gated=False)
+
+
 def _sparse_acc(seed: int, q: int = 5, width: int = 2048):
     """Accumulator rows as the ranked rounds leave them: mostly zero, a few
     sums below 2**16, a few above (where the descend saturates), and row 4
@@ -427,9 +518,9 @@ def test_score_rounds_match_reference(gated):
 @pytest.mark.parametrize("gated", (False, True))
 def test_dense_score_round_matches_reference(gated, chunked, monkeypatch):
     """The dense round (window codes through B4, membership by window OR),
-    whole and with the entries split into chunks of 3."""
+    whole and with the plain B4's entries split into chunks of 3."""
     if chunked:
-        monkeypatch.setattr(topk, "CHUNK_ELEMS", 3 * 4096)
+        monkeypatch.setattr(accumulate, "CHUNK_ELEMS", 3 * 4096)
     acc, member, gate, theta, iq = _round_state(8, words=512)
     rng = np.random.default_rng(9)
     p = 8
@@ -470,6 +561,81 @@ def test_cuda_score_kernels_match_their_plain_versions(cuda_device):
     assert kernels.LAUNCHES["B4"] == n0 + 1
     assert_u32_equal(got, accumulate.dense_add_plain(start.clone(), *args),
                      "B4 cuda")
+    torch.cuda.synchronize()
+
+
+# B2's add form: (entries, lanes, view offset in words).  Every case has
+# duplicate targets across entries (two queries, docids from a narrow
+# range), runs of zero contributions (and, masked, of dead lanes) and ids
+# past the row's end; "ragged" is no multiple of 8 entries, "lanes_510"
+# no multiple of 4 lanes and "misaligned" starts ids, contributions and
+# mask past a 16-byte boundary.
+B2_ADD_CASES = {"ragged": (13, 512, 0), "lanes_510": (9, 510, 0),
+                "misaligned": (11, 512, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", (False, True))
+@pytest.mark.parametrize("case", sorted(B2_ADD_CASES))
+def test_cuda_scatter_add_cases(case, masked, cuda_device):
+    """B2's add form (plain, or masked by survivors as the ranked rounds
+    call it) against its plain version, bitwise, one counted launch a
+    call."""
+    p, lanes, off = B2_ADD_CASES[case]
+    rng = np.random.default_rng(p + lanes)
+    width = 3072
+    ids = rng.integers(0, width + 64, p * lanes + off).astype(np.uint32)
+    contrib = rng.integers(0, 1 << 32, p * lanes + off,
+                           dtype=np.int64).astype(np.uint32)
+    contrib[rng.random(contrib.shape) < 0.3] = 0
+    contrib[off + 8:off + 16] = 0
+    ids_t = t32(ids, cuda_device)[off:].view(p, lanes)
+    con_t = t32(contrib, cuda_device)[off:].view(p, lanes)
+    qslot = t32(rng.integers(0, 2, p).astype(np.int32), cuda_device)
+    start = t32(rng.integers(0, 1 << 32, (2, width), dtype=np.int64).astype(
+        np.uint32), cuda_device)
+    surv = rng.random(p * lanes + off) < 0.5
+    surv[off + 16:off + 24] = False
+    surv_t = torch.as_tensor(surv, device=cuda_device)[off:].view(p, lanes)
+    if masked:
+        fns, args = ((accumulate.scatter_add_masked,
+                      accumulate.scatter_add_masked_plain),
+                     (ids_t, qslot, con_t, surv_t))
+    else:
+        fns, args = ((accumulate.scatter_add, accumulate.scatter_add_plain),
+                     (ids_t, qslot, con_t))
+    n0 = kernels.LAUNCHES["B2add"]
+    got = fns[0](start.clone(), *args)
+    assert kernels.LAUNCHES["B2add"] == n0 + 1
+    assert_u32_equal(got, fns[1](start.clone(), *args),
+                     f"B2 add {case} masked={masked}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ("unpacked", "packed", "packed_gated"))
+def test_cuda_dense_add_forms(form, cuda_device):
+    """Both B4 instances against their plain versions, bitwise, on
+    overlapping windows of one query, a window at the row's end and an
+    inactive entry; one counted launch a call."""
+    acc, tiles, win, qslot, col0, act = _packed_inputs(5)
+    dev = [t32(a, cuda_device) for a in (acc, tiles, win, qslot, col0)]
+    start, tiles_t, win_t, qslot_t, col0_t = dev
+    act_t = torch.as_tensor(act, device=cuda_device)
+    if form == "unpacked":
+        codes = accumulate._window_codes(tiles_t)
+        run = (lambda f, a: f(a, codes, qslot_t, col0_t, act_t))
+        fns = (accumulate.dense_add, accumulate.dense_add_plain)
+    else:
+        gated = form == "packed_gated"
+        run = (lambda f, a: f(a, tiles_t, win_t, qslot_t, col0_t, act_t,
+                              gated=gated))
+        fns = (accumulate.dense_add_packed, accumulate.dense_add_packed_plain)
+    n0 = kernels.LAUNCHES["B4"]
+    got = run(fns[0], start.clone())
+    assert kernels.LAUNCHES["B4"] == n0 + 1
+    assert kernels.RECENT[-1][1]["packed"] == (form != "unpacked")
+    assert_u32_equal(got, run(fns[1], start.clone()), f"B4 {form}")
     torch.cuda.synchronize()
 
 
