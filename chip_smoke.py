@@ -9,7 +9,8 @@ every CUDA kernel of the paths against its plain torch version on the
 card:
 
   card       the card, its power limit, torch / CUDA / nvcc versions
-  build      nvcc builds every kernels/csrc/*.cu (one process per source)
+  build      nvcc builds every kernels/csrc/*.cu and tools/and_round_forms.cu
+             (one process per source)
   main path  GOV2-statistics corpus (synth's Zipf formula, 200 terms) at
              25,205,179 docs; InvertedIndex.build; QueryEngine.to_device(
              fused=True); one batch of 256 AND queries to warm up, then a
@@ -19,7 +20,11 @@ card:
              is checked against a numpy oracle on the raw postings;
              cand_syncs == 0, final_syncs == 1, <= 1 decode per hot block,
              and kernels B1 and B2 launched.  A third fresh batch runs under
-             the fenced span tracer for the time breakdown.
+             the fenced span tracer for the time breakdown.  The warm-up
+             batch leaves host copies of its largest B1 call of each bit
+             width and its largest B2 bits call of each round kind (seed,
+             fused, probed plain where one ran) for the kernel phase
+             (``tools/and_round_forms.py``'s capture).
   legacy     ``and_many`` on 16 of the queries (kernel B5), counts set to 0
              just before; results equal the main path's.
   ranked     on the same index: ``ensure_scores()``, then per mode (``or``,
@@ -33,7 +38,8 @@ card:
              B1, B2 (both forms) and B3 launched, B4 too where the batch
              scored dense-bitmap blocks, packed and at most once a round.
              Each mode's warm-up batch leaves host copies of its largest
-             B2-add and B4 calls for the kernel phase.
+             B2-add and B4 calls for the kernel phase, ``and_scored``'s
+             also of its AND rounds' B1 and B2 bits calls, as above.
   stream     the stream codec (``kernels/ops.py``) on every one of the
              corpus's 200 posting lists, counts set to 0 just before: the
              d-gaps uploaded, ``select_bw`` (B9) equal to numpy's per-frame
@@ -51,7 +57,15 @@ card:
              against all ones, as the ``or`` rounds probe; B2's add form at
              the AND path's shape, as first recorded, and at the ranked
              path's; B4 unpacked, packed and packed gated on the same
-             codes), compared bitwise with their plain versions; B2's
+             codes), compared bitwise with their plain versions; B1 and
+             B2's bits form also on the AND rounds' captured calls, each
+             beside its earlier form (``tools/and_round_forms.cu``: B1 a
+             block an entry, B2 bits a thread a lane on a bool mask; in
+             the fused round also after the ``hits != 0`` pass the port
+             dropped), bitwise and timed in turn, with distinct tile rows,
+             probed sectors, live lanes, touched words and sectors, words
+             per warp and each sector floor (B1: 32 B a probed sector; B2
+             bits: 64 B a touched sector); B2's
              masked add form and B4's packed form also on the captured
              calls, with B2's probes (every contribution 0, ids made
              contiguous, the where pass) and
@@ -88,6 +102,7 @@ line.  Usage::
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -145,6 +160,16 @@ def cuda_ms(fn, torch, primed: bool = True) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def in_turns(fns: dict, torch) -> dict:
+    """{name: [two medians]}: each of ``fns`` timed by :func:`cuda_ms`
+    twice, in turn (forwards, then backwards), so that forms of one kernel
+    compare inside one call."""
+    got = {}
+    for name in list(fns) + list(fns)[::-1]:
+        got.setdefault(name, []).append(cuda_ms(fns[name], torch))
+    return got
 
 
 def device_ops(fn, torch) -> dict:
@@ -337,6 +362,8 @@ def main() -> int:
     from repro_torch.kernels.bitpack import FRAME_INTS
     from repro_torch.kernels.decode_fused import BW_BUCKETS, rows_per_block
     from repro_torch.obs.trace import enable_tracing
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import and_round_forms as forms
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -363,8 +390,14 @@ def main() -> int:
     # ---- build ------------------------------------------------------------ #
     log("== build")
     t0 = time.perf_counter()
-    took = cuda_build.build(verbose=True)
-    log(f"built {sorted(took)} in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    # the AND round's earlier forms (tools/and_round_forms.cu), timed beside
+    # B1 and B2 bits on the captured calls, build beside the kernels
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        forms_build = pool.submit(forms.build)
+        took = cuda_build.build(verbose=True)
+        forms_lib = forms_build.result()
+    log(f"built {sorted(took)} and tools/and_round_forms.cu in "
+        f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
 
     # ---- main path -------------------------------------------------------- #
     phase_done("card and build")
@@ -416,10 +449,16 @@ def main() -> int:
     (warm_q, warm_want), (queries, want), (traced_q, traced_want) = (
         draw_batch(), draw_batch(), draw_batch())
     log(f"numpy oracle, 3 batches: {time.perf_counter() - t0:.2f} s")
+    # each AND batch's largest B1 call per bit width and largest B2 bits
+    # call per round kind, kept from the warm-up batches for the kernel phase
+    and_caps = {"and": {}, "and_scored": {}}
     with eng.metrics.scoped() as all_batches:
-        warm, dt = run_batch(warm_q)
+        with forms.capture_and_rounds(intersect_rounds, accumulate,
+                                      and_caps["and"]):
+            warm, dt = run_batch(warm_q)
         log(f"warm-up batch (cold caches): {dt:.2f} s")
         check("warm-up batch", warm_q, warm, warm_want)
+        forms.check_captures(and_caps["and"], "and warm-up batch")
 
         # the main path: a fresh batch (block cache warm, round memo cold)
         fused0 = ar.stats["fused_blocks"]
@@ -581,11 +620,16 @@ def main() -> int:
                                  "col0": col0, "act": act, "gated": gated,
                                  "Q": acc.shape[0],
                                  "width": acc.shape[1]})), \
+                (forms.capture_and_rounds(intersect_rounds, accumulate,
+                                          and_caps[mode])
+                 if mode in and_caps else contextlib.nullcontext()), \
                 eng.metrics.scoped() as ws:
             warm, dt = run_ranked(warm_q, mode)
         warm_dense[mode] = ws.delta("blocks_dense")
         log(f"{mode} warm-up batch: {dt:.2f} s")
         check_ranked(f"{mode} warm-up batch", warm_q, warm, warm_want)
+        if mode in and_caps:
+            forms.check_captures(and_caps[mode], f"{mode} warm-up batch")
         # the kernel phase replays these captures: an empty one means the
         # hook fell off the call path
         if not captured["B2add"][mode]:
@@ -785,20 +829,6 @@ def main() -> int:
         cand = rand_words((q * crows, 128))
         return tiles, slots, qslots, firsts, ns, cand
 
-    def decode_bytes(bw, tiles, slots, qslots, ns, cand, crows, d):
-        """Least bytes: the rows of each distinct tile the entries read,
-        each entry's 12-16 B of indices, the distinct bitmap words its
-        docids probe, and 4 KB of outputs per entry."""
-        w = slots.shape[0]
-        tiles_read = torch.unique(slots).numel()
-        cw = crows * 128
-        q = qslots.long() if qslots is not None else torch.zeros_like(d[:, 0])
-        word = torch.clamp((d.long() & 0xFFFFFFFF) >> 5, max=cw - 1)
-        probed = torch.unique(q[:, None] * cw + word).numel()
-        idx_b = 16 if qslots is not None else 12
-        return (tiles_read * rows_per_block(bw) * 512 + w * idx_b
-                + probed * 4 + 2 * w * 512 * 4)
-
     # B1, every bw bucket, at the largest call any main path gave it, probed
     # against a random bitmap (as the AND rounds) and against all ones (the
     # `or` rounds' gate, where only lane validity masks a hit)
@@ -827,8 +857,11 @@ def main() -> int:
         if n_hits != int(ns.long().sum()):
             raise AssertionError(f"B1 bw={bw} all-ones gate: {n_hits} hits "
                                  f"for {int(ns.long().sum())} valid lanes")
-        nbytes = decode_bytes(bw, tiles, slots, qslots, ns, cand, crows,
-                              ref[0].reshape(w, -1))
+        # bound: distinct tile rows, indices, probed words, outputs; sector
+        # floor: 32 B a probed sector in place of 4 B a word
+        counts = forms.b1_counts(slots, qslots, ns, ref[0].reshape(w, -1),
+                                 bw, crows)
+        nbytes = counts["bytes"]
         ms = cuda_ms(lambda: intersect_rounds.segmented_decode_and(
             *args_, bw=bw, crows=crows), torch)
         pms = cuda_ms(lambda: intersect_rounds.segmented_decode_and_plain(
@@ -837,16 +870,61 @@ def main() -> int:
                       "on_main_path": bw in seen,
                       "paths": sorted(b1_paths.get(bw, ())), "max_abs_err": err,
                       "ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
-                      "bytes": nbytes}
+                      "sector_floor_ms": bound_ms(counts["floor_bytes"]),
+                      "bytes": nbytes, "counts": counts}
         log(f"B1 bw={bw:2d} W={w} Q={q} crows={crows}: err {err} (random and "
             f"all-ones gates) kernel {ms:.4f} ms plain {pms:.4f} ms bound "
-            f"{bound_ms(nbytes):.4f} ms; paths "
+            f"{bound_ms(nbytes):.4f} ms sector floor "
+            f"{bound_ms(counts['floor_bytes']):.4f} ms; {counts}; paths "
             f"{', '.join(sorted(b1_paths.get(bw, ()))) or 'none'}")
         if err:
             raise AssertionError(f"B1 bw={bw} disagrees with its plain version")
         del tiles, cand, got, ref
     main_bw = max(seen, key=lambda b: seen[b][0])
     b1 = per_bw[main_bw]
+
+    # B1 on each AND batch's captured calls (the largest of each bit width,
+    # the real tiles, docids and candidate bitmap): against its plain
+    # version and its earlier form (tools/and_round_forms.cu, a block an
+    # entry), bitwise, then the two timed in turn
+    b1_captured = {}
+    for mode, caps in and_caps.items():
+        for bw, cap in sorted(caps["B1"].items()):
+            crows = cap["crows"]
+            a = [None if cap[k] is None else cap[k].to(dev) for k in
+                 ("tiles", "slots", "qslots", "firsts", "ns", "cand")]
+            got = intersect_rounds.segmented_decode_and(*a, bw=bw,
+                                                        crows=crows)
+            ref = intersect_rounds.segmented_decode_and_plain(*a, bw=bw,
+                                                              crows=crows)
+            old = forms.b1_block(forms_lib, 0, *a, bw, crows)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(got, ref, torch),
+                      max_abs_err(old, ref, torch))
+            if err:
+                raise AssertionError(f"B1 bw={bw} on {mode}'s captured call "
+                                     f"disagrees with its plain version or "
+                                     f"its earlier form")
+            counts = forms.b1_counts(a[1], a[2], a[4], ref[0].view(-1, 512),
+                                     bw, crows)
+            del got, ref, old
+            t = in_turns({
+                "port": lambda: intersect_rounds.segmented_decode_and(
+                    *a, bw=bw, crows=crows),
+                "earlier": lambda: forms.b1_block(forms_lib, 0, *a, bw,
+                                                  crows)}, torch)
+            r = b1_captured.setdefault(mode, {})[bw] = {
+                "max_abs_err": err, "ms": min(t["port"]),
+                "earlier_ms": min(t["earlier"]), "ms_in_turns": t,
+                "bound_ms": bound_ms(counts["bytes"]),
+                "sector_floor_ms": bound_ms(counts["floor_bytes"]),
+                "counts": counts}
+            log(f"B1 bw={bw:2d} ({mode}'s captured call): err {err} kernel "
+                f"{t['port']} ms, earlier form {t['earlier']} ms in turns; "
+                f"bound {r['bound_ms']:.4f} ms sector floor "
+                f"{r['sector_floor_ms']:.4f} ms; {counts}")
+            del a
+            torch.cuda.empty_cache()
     report.append({
         "name": "segmented_decode_and (B1)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_and.cu",
@@ -856,6 +934,7 @@ def main() -> int:
         "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "shape_bw": main_bw,
         "ranked_launches": ranked_launches["B1"], "per_bw": per_bw,
+        "sector_floor_ms": b1["sector_floor_ms"], "captured": b1_captured,
         "ok": True})
 
     # B5 at the legacy path's largest call
@@ -868,12 +947,18 @@ def main() -> int:
     ref = decode_fused.fused_decode_and_plain(*args_, bw=bw)
     torch.cuda.synchronize()
     err = max_abs_err(got, ref, torch)
-    nbytes = decode_bytes(bw, tiles, slots, None, ns, cand, crows,
-                          ref[0].reshape(w, -1))
+    counts = forms.b1_counts(slots, None, ns, ref[0].reshape(w, -1), bw,
+                             crows)
+    nbytes = counts["bytes"]
     ms = cuda_ms(lambda: decode_fused.fused_decode_and(*args_, bw=bw), torch)
     pms = cuda_ms(lambda: decode_fused.fused_decode_and_plain(*args_, bw=bw), torch)
-    log(f"B5 bw={bw} W={w} R={crows}: err {err} kernel {ms:.4f} ms plain "
-        f"{pms:.4f} ms bound {bound_ms(nbytes):.4f} ms")
+    old_ms = cuda_ms(lambda: forms.b1_block(forms_lib, 0, tiles, slots, None,
+                                            firsts, ns, cand, bw, crows),
+                     torch)
+    log(f"B5 bw={bw} W={w} R={crows}: err {err} kernel {ms:.4f} ms (earlier "
+        f"form {old_ms:.4f} ms) plain {pms:.4f} ms bound "
+        f"{bound_ms(nbytes):.4f} ms sector floor "
+        f"{bound_ms(counts['floor_bytes']):.4f} ms")
     if err:
         raise AssertionError("B5 disagrees with its plain version")
     report.append({
@@ -883,6 +968,8 @@ def main() -> int:
         "launches": legacy_launches, "path": "legacy and_many",
         "max_abs_err": err, "ms": ms, "plain_ms": pms,
         "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "library_ms": None,
+        "sector_floor_ms": bound_ms(counts["floor_bytes"]),
+        "earlier_ms": old_ms, "counts": counts,
         "shape": {"bw": bw, "W": w, "R": crows}, "ok": True})
     del tiles, cand, got, ref
 
@@ -913,28 +1000,91 @@ def main() -> int:
     idl = ids.long()
     flat = (qslot.long()[:, None] * words + (idl >> 5))[surv]
     vals = torch.bitwise_left_shift(torch.ones_like(idl), idl & 31)[surv].to(torch.int32)
-    touched = torch.unique(flat).numel()
-    # a touched word is read and written: 8 B of read-modify-write
-    nbytes = p * lanes * 4 + p * lanes + p * 4 + touched * 8
+    counts = forms.bits_counts(q, words, ids, qslot, surv, 1)
+    # a touched word is read and written: 8 B of read-modify-write; the
+    # sector floor: 64 B a touched 32-byte sector, beside the same inputs
+    inputs = p * lanes * 4 + p * lanes + p * 4
+    nbytes = inputs + counts["touched_words"] * 8
+    floor_ms = bound_ms(inputs + counts["touched_sectors"] * 64)
     ms = cuda_ms(lambda: accumulate.scatter_bits(bm, ids, qslot, surv), torch)
     pms = cuda_ms(lambda: accumulate.scatter_bits_plain(bm, ids, qslot, surv), torch)
     lib_flat = bm.view(-1)
     lms = cuda_ms(lambda: lib_flat.index_put_((flat,), vals, accumulate=True), torch)
+    old_ms = cuda_ms(lambda: forms.bits_form(forms_lib, "flat", bm, ids,
+                                             qslot, surv), torch)
     log(f"B2 bits Q={q} words={words} P={p} L={lanes} ({b2_path} path): err "
         f"{err} kernel "
-        f"{ms:.4f} ms plain {pms:.4f} ms index_put_ {lms:.4f} ms bound "
-        f"{bound_ms(nbytes):.4f} ms")
+        f"{ms:.4f} ms (earlier form {old_ms:.4f} ms) plain {pms:.4f} ms "
+        f"index_put_ {lms:.4f} ms bound {bound_ms(nbytes):.4f} ms sector "
+        f"floor {floor_ms:.4f} ms; {counts}")
     if err:
         raise AssertionError("B2 bits form disagrees with its plain version")
+    del bm, got, ref, flat, vals
     b2 = {"name": "scatter_bits (B2)", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/accumulate.cu",
           "replaces": "src/repro/kernels/accumulate.py:85",
           "launches": main_launches["B2"], "max_abs_err": err, "ms": ms,
           "plain_ms": pms, "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
           "library_ms": lms, "ranked_launches": ranked_launches["B2"],
+          "sector_floor_ms": floor_ms, "earlier_ms": old_ms,
+          "counts": counts,
           "shape": {"Q": q, "words": words, "P": p, "L": lanes},
           "shape_path": b2_path, "ok": True}
-    del bm, got, ref, flat, vals
+
+    # B2 bits on each AND batch's captured calls, the largest of each round
+    # kind (seed: every posting of each query's rarest term; fused: B1's hit
+    # words as the mask; probed: a plain round, where one ran): against its
+    # plain version and its earlier form (tools/and_round_forms.cu, a thread
+    # a lane from a flat index, on a bool mask), bitwise, then timed in
+    # turn; in the fused round also the earlier round's scatter, the
+    # `hits != 0` pass and the earlier form
+    bits_captured = {}
+    for mode, caps in and_caps.items():
+        for kind, cap in sorted(caps["B2"].items()):
+            cids, cq, csurv = (cap[k].to(dev) for k in ("ids", "qslot",
+                                                          "surv"))
+            alive = csurv != 0
+            zero = torch.zeros((cap["Q"], cap["words"]), dtype=torch.int32,
+                               device=dev)
+            got = accumulate.scatter_bits(zero.clone(), cids, cq, csurv)
+            ref = accumulate.scatter_bits_plain(zero.clone(), cids, cq, csurv)
+            old = forms.bits_form(forms_lib, "flat", zero.clone(), cids, cq,
+                                  alive)
+            torch.cuda.synchronize()
+            err = max(max_abs_err([got], [ref], torch),
+                      max_abs_err([old], [ref], torch))
+            del got, ref, old
+            if err:
+                raise AssertionError(f"B2 bits on {mode}'s captured {kind} "
+                                     f"call disagrees with its plain version "
+                                     f"or its earlier form")
+            counts = forms.bits_counts(cap["Q"], cap["words"], cids, cq,
+                                       csurv, csurv.element_size())
+            fns = {"port": lambda: accumulate.scatter_bits(zero, cids, cq,
+                                                           csurv),
+                   "earlier": lambda: forms.bits_form(forms_lib, "flat", zero,
+                                                      cids, cq, alive)}
+            if csurv.dtype != torch.bool:
+                fns["pass_and_earlier"] = lambda: forms.bits_form(
+                    forms_lib, "flat", zero, cids, cq, csurv != 0)
+            t = in_turns(fns, torch)
+            r = bits_captured.setdefault(mode, {})[kind] = {
+                "max_abs_err": err, "ms": min(t["port"]),
+                "earlier_ms": min(t["earlier"]), "ms_in_turns": t,
+                "mask": str(csurv.dtype).replace("torch.", ""),
+                "bound_ms": bound_ms(counts["bytes"]),
+                "sector_floor_ms": bound_ms(counts["floor_bytes"]),
+                "counts": counts}
+            if "pass_and_earlier" in t:
+                r["pass_and_earlier_ms"] = min(t["pass_and_earlier"])
+            log(f"B2 bits ({mode}'s captured {kind} call, {r['mask']} mask): "
+                f"err {err} in turns {t}; bound {r['bound_ms']:.4f} ms "
+                f"sector floor {r['sector_floor_ms']:.4f} ms; {counts}")
+            del cids, cq, csurv, alive, zero
+            torch.cuda.empty_cache()
+    b2["captured"] = bits_captured
+    b2["max_abs_err"] = max([b2["max_abs_err"]] + [
+        r["max_abs_err"] for m in bits_captured.values() for r in m.values()])
 
     def accumulate_case(what, q, width, run, run_plain, flat, vals,
                         probes=None):

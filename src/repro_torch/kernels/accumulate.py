@@ -8,8 +8,12 @@ accumulator.
 * :func:`scatter_bits` / :func:`scatter_add`: kernel B2 of the port
   (``csrc/accumulate.cu``), replacing the JAX package's Pallas kernel
   ``kernels/accumulate.py`` ``_sparse_pallas`` (body ``_sparse_kernel``).
-  One atomic per survivor: ``atomicOr`` for the bits, ``atomicAdd`` on
-  unsigned int (wrapping mod 2**32 like the reference's u32) for the adds.
+  ``atomicAdd`` on unsigned int (wrapping mod 2**32 like the reference's
+  u32) for each live add; ``atomicOr`` for the bits, one a word a warp
+  after the warp merges its lanes' bits.  :func:`scatter_bits` reads four
+  lanes' mask a thread, so a warp of 128 dead lanes (most of a fused
+  round) costs one load a thread, and takes the mask as bools or as the
+  fused decode's int32 hit words.
   The TPU form's sort by query slot and row-resident VMEM aliasing existed
   for its sequential grid; the port drops both.  What bounds both forms on
   the H100 is sector traffic: a round's docids lie far apart in a state
@@ -69,7 +73,7 @@ TILE_WORDS = DENSE_WINDOW // 4   # packed score window: four u8 codes a word
 CHUNK_ELEMS = 1 << 28
 
 _BITS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [
-    ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_void_p]
 _ADD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 + [
     ctypes.c_void_p]
 _DENSE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [
@@ -78,10 +82,12 @@ _UNPACKED, _PACKED, _PACKED_GATED = 0, 1, 2    # repro_dense_add's forms
 
 
 def _check_scatter(state, ids, qslot, vals, vals_dtype, what: str) -> None:
+    """``vals_dtype``: the dtype ``vals`` must have, or a tuple of those it
+    may have."""
     named = {"state": (state, torch.int32), "ids": (ids, torch.int32),
              "qslot": (qslot, torch.int32), what: (vals, vals_dtype)}
     for name, (t, dt) in named.items():
-        if t.dtype != dt:
+        if t.dtype not in (dt if isinstance(dt, tuple) else (dt,)):
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if t.device != state.device:
             raise ValueError(f"{name} on {t.device}, state on {state.device}")
@@ -95,15 +101,17 @@ def _check_scatter(state, ids, qslot, vals, vals_dtype, what: str) -> None:
                          f"{tuple(ids.shape)}")
 
 
-def _scatter_launch(symbol: str, argtypes, state, ids, qslot, *vals):
-    """Launch ``repro_scatter_bits(..., surv, ...)`` or
-    ``repro_scatter_add(..., contrib, surv or None, ...)`` on ``state``."""
+def _scatter_launch(symbol: str, argtypes, state, ids, qslot, *vals,
+                    extra=()):
+    """Launch ``repro_scatter_bits(..., surv, ..., mask_bytes)`` or
+    ``repro_scatter_add(..., contrib, surv or None, ...)`` on ``state``
+    (``extra``: the arguments between the sizes and the stream)."""
     fn = cuda_build.function("accumulate", symbol, argtypes)
     with torch.cuda.device(state.device):
         err = fn(state.data_ptr(), ids.data_ptr(), qslot.data_ptr(),
                  *(None if v is None else v.data_ptr() for v in vals),
                  ids.shape[0], ids.shape[1], state.shape[0], state.shape[1],
-                 cuda_build.stream_ptr(state))
+                 *extra, cuda_build.stream_ptr(state))
     cuda_build.check(err, "accumulate", f"{symbol}(P={ids.shape[0]})")
 
 
@@ -154,15 +162,17 @@ def scatter_bits(bm, ids, qslot, surv):
     ``surv[j, l]``.
 
     bm: (Q, words) int32; ids: (P, L) int32 docids; qslot: (P,) int32;
-    surv: (P, L) bool.  On a zeroed ``bm`` this is the reference's
-    ``scatter_bits`` bit for bit.
+    surv: (P, L) bool, or int32 hit words (a lane survives where its word
+    is not 0: the fused decode's hits, read as they are, with no pass that
+    makes bools of them).  On a zeroed ``bm`` this is the reference's
+    ``scatter_bits`` of ``surv != 0`` bit for bit.
     """
-    _check_scatter(bm, ids, qslot, surv, torch.bool, "surv")
+    _check_scatter(bm, ids, qslot, surv, (torch.bool, torch.int32), "surv")
     if not bm.is_cuda:
         return scatter_bits_plain(bm, ids, qslot, surv)
     if ids.numel():
         _scatter_launch("repro_scatter_bits", _BITS_ARGS, bm, ids, qslot,
-                        surv)
+                        surv, extra=(surv.element_size(),))
         count_launch("B2", P=ids.shape[0], L=ids.shape[1], Q=bm.shape[0],
                      words=bm.shape[1])
     return bm
@@ -172,7 +182,7 @@ def scatter_bits_plain(bm, ids, qslot, surv):
     """Plain torch version of :func:`scatter_bits` (any device): the
     reference's zeroed scatter-add of ``1 << (id & 31)``, ORed into ``bm``."""
     idw = u32(ids)
-    flat, keep = _flat_targets(bm, idw >> 5, qslot, surv)
+    flat, keep = _flat_targets(bm, idw >> 5, qslot, surv != 0)
     _or_at(bm, flat, torch.bitwise_left_shift(torch.ones_like(idw),
                                               idw & 31)[keep])
     return bm

@@ -9,9 +9,10 @@
 //
 // The TPU form sorted entries by qslot and kept the owning query's row
 // aliased in VMEM across consecutive grid steps, because its grid runs in
-// order on one core.  Here every update is one atomic: atomicAdd on
-// unsigned int wraps mod 2**32 exactly like the reference's u32 add, and
-// atomicOr sets the survivor bit.  No sort, no row residency.
+// order on one core.  Here the updates are atomics: atomicAdd on unsigned
+// int wraps mod 2**32 exactly like the reference's u32 add, and atomicOr
+// sets the survivor bits (one a word a warp, after the warp merges its
+// lanes' bits).  No sort, no row residency.
 //
 // The bits form ORs into the caller's bitmap in place.  The reference ORs a
 // freshly zeroed scatter into it (intersect_rounds.py round_accumulate,
@@ -44,10 +45,15 @@
 // 128 lanes handing lanes across through shared memory) widen the span of
 // addresses in flight and took 18 % and 7 % longer on scattered ids on the
 // H100, though the last needs a quarter of the threads where nearly every
-// lane is dead (tools/b2_add_order.py, PERF.md).  Its masked entry point (scatter_add_masked, the ranked rounds'
-// form) reads the survivor byte first and a dead lane's code and id never,
-// which saves the plain pass that zeroed the dead lanes first.  The bits
-// form keeps one thread per (entry, lane) from a flat index.
+// lane is dead (tools/b2_add_order.py, PERF.md).  Its masked entry point
+// (scatter_add_masked, the ranked rounds' form) reads the survivor byte
+// first and a dead lane's code and id never, which saves the plain pass
+// that zeroed the dead lanes first.  The bits form reads 4 lanes' mask a
+// thread, stops a warp whose 128 lanes are dead, sends its atomics on 32
+// consecutive lanes at a time and merges a warp's lanes that set bits of
+// one word into one atomicOr (scatter_bits_kernel); its mask is bool bytes
+// or, in the fused AND round, the fused decode's u32 hit words as they are,
+// which saves the plain pass that turned them into bools.
 
 // B4 (dense_add, dense_add_packed) replaces the JAX package's Pallas kernel
 // kernels/accumulate.py _dense_pallas (body _dense_kernel):
@@ -81,18 +87,102 @@ namespace {
 
 constexpr int THREADS = 256;
 
-__global__ void __launch_bounds__(THREADS)
+// B2 bits.  A warp takes 128 consecutive lanes of one entry (four warps, 512
+// lanes, a block): thread t first reads the mask of lanes 4t..4t+3 in one
+// load (a uint4 of hit words, or 4 bool bytes) where the lane count and the
+// mask's address allow it, and a warp whose 128 lanes are all dead stops
+// there (the fused round's mask is 99.3 % dead: one lane a thread spent
+// its time starting threads).  A live warp then loads the ids of its live
+// lanes, lane 32c + t in thread t (its live bit comes by a shuffle), all
+// four at once, and goes over them in four sub-rounds of 32 consecutive
+// lanes, so every warp-wide atomic still covers 32 consecutive lanes, the
+// order the add form's measurements favour.  Within a sub-round,
+// __match_any_sync groups the live lanes by target word; where no two
+// share one each lane sends its atomicOr, otherwise the group ORs its bits
+// into the shared word of its first lane (shared-memory atomicOr: a group
+// need not be a run of lanes) and that lane sends the group's one
+// atomicOr.  Every lane of the warp stays for the collectives,
+// which take the full mask; a dead lane, a lane past the entry's end and a
+// target out of range carry the sentinel word NO_WORD.  A dead lane reads
+// its mask and nothing else.  M is the mask's type: bool bytes, or the
+// fused decode's u32 hit words (non-zero: alive), read as they are.
+constexpr int BITS_THREADS = 128;
+constexpr int BITS_CHUNK = 4 * BITS_THREADS;    // lanes a block
+constexpr uint32_t NO_WORD = 0xFFFFFFFFu;   // above any word index < 2**31
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+__device__ __forceinline__ unsigned live4(uint4 v) {
+  return (v.x != 0u) | (v.y != 0u) << 1 | (v.z != 0u) << 2 | (v.w != 0u) << 3;
+}
+
+__device__ __forceinline__ unsigned live4(uint32_t bytes) {
+  return ((bytes & 0xFFu) != 0u) | ((bytes & 0xFF00u) != 0u) << 1 |
+         ((bytes & 0xFF0000u) != 0u) << 2 | ((bytes >> 24) != 0u) << 3;
+}
+
+template <typename M>
+__global__ void __launch_bounds__(BITS_THREADS)
 scatter_bits_kernel(uint32_t* __restrict__ bm, const uint32_t* __restrict__ ids,
                     const int32_t* __restrict__ qslot,
-                    const uint8_t* __restrict__ surv, long long n_entries,
-                    long long lanes, long long n_rows, long long words) {
-  const long long k = blockIdx.x * (long long)THREADS + threadIdx.x;
-  if (k >= n_entries * lanes || !surv[k]) return;
-  const long long q = qslot[k / lanes];
-  const uint32_t id = ids[k];
-  const long long word = id >> 5;
-  if (q < 0 || q >= n_rows || word >= words) return;
-  atomicOr(bm + q * words + word, 1u << (id & 31u));
+                    const M* __restrict__ surv, unsigned chunks, int lanes,
+                    int n_rows, uint32_t words, bool vec) {
+  __shared__ uint32_t merged[BITS_THREADS];
+  const unsigned j = blockIdx.x / chunks;
+  const int t = threadIdx.x & 31;
+  const int wbase = threadIdx.x & ~31;            // the warp's first thread
+  const int l0 = (int)(blockIdx.x - j * chunks) * BITS_CHUNK + 4 * wbase;
+  const size_t k0 = (size_t)j * lanes + l0;       // the warp's first lane
+  const int lt = l0 + 4 * t;
+  unsigned live = 0u;                              // bit c: lane lt + c
+  if (vec) {                                       // lanes % 4 == 0, aligned
+    if (lt < lanes) {
+      if constexpr (sizeof(M) == 4)
+        live = live4(*reinterpret_cast<const uint4*>(surv + k0 + 4 * t));
+      else
+        live = live4(*reinterpret_cast<const uint32_t*>(surv + k0 + 4 * t));
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (lt + c < lanes && surv[k0 + 4 * t + c] != 0) live |= 1u << c;
+  }
+  if (!__any_sync(FULL, live != 0u)) return;       // the whole warp
+  // lane 32c + t of the warp's 128 is bit t % 4 of thread 8c + t / 4; every
+  // live lane's id is loaded first, four independent loads a thread
+  unsigned mine = 0u;                              // bit c: lane 32c + t
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    mine |= ((__shfl_sync(FULL, live, 8 * c + (t >> 2)) >> (t & 3)) & 1u)
+            << c;
+  const int q = mine ? qslot[j] : 0;
+  const bool q_ok = q >= 0 && q < n_rows;
+  uint32_t id[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    id[c] = (mine >> c) & 1u ? ids[k0 + 32 * c + t] : 0u;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint32_t word = NO_WORD, bit = 0u;
+    if ((mine >> c) & 1u && q_ok && (id[c] >> 5) < words) {
+      word = id[c] >> 5;
+      bit = 1u << (id[c] & 31u);
+    }
+    if (!__any_sync(FULL, word != NO_WORD)) continue;
+    const unsigned peers = __match_any_sync(FULL, word);
+    if (__all_sync(FULL, word == NO_WORD || peers == 1u << t)) {
+      if (word != NO_WORD)                         // no two lanes share one
+        atomicOr(bm + (size_t)q * words + word, bit);
+      continue;
+    }
+    const int leader = __ffs(peers) - 1;
+    merged[threadIdx.x] = 0u;
+    __syncwarp();
+    if (word != NO_WORD) atomicOr(&merged[wbase + leader], bit);
+    __syncwarp();
+    if (word != NO_WORD && t == leader)
+      atomicOr(bm + (size_t)q * words + word, merged[threadIdx.x]);
+    __syncwarp();                                  // before the next clear
+  }
 }
 
 // One block per THREADS consecutive lanes of one entry, so the grid walks
@@ -160,27 +250,39 @@ dense_add_kernel(uint32_t* __restrict__ acc, const void* __restrict__ codes,
   }
 }
 
-unsigned grid_for(long long n) {
-  return (unsigned)((n + THREADS - 1) / THREADS);
-}
 
 }  // namespace
 
-// bm: (n_rows, words) u32, updated in place; ids: (n_entries, lanes) u32;
-// qslot: (n_entries,) i32; surv: (n_entries, lanes) bool bytes.
+// bm: (n_rows, words) u32, updated in place, words < 2**31; ids:
+// (n_entries, lanes) u32; qslot: (n_entries,) i32; surv: (n_entries,
+// lanes), bool bytes (mask_bytes 1) or u32 hit words (mask_bytes 4).
 extern "C" int repro_scatter_bits(void* bm, const void* ids, const void* qslot,
                                   const void* surv, long long n_entries,
                                   long long lanes, long long n_rows,
-                                  long long words, void* stream) {
-  const long long n = n_entries * lanes;
-  if (n <= 0) return 0;
-  if ((n + THREADS - 1) / THREADS > 0x7FFFFFFFLL)
+                                  long long words, int mask_bytes,
+                                  void* stream) {
+  if (n_entries <= 0 || lanes <= 0) return 0;
+  const long long chunks = (lanes + BITS_CHUNK - 1) / BITS_CHUNK;
+  if (lanes > 0x7FFFFFFFLL || n_rows > 0x7FFFFFFFLL || words > 0x7FFFFFFFLL ||
+      n_entries * chunks > 0x7FFFFFFFLL || (mask_bytes != 1 && mask_bytes != 4))
     return (int)cudaErrorInvalidValue;
-  scatter_bits_kernel<<<grid_for(n), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(bm), static_cast<const uint32_t*>(ids),
-      static_cast<const int32_t*>(qslot), static_cast<const uint8_t*>(surv),
-      n_entries, lanes, n_rows, words);
+  const unsigned blocks = (unsigned)(n_entries * chunks);
+  // one load a thread for 4 lanes' mask needs every warp's lanes to start
+  // on a multiple of 4 and the mask on a 4 * mask_bytes boundary
+  const bool vec = lanes % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(surv) % (4 * mask_bytes) == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* b = static_cast<uint32_t*>(bm);
+  const uint32_t* i = static_cast<const uint32_t*>(ids);
+  const int32_t* q = static_cast<const int32_t*>(qslot);
+  if (mask_bytes == 1)
+    scatter_bits_kernel<uint8_t><<<blocks, BITS_THREADS, 0, s>>>(
+        b, i, q, static_cast<const uint8_t*>(surv), (unsigned)chunks,
+        (int)lanes, (int)n_rows, (uint32_t)words, vec);
+  else
+    scatter_bits_kernel<uint32_t><<<blocks, BITS_THREADS, 0, s>>>(
+        b, i, q, static_cast<const uint32_t*>(surv), (unsigned)chunks,
+        (int)lanes, (int)n_rows, (uint32_t)words, vec);
   return (int)cudaGetLastError();
 }
 

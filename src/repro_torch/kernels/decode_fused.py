@@ -3,10 +3,14 @@ of B1 (``intersect_rounds.segmented_decode_and``).
 
 Replaces the JAX package's Pallas kernel ``kernels/decode_fused.py``
 ``fused_decode_and`` (body ``_fused_kernel``).  The CUDA source is
-``csrc/decode_and.cu``; one thread block per work-list entry unpacks the
-entry's packed gap tile, prefix-sums the gaps into docids and probes each
-docid in the candidate bitmap.  What bounds it on the H100 is bytes moved:
-the tile rows it reads and the 4 KB of docids and hits it writes per entry.
+``csrc/decode_and.cu``; one warp per work-list entry (four entries a
+block) unpacks the entry's packed gap tile, a uint4 of four lanes a thread,
+prefix-sums the gaps into docids and probes each docid in the candidate
+bitmap, every probe load sent before any store.  What bounds it on the
+H100 is bytes moved, and the latency of the loads an entry waits on: the
+tile rows it reads, the 32-byte sectors its probes touch and the 4 KB of
+docids and hits it writes per entry.  The tiles must start on a 16-byte
+boundary on the card.
 
 Layout: a block of up to 512 postings is one (rows_per_block(bw), 128)
 uint32 tile.  Value ``i`` of the block lives at row ``i // 128``, lane
@@ -28,7 +32,7 @@ import torch
 
 from ..core.bits import U32_MASK, i32, u32, word_index
 from . import count_launch, cuda_build
-from .bitpack import LANES, _mask
+from .bitpack import LANES, _mask, check_aligned
 
 BLOCK_ROWS = 4                       # 512 postings = 4 rows x 128 lanes
 
@@ -137,6 +141,7 @@ def decode_and_launch(tiles, slots, qslots, firsts, ns, cand, bw: int,
                       crows: int):
     """Launch ``repro_decode_and`` (csrc/decode_and.cu) on CUDA tensors;
     returns (ids, hits) allocated here, or raises on a launch error."""
+    check_aligned(tiles, "tiles")
     w = slots.shape[0]
     ids = torch.empty((w * BLOCK_ROWS, LANES), dtype=torch.int32,
                       device=tiles.device)

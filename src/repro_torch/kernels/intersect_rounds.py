@@ -90,8 +90,9 @@ def round_accumulate(new, ids, qslot, ns, bm_old, *, probe: bool = True):
 
 def round_accumulate_masked(new, ids, qslot, hits):
     """:func:`round_accumulate` with the probe already applied: ``hits`` is
-    the per-lane survivor mask a fused kernel produced."""
-    return accumulate.scatter_bits(new, ids, qslot, hits != 0)
+    the per-lane int32 survivor mask a fused kernel produced (non-zero:
+    alive), which kernel B2 reads as it is."""
+    return accumulate.scatter_bits(new, ids, qslot, hits)
 
 
 def dense_round_accumulate(new, words, qslot, w0, act, bm_old, *,

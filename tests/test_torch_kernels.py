@@ -141,6 +141,82 @@ def test_scatter_bits_matches_reference():
     assert_u32_equal(bm, old | want, "B2 bits in place")
 
 
+def test_scatter_bits_reads_hit_words_as_they_are():
+    """The fused AND round's scatter: B1's int32 hit words (0 or 1; any
+    non-zero word counts as alive) go to B2 as the mask with no ``!= 0``
+    pass, through ``scatter_bits`` and ``round_accumulate_masked``, against
+    the reference's ``scatter_bits`` of ``hits != 0`` on a zeroed bitmap
+    and its ``round_accumulate_masked``."""
+    words = 64
+    ids, qslot, surv = _scatter_inputs(21, words)
+    hits = surv.astype(np.uint32)
+    hits[0, :8] *= np.uint32(0x80000001)          # non-zero words but 1
+    zero = np.zeros((4, words), np.uint32)
+    want = np.asarray(ref_acc.scatter_bits(
+        jnp.asarray(zero), jnp.asarray(ids), jnp.asarray(qslot),
+        jnp.asarray(hits != 0)))
+    got = accumulate.scatter_bits(t32(zero), t32(ids), t32(qslot), t32(hits))
+    assert_u32_equal(got, want, "B2 bits on hit words")
+    new = np.random.default_rng(22).integers(
+        0, 1 << 32, (4, words), dtype=np.int64).astype(np.uint32)
+    want = np.asarray(ref_ir.round_accumulate_masked(
+        jnp.asarray(new), jnp.asarray(ids), jnp.asarray(qslot),
+        jnp.asarray(hits)))
+    got = intersect_rounds.round_accumulate_masked(
+        t32(new), t32(ids), t32(qslot), t32(hits))
+    assert_u32_equal(got, want, "round_accumulate_masked")
+
+
+def _runs_in_words(words: int):
+    """6 entries x 512 lanes over 2 queries with runs of lanes in one word:
+    entries 0-1 of query 0 take the even and the odd docids of one range
+    (every word shared by the two entries, 16 lanes a word each), entry 2
+    of query 0 512 consecutive docids (32 lanes a word), entries 3-5 of
+    query 1 docids 1, 2 and 40 apart; no docid twice in a query (the round
+    contract)."""
+    ids = np.stack([np.arange(512) * 2 + 64, np.arange(512) * 2 + 65,
+                    np.arange(512) + 3000, np.arange(512) + 21000,
+                    np.arange(512) * 2 + 1000, np.arange(512) * 40 + 11]
+                   ).astype(np.uint32)
+    assert words * 32 > ids.max()
+    return ids, np.array([0, 0, 0, 1, 1, 1], np.int32)
+
+
+@pytest.mark.parametrize("mask", ("bool", "int32"))
+def test_scatter_bits_runs_in_one_word_match_reference(mask):
+    """B2 bits where many lanes of a warp and lanes of two entries of one
+    query set bits of one word (the seed round's ascending docids), every
+    second run of 40 lanes dead."""
+    words = 1024
+    ids, qslot = _runs_in_words(words)
+    surv = (np.arange(512) // 40 % 2 == 0)[None, :].repeat(len(ids), 0)
+    surv[2] = True
+    want = np.asarray(ref_acc.scatter_bits(
+        jnp.zeros((2, words), jnp.uint32), jnp.asarray(ids),
+        jnp.asarray(qslot), jnp.asarray(surv)))
+    m = torch.as_tensor(surv) if mask == "bool" else t32(surv.astype(np.uint32))
+    got = accumulate.scatter_bits(torch.zeros((2, words), dtype=torch.int32),
+                                  t32(ids), t32(qslot), m)
+    assert_u32_equal(got, want, f"B2 bits runs, {mask} mask")
+
+
+def test_scatter_bits_refuses_bad_masks():
+    """The mask must be bool or int32, of the ids' shape, on the bitmap's
+    device; nothing is written otherwise."""
+    ids, qslot = _runs_in_words(1024)
+    bm = torch.zeros((2, 1024), dtype=torch.int32)
+    args = (bm, t32(ids), t32(qslot))
+    for dt in (torch.int64, torch.uint8, torch.int16):
+        with pytest.raises(TypeError, match="surv"):
+            accumulate.scatter_bits(*args, torch.ones(ids.shape, dtype=dt))
+    with pytest.raises(ValueError, match="surv"):
+        accumulate.scatter_bits(*args, torch.ones((6, 511), dtype=torch.bool))
+    with pytest.raises(ValueError, match="surv"):
+        accumulate.scatter_bits(*args, torch.ones(ids.shape, dtype=torch.int32,
+                                                  device="meta"))
+    assert not bm.any()
+
+
 def test_scatter_add_matches_reference():
     rng = np.random.default_rng(2)
     width = 2048
@@ -228,6 +304,91 @@ def test_cuda_kernels_match_their_plain_versions(cuda_device):
         accumulate.scatter_add(acc.clone(), dev_args[0], dev_args[1], contrib),
         accumulate.scatter_add_plain(acc.clone(), dev_args[0], dev_args[1],
                                      contrib), "B2 add cuda")
+    torch.cuda.synchronize()
+
+
+B1_NS = (0, 1, 31, 32, 127, 128, 511, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw", BW_BUCKETS)
+def test_cuda_decode_and_edges(bw, cuda_device):
+    """B1 and B5 at every bit width against their plain versions, bitwise:
+    posting counts at every warp and row edge, first docids just below
+    2**32 (the prefix sum wraps), docids past the bitmap (the word index
+    clamps), full-width gaps, and work-list lengths that leave a block's
+    last warps without an entry."""
+    rng = np.random.default_rng(300 + bw)
+    s = 5
+    tiles = np.concatenate([
+        ref_df.pack_gaps(rng.integers(0, 1 << bw, 512, dtype=np.int64)
+                         .astype(np.uint32), bw) for _ in range(s)])
+    ns = np.array(B1_NS * 2, np.int32)
+    w = len(ns) + 1                             # 17: no multiple of 4
+    ns = np.append(ns, 300).astype(np.int32)
+    slots = rng.integers(0, s, w).astype(np.int32)
+    qslots = rng.integers(0, Q, w).astype(np.int32)
+    firsts = rng.integers(0, CROWS * 4096, w).astype(np.uint32)
+    firsts[len(B1_NS):] = (1 << 32) - rng.integers(1, 3000, w - len(B1_NS))
+    firsts[3] = CROWS * 4096 - 5                # past the bitmap: clamped
+    cand = rng.integers(0, 1 << 32, (Q * CROWS, 128),
+                        dtype=np.int64).astype(np.uint32)
+    args = [t32(a, cuda_device)
+            for a in (tiles, slots, qslots, firsts, ns, cand)]
+    for n in (w, 1, 4, 5):
+        a = [args[0], *(x[:n] for x in args[1:5]), args[5]]
+        n0 = kernels.LAUNCHES["B1"]
+        got = intersect_rounds.segmented_decode_and(*a, bw=bw, crows=CROWS)
+        assert kernels.LAUNCHES["B1"] == n0 + 1
+        want = intersect_rounds.segmented_decode_and_plain(*a, bw=bw,
+                                                           crows=CROWS)
+        for g, x in zip(got, want):
+            assert_u32_equal(g, x, f"B1 cuda edges bw={bw} W={n}")
+        b5 = [a[0], a[1], a[3], a[4], args[5][:CROWS].contiguous()]
+        for g, x in zip(decode_fused.fused_decode_and(*b5, bw=bw),
+                        decode_fused.fused_decode_and_plain(*b5, bw=bw)):
+            assert_u32_equal(g, x, f"B5 cuda edges bw={bw} W={n}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("random", "all_dead", "all_live"))
+@pytest.mark.parametrize("lanes", (100, 257, 512))
+def test_cuda_scatter_bits_cases(lanes, case, cuda_device):
+    """B2 bits against its plain version, bitwise, on a bool and on an
+    int32 mask: lane counts that are no multiple of 32 (a warp that would
+    straddle two entries), runs of lanes in one word, words shared by
+    entries of one query, and rows and words out of range (dropped); one
+    counted launch a call."""
+    rng = np.random.default_rng(lanes)
+    p, q, words = 23, 3, 192
+    qslot = (np.arange(p) % (q + 1)).astype(np.int32)    # row q: dropped
+    qslot[0] = -1
+    # each query's docids: runs of 32 consecutive docs in random order, some
+    # past the bitmap's end, cut into its entries' lanes (no docid twice in
+    # a query, the round contract), each entry's ascending
+    runs = (words * 32 + 256) // 32
+    ids = np.zeros((p, lanes), np.uint32)
+    for row in range(-1, q + 1):
+        pool = (rng.permutation(runs)[:, None] * 32 + np.arange(32)).ravel()
+        for k, j in enumerate(np.flatnonzero(qslot == row)):
+            ids[j] = np.sort(pool[k * lanes:(k + 1) * lanes])
+    surv = {"random": rng.random((p, lanes)) < 0.5,
+            "all_dead": np.zeros((p, lanes), bool),
+            "all_live": np.ones((p, lanes), bool)}[case]
+    start = t32(rng.integers(0, 1 << 32, (q, words), dtype=np.int64).astype(
+        np.uint32), cuda_device)
+    for mask in (torch.as_tensor(surv, device=cuda_device),
+                 t32(surv * rng.integers(1, 1 << 32, surv.shape,
+                                         dtype=np.int64).astype(np.uint32),
+                     cuda_device)):
+        args = (t32(ids, cuda_device), t32(qslot, cuda_device), mask)
+        n0 = kernels.LAUNCHES["B2"]
+        got = accumulate.scatter_bits(start.clone(), *args)
+        assert kernels.LAUNCHES["B2"] == n0 + 1
+        assert_u32_equal(got, accumulate.scatter_bits_plain(start.clone(),
+                                                            *args),
+                         f"B2 bits cuda lanes={lanes} {case} {mask.dtype}")
     torch.cuda.synchronize()
 
 
