@@ -2,11 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
 Drives the port's main paths, fused device-resident AND serving, ranked
-BM25 top-k serving (modes ``or`` and ``and_scored``) and the stream codec
-(encode and decode of every posting list), through the entry points a user
-calls, at the real document count of the TREC GOV2 collection, and holds
-every CUDA kernel of the paths against its plain torch version on the
-card:
+BM25 top-k serving (modes ``or`` and ``and_scored``), serving under
+mutation epochs and the stream codec (encode and decode of every posting
+list), through the entry points a user calls, at the real document count
+of the TREC GOV2 collection, and holds every CUDA kernel of the paths
+against its plain torch version on the card:
 
   card       the card, its power limit, torch / CUDA / nvcc versions
   build      nvcc builds every kernels/csrc/*.cu and tools/and_round_forms.cu
@@ -40,6 +40,28 @@ card:
              Each mode's warm-up batch leaves host copies of its largest
              B2-add and B4 calls for the kernel phase, ``and_scored``'s
              also of its AND rounds' B1 and B2 bits calls, as above.
+  mutation   on the same index, a fresh engine (fused placement) per
+             generation.  Tombstone-only epoch: 1 % of the docs deleted (a
+             permutation from --seed), then one fresh batch of each mode
+             (256 queries, k=10), the first ``_df_live`` pass timed inside
+             the ``and`` batch; the ``and`` and ``or`` batches again under
+             the fenced span tracer (``and/tomb_gate``,
+             ``ranked/tomb_gate``), the ``or`` repeat leaving its largest
+             B1, B2-add (masked) and gated B4 calls for the kernel phase;
+             the dead-docid test (``np.isin`` beside ``dead_hits``) timed.
+             Delta epoch: 4,096 fresh docs past the doc space and 1,024
+             base docs upserted (8 of the 120 most frequent terms each, tf
+             1-4, the mean doclen), then ``and`` and ``and_scored`` (256)
+             and ``or`` (32: with the theta cut disarmed every member doc
+             is a candidate for the host rescore).  Then a 16-query ``and``
+             plan pinned, ``compact()`` timed (the pause), the pinned plan
+             served across the swap, the old engine freed, the new
+             generation put on the card and ``and`` and ``or`` (256) served.
+             Every result equals a numpy oracle over the live postings
+             (BM25 with live df, the doc space, the live doclen mean);
+             cand_syncs == score_syncs == 0, final_syncs == 1 a batch,
+             tomb_gates >= 1 a batch under an epoch with deletes (0 after
+             the compaction), and the path's kernels launched.
   stream     the stream codec (``kernels/ops.py``) on every one of the
              corpus's 200 posting lists, counts set to 0 just before: the
              d-gaps uploaded, ``select_bw`` (B9) equal to numpy's per-frame
@@ -57,7 +79,9 @@ card:
              against all ones, as the ``or`` rounds probe; B2's add form at
              the AND path's shape, as first recorded, and at the ranked
              path's; B4 unpacked, packed and packed gated on the same
-             codes), compared bitwise with their plain versions; B1 and
+             codes), compared bitwise with their plain versions; B1, B2
+             add (masked) and B4 (gated, timed in turns beside ungated)
+             also on the mutation phase's captured calls; B1 and
              B2's bits form also on the AND rounds' captured calls, each
              beside its earlier form (``tools/and_round_forms.cu``: B1 a
              block an entry, B2 bits a thread a lane on a bool mask; in
@@ -120,6 +144,9 @@ QUERIES = 256                   # queries per batch on the main paths
 LEGACY_QUERIES = 16             # of the AND queries, through and_many
 RANKED_K = 10                   # top-k of the ranked batches
 QUERY_TERMS = 120               # queries draw from the most frequent terms
+MUT_INSERTS = 4096              # fresh docs past the doc space (delta epoch)
+MUT_UPSERTS = 1024              # base docs re-inserted (delta epoch)
+MUT_OR_QUERIES = 32             # the delta epoch's disarmed `or` batch
 
 
 def log(msg: str) -> None:
@@ -204,6 +231,12 @@ def max_abs_err(got, want, torch) -> int:
         d = ((g.long() & 0xFFFFFFFF) - (w.long() & 0xFFFFFFFF)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
     return err
+
+
+def bit_share(words) -> float:
+    """The share of set bits in an int32 word tensor."""
+    n = sum(int(((words >> b) & 1).sum()) for b in range(32))
+    return n / max(words.numel() * 32, 1)
 
 
 def bound_ms(nbytes: float) -> float:
@@ -326,6 +359,302 @@ def bucketed_widths(recent: list) -> dict:
                              else pow2_bucket(shape["P"]))
             pending = []
     return {"exact": exact, "pow2": padded}
+
+
+def timed_calls(fn, total: list):
+    """``fn`` wrapped to add the seconds each call takes to ``total[0]``."""
+    def wrap(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            total[0] += time.perf_counter() - t0
+    return wrap
+
+
+def mutation_phase(idx, doclen, postings, terms, seed, np, torch) -> dict:
+    """The mutation phase (module docstring) on ``idx``, which the ranked
+    phase left unmutated with its arenas built: a tombstone-only epoch, a
+    delta-bearing one, then ``compact()`` under a pinned plan.  Every batch
+    equals a numpy oracle over the live postings (BM25 with live df, the
+    doc space and the mean of the live doclen column); raises on any
+    failed check.  Returns the figures and the tombstone ``or`` batch's
+    captured B1, B2-add (masked) and B4 (gated) calls."""
+    from repro_torch import kernels as K
+    from repro_torch.index.engine import QueryBatch, QueryEngine
+    from repro_torch.index.scores import bm25_scores, topk_select
+    from repro_torch.index.segments import dead_hits
+    from repro_torch.kernels import accumulate, intersect_rounds, topk
+    from repro_torch.obs.trace import enable_tracing
+
+    rng = np.random.default_rng(seed + 7)
+    base_n = idx.n_docs
+    top = terms[:QUERY_TERMS]
+    out = {"steps_s": {}, "batches": {}, "spans_ms": {}}
+    mark = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        out["steps_s"][name] = now - mark[0]
+        mark[0] = now
+        log(f"   step {name}: {out['steps_s'][name]:.2f} s")
+
+    # the oracle's own record of the live corpus
+    dead = np.zeros(base_n, bool)        # base docs without a live base copy
+    delta: dict = {}                     # term -> {docid: tf} of delta docs
+    dl = np.asarray(doclen, np.int64).copy()
+
+    def live_view():
+        """The query terms' live postings and BM25 impacts under the live
+        statistics, and a zeroed accumulator pair over the doc space."""
+        space, avdl = len(dl), float(dl.mean())
+        live, sc = {}, {}
+        for t in top:
+            ids, tfs = postings[t]
+            keep = ~dead[ids]
+            ids, tfs = ids[keep], tfs[keep]
+            d = delta.get(t)
+            if d:
+                ids = np.concatenate([ids, np.fromiter(d, np.uint32, len(d))])
+                tfs = np.concatenate([tfs, np.fromiter(d.values(), np.uint32,
+                                                       len(d))])
+                order = np.argsort(ids, kind="stable")
+                ids, tfs = ids[order], tfs[order]
+            if len(ids):
+                live[t] = (ids, tfs)
+                sc[t] = (ids, bm25_scores(tfs, dl[ids], len(ids), space,
+                                          avdl))
+        return live, sc, (np.zeros(space), np.zeros(space, bool))
+
+    def draw(n, mode, view):
+        live, sc, buf = view
+        qs = [rng.choice(top, size=rng.integers(2, 4), replace=False).tolist()
+              for _ in range(n)]
+        if mode == "and":
+            want = [oracle_and(live, q, np) for q in qs]
+        elif mode == "or":
+            want = [oracle_or(sc, [t for t in q if t in sc], RANKED_K, buf,
+                              np, topk_select) for q in qs]
+        else:
+            want = [oracle_and_scored(live, sc, [t for t in q if t in sc],
+                                      RANKED_K, np, topk_select) for q in qs]
+        return qs, want
+
+    def same(mode, a, b):
+        return np.array_equal(a, b) if mode == "and" else a == b
+
+    cands = [0]
+
+    def batch(eng, what, mode, queries, want, gated):
+        """One fresh batch, counts set to 0 just before: results against
+        the oracle, the sync counters, the gates and the kernels."""
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        cands[0] = 0
+        with eng.metrics.scoped() as s:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.execute(eng.plan(QueryBatch(queries, mode=mode,
+                                                  k=RANKED_K)))
+            dt = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for q, a, b in zip(queries, res, want):
+            if not same(mode, a, b):
+                raise AssertionError(f"{what}, query {q}: {len(a)} results, "
+                                     f"oracle {len(b)}: {a[:3]} vs {b[:3]}")
+        st = {n: s.delta(n) for n in (
+            "cand_syncs", "final_syncs", "score_syncs", "tomb_gates",
+            "resident_rounds", "score_rounds", "blocks_scored",
+            "blocks_pruned", "blocks_dense", "worklist_decodes")}
+        if st["cand_syncs"] or st["score_syncs"] or st["final_syncs"] != 1:
+            raise AssertionError(f"{what} syncs: {st}")
+        if (st["tomb_gates"] >= 1) != gated:
+            raise AssertionError(f"{what}: tomb_gates {st['tomb_gates']}, "
+                                 f"gated epoch {gated}")
+        need = ("B1", "B2") + (("B2add", "B3") if mode != "and" else ())
+        if min(launches[k] for k in need) <= 0 or (
+                st["blocks_dense"] and mode != "and" and launches["B4"] <= 0):
+            raise AssertionError(f"{what} missed a kernel: {launches}")
+        r = {"queries": len(queries), "qps": len(queries) / dt,
+             "seconds": dt, "stats": st, "launches": launches,
+             "peak_bytes": peak}
+        if mode != "and":
+            r["candidates"] = cands[0]
+        out["batches"][what] = r
+        log(f"{what}: {len(queries)} queries in {dt:.4f} s = "
+            f"{len(queries) / dt:.2f} qps; {st}; launches {launches}; "
+            + (f"candidates downloaded {cands[0]}; " if mode != "and" else "")
+            + f"max_memory_allocated {peak / 2**30:.2f} GiB")
+        return res
+
+    def traced(eng, what, mode, queries, want, children):
+        """The batch again under the fenced span tracer (not timed)."""
+        tracer = enable_tracing(True, fenced=True)
+        tracer.clear()
+        res = eng.execute(eng.plan(QueryBatch(queries, mode=mode,
+                                              k=RANKED_K)))
+        enable_tracing(False)
+        for q, a, b in zip(queries, res, want):
+            if not same(mode, a, b):
+                raise AssertionError(f"{what} (traced), query {q}")
+        spans = span_breakdown(tracer, children)
+        tracer.clear()
+        out["spans_ms"][what] = {n: v[1] for n, v in spans.items()}
+        log(f"{what}: fenced spans of the batch run again:")
+        for name, (n, tot) in sorted(spans.items(), key=lambda kv: -kv[1][1]):
+            log(f"  {name:24s} x{n:<3d} {tot:10.2f} ms")
+
+    def engine():
+        eng = QueryEngine(idx, cache_blocks=1 << 22).to_device(fused=True)
+        orig = eng._ranked_rescore
+
+        def rescore(queries, cand, *rest):
+            cands[0] += sum(len(c) for c in cand)
+            return orig(queries, cand, *rest)
+        eng._ranked_rescore = rescore
+        return eng
+
+    # ---- tombstone-only epoch: 1 % of the base docs deleted --------------- #
+    log("== mutation epochs: tombstones, a delta segment, compact() "
+        "(fused placement)")
+    perm = rng.permutation(base_n)
+    n_dead = base_n // 100
+    for d in perm[:n_dead].tolist():
+        idx.delete(d)
+    dead[perm[:n_dead]] = True
+    step(f"delete {n_dead} docs")
+    eng = engine()
+    view = live_view()
+    tq = {m: draw(QUERIES, m, view) for m in ("and", "or", "and_scored")}
+    step("tombstone oracle (3 batches)")
+    df_s = [0.0]
+    eng._df_live = timed_calls(eng._df_live, df_s)
+    batch(eng, "tombstone and", "and", *tq["and"], gated=True)
+    del eng._df_live
+    out["df_live_first_pass_s"] = df_s[0]
+    log(f"   of which the first _df_live pass (whole term lists decoded "
+        f"on the host): {df_s[0]:.2f} s")
+    step("tombstone and")
+    batch(eng, "tombstone or", "or", *tq["or"], gated=True)
+    step("tombstone or")
+    batch(eng, "tombstone and_scored", "and_scored", *tq["and_scored"],
+          gated=True)
+    step("tombstone and_scored")
+    # the dead-docid test of theta0_live and compact(): np.isin, as the
+    # reference makes it, beside the port's binary search (dead_hits), on
+    # the top-code tables of the or batch's first 8 queries
+    sa = eng.arena.ensure_scores().scores
+    dead_ids = np.flatnonzero(dead).astype(np.int64)
+    tables = [sa.term_top_ids[t] for q in tq["or"][0][:8] for t in q]
+    member = {}
+    for name, fn in (("np.isin", lambda ids: np.isin(ids.astype(np.int64),
+                                                     dead_ids)),
+                     ("dead_hits", lambda ids: dead_hits(dead_ids, ids))):
+        t0 = time.perf_counter()
+        member[name] = [fn(ids) for ids in tables]
+        out.setdefault("dead_test_ms", {})[name] = (
+            (time.perf_counter() - t0) / len(tables) * 1e3)
+    if not all(np.array_equal(a, b) for a, b in zip(*member.values())):
+        raise AssertionError("dead_hits disagrees with np.isin")
+    log(f"dead-docid test of {len(tables)} top-code tables against "
+        f"{len(dead_ids)} dead docids, ms a call: {out['dead_test_ms']}")
+    del sa, member
+    # the and and or batches again, traced; the or batch keeps its largest
+    # B1, B2-add (masked) and gated B4 calls for the kernel phase
+    traced(eng, "tombstone and", "and", *tq["and"],
+           ("and/seed", "and/tomb_gate", "and/round", "kernel/extract_ids"))
+    caps = {"B1": {}, "B2add": {}, "B4": {}}
+    with keep_largest(intersect_rounds, "segmented_decode_and", caps["B1"],
+                      lambda tiles, slots, qslots, firsts, ns, cand, *, bw,
+                      crows: (slots.shape[0], {
+                          "tiles": tiles, "slots": slots, "qslots": qslots,
+                          "firsts": firsts, "ns": ns, "cand": cand,
+                          "bw": bw, "crows": crows})), \
+            keep_largest(topk, "_scatter", caps["B2add"],
+                         lambda acc, member, ids, qslot, codes, surv: (
+                             ids.shape[0], {"ids": ids, "qslot": qslot,
+                                            "codes": codes, "surv": surv,
+                                            "Q": acc.shape[0],
+                                            "width": acc.shape[1]})), \
+            keep_largest(accumulate, "dense_add_packed", caps["B4"],
+                         lambda acc, tiles, win, qslot, col0, act, *, gated: (
+                             tiles.shape[0] if gated else -1, {
+                                 "tiles": tiles, "win": win, "qslot": qslot,
+                                 "col0": col0, "act": act, "gated": gated,
+                                 "Q": acc.shape[0], "width": acc.shape[1]})):
+        traced(eng, "tombstone or", "or", *tq["or"],
+               ("ranked/tomb_gate", "ranked/round", "kernel/topk",
+                "kernel/extract_ids", "ranked/rescore"))
+    for k, cap in caps.items():
+        if not cap:
+            raise AssertionError(f"tombstone or: no {k} call captured")
+    out["captured"] = caps
+    step("tombstone traced batches")
+
+    # ---- delta-bearing epoch: fresh docs and upserts ---------------------- #
+    mean_dl = int(np.asarray(doclen).mean())
+    upserts = perm[n_dead:n_dead + MUT_UPSERTS].tolist()
+    fresh = list(range(base_n, base_n + MUT_INSERTS))
+    for d in fresh + upserts:
+        picked = rng.choice(top, size=8, replace=False)
+        doc = {int(t): int(rng.integers(1, 5)) for t in picked}
+        idx.insert(d, doc, mean_dl)
+        for t, tf in doc.items():
+            delta.setdefault(t, {})[d] = tf
+    dead[upserts] = True
+    dl = np.concatenate([dl, np.full(MUT_INSERTS, mean_dl, np.int64)])
+    dl[upserts] = mean_dl
+    step(f"insert {MUT_INSERTS} docs and upsert {MUT_UPSERTS}")
+    view = live_view()
+    dq = {"and": draw(QUERIES, "and", view),
+          "and_scored": draw(QUERIES, "and_scored", view),
+          "or": draw(MUT_OR_QUERIES, "or", view)}
+    step("delta oracle (3 batches)")
+    for mode in ("and", "and_scored", "or"):
+        batch(eng, f"delta {mode}", mode, *dq[mode], gated=True)
+        step(f"delta {mode}")
+
+    # ---- compaction under a pinned plan ------------------------------------ #
+    pin_q, pin_want = dq["and"][0][:16], dq["and"][1][:16]
+    pinned = eng.plan(QueryBatch(pin_q, mode="and"))
+    old_gid = idx.gen.gid
+    t0 = time.perf_counter()
+    idx.compact()
+    out["compaction_pause_s"] = time.perf_counter() - t0
+    log(f"compact(): generation {old_gid} -> {idx.gen.gid}, "
+        f"{idx.n_docs} docs, pause {out['compaction_pause_s']:.2f} s")
+    got = eng.execute(pinned)
+    if pinned.ctx.gen is idx.gen or not all(
+            np.array_equal(a, b) for a, b in zip(got, pin_want)):
+        raise AssertionError("the pinned plan did not serve its epoch "
+                             "across compact()")
+    log(f"pinned 16-query and plan served across compact(): equal to its "
+        f"epoch's oracle")
+    del pinned, got, eng
+    gc.collect()                    # the old generation's arenas go here
+    torch.cuda.empty_cache()
+    step("compact and pinned plan")
+    t0 = time.perf_counter()
+    eng = engine()
+    torch.cuda.synchronize()
+    out["to_device_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.arena.ensure_scores()
+    torch.cuda.synchronize()
+    out["ensure_scores_s"] = time.perf_counter() - t0
+    log(f"new generation: to_device(fused=True) {out['to_device_s']:.2f} s, "
+        f"ensure_scores {out['ensure_scores_s']:.2f} s")
+    step("new generation on the card")
+    cq = {m: draw(QUERIES, m, view) for m in ("and", "or")}
+    step("compacted oracle (2 batches)")
+    for mode in ("and", "or"):
+        batch(eng, f"compacted {mode}", mode, *cq[mode], gated=False)
+        step(f"compacted {mode}")
+    del eng, view
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -704,12 +1033,20 @@ def main() -> int:
     ranked_launches = {k: {m: v["launches"][k] for m, v in ranked.items()}
                        for k in ("B1", "B2", "B2add", "B3", "B4")}
     n_docs = idx.n_docs
-    del eng, idx, ar, sa, again, legacy, term_sc, buf
-    gc.collect()        # free the engine's arenas before the kernel phase
+    del eng, ar, sa, again, legacy, term_sc, buf
+    gc.collect()        # the main engine's caches go; its arenas stay on idx
+    torch.cuda.empty_cache()
+
+    # ---- mutation epochs -------------------------------------------------- #
+    phase_done("ranked path")
+    mut = mutation_phase(idx, doclen, postings, terms, args.seed, np, torch)
+    mcaps = mut.pop("captured")
+    del idx
+    gc.collect()        # free the arenas before the kernel phase
     torch.cuda.empty_cache()
 
     # ---- stream codec path ------------------------------------------------ #
-    phase_done("ranked path")
+    phase_done("mutation epochs")
     log("== stream codec path: select_bw, pack, fused and two-pass decode "
         "(B6-B10)")
     t0 = time.perf_counter()
@@ -925,16 +1262,53 @@ def main() -> int:
                 f"{r['sector_floor_ms']:.4f} ms; {counts}")
             del a
             torch.cuda.empty_cache()
+    # B1 on the tombstone `or` batch's largest call: it probes the epoch's
+    # live row (1 % of the bits cleared) where the unmutated `or` rounds
+    # probe all ones
+    cap = mcaps["B1"]
+    bw, crows = cap["bw"], cap["crows"]
+    a = [cap[k].to(dev) for k in ("tiles", "slots", "qslots", "firsts", "ns",
+                                  "cand")]
+    got = intersect_rounds.segmented_decode_and(*a, bw=bw, crows=crows)
+    ref = intersect_rounds.segmented_decode_and_plain(*a, bw=bw, crows=crows)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ref, torch)
+    if err:
+        raise AssertionError("B1 on the tombstone or batch's captured call "
+                             "disagrees with its plain version")
+    counts = forms.b1_counts(a[1], a[2], a[4], ref[0].view(-1, 512), bw, crows)
+    del got, ref
+    b1_tomb = {"bw": bw, "W": int(a[1].shape[0]), "max_abs_err": err,
+               "ms": cuda_ms(lambda: intersect_rounds.segmented_decode_and(
+                   *a, bw=bw, crows=crows), torch),
+               "plain_ms": cuda_ms(
+                   lambda: intersect_rounds.segmented_decode_and_plain(
+                       *a, bw=bw, crows=crows), torch),
+               "bound_ms": bound_ms(counts["bytes"]),
+               "sector_floor_ms": bound_ms(counts["floor_bytes"]),
+               "probe_bits_set": bit_share(a[5]),
+               "counts": counts}
+    log(f"B1 bw={bw} (tombstone or batch's captured call, live-row probe, "
+        f"{b1_tomb['probe_bits_set']:.4f} of its bits set): err {err} kernel "
+        f"{b1_tomb['ms']:.4f} ms plain {b1_tomb['plain_ms']:.4f} ms bound "
+        f"{b1_tomb['bound_ms']:.4f} ms sector floor "
+        f"{b1_tomb['sector_floor_ms']:.4f} ms; {counts}")
+    del a
+    torch.cuda.empty_cache()
     report.append({
         "name": "segmented_decode_and (B1)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_and.cu",
         "replaces": "src/repro/kernels/intersect_rounds.py:233",
         "launches": main_launches["B1"],
-        "max_abs_err": max(v["max_abs_err"] for v in per_bw.values()),
+        "max_abs_err": max([v["max_abs_err"] for v in per_bw.values()]
+                           + [b1_tomb["max_abs_err"]]),
         "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "shape_bw": main_bw,
         "ranked_launches": ranked_launches["B1"], "per_bw": per_bw,
         "sector_floor_ms": b1["sector_floor_ms"], "captured": b1_captured,
+        "captured_tombstone_or": b1_tomb,
+        "mutation_launches": {w: r["launches"]["B1"]
+                              for w, r in mut["batches"].items()},
         "ok": True})
 
     # B5 at the legacy path's largest call
@@ -1218,6 +1592,7 @@ def main() -> int:
     # sector); and the where pass alone, which the mask saves
     # (tools/b2_add_order.py times other thread mappings and spreads)
     real = {}
+    captured["B2add"]["or under tombstones"] = mcaps["B2add"]
     for mode, cap in captured["B2add"].items():
         if not cap:
             raise AssertionError(f"{mode}: no B2-add call captured")
@@ -1430,6 +1805,30 @@ def main() -> int:
                 f"{unp:.4f} ms, packed kernel {pk:.4f} ms: {unp / pk:.2f}x")
         del tiles, wbits, qslot, col0, act, codes
         torch.cuda.empty_cache()
+    # the gated packed form on the tombstone `or` batch's largest dense
+    # round, gated by the epoch's live row (nearly every window bit set):
+    # against its plain version, then timed in turns beside the ungated
+    # packed form on the same inputs
+    cap = mcaps["B4"]
+    tiles, wbits, qslot, col0, act = (cap[k].to(dev) for k in (
+        "tiles", "win", "qslot", "col0", "act"))
+    b4_tomb = dense_case(
+        "B4 packed gated (captured, or under tombstones)", cap["Q"],
+        cap["width"], accumulate._window_codes(tiles)
+        * accumulate._window_bits(wbits), tiles, wbits, qslot, col0, act,
+        True)
+    acc = torch.zeros((cap["Q"], cap["width"]), dtype=torch.int32,
+                      device=dev)
+    b4_tomb["ms_in_turns"] = in_turns({
+        f"gated_{g}": (lambda g=g: accumulate.dense_add_packed(
+            acc, tiles, wbits, qslot, col0, act, gated=g))
+        for g in (True, False)}, torch)
+    b4_tomb["window_bits_set"] = bit_share(wbits)
+    log(f"B4 packed on the tombstone or batch's captured round (window bits "
+        f"set {b4_tomb['window_bits_set']:.4f}), in turns: "
+        f"{b4_tomb['ms_in_turns']}")
+    del tiles, wbits, qslot, col0, act, acc
+    torch.cuda.empty_cache()
     # the entry's own numbers: the ranked path's largest captured round
     main = max(b4_real.values(), key=lambda r: r["shape"]["P"], default=b4)
     report.append({
@@ -1443,11 +1842,12 @@ def main() -> int:
         "launches": sum(ranked_launches["B4"].values()), "path": "ranked",
         "ranked_launches": ranked_launches["B4"],
         "max_abs_err": max(r["max_abs_err"] for r in
-                           (b4, b4g, b4u, *b4_real.values())),
+                           (b4, b4g, b4u, b4_tomb, *b4_real.values())),
         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                                 "sector_floor_ms", "zero_share", "sectors",
                                 "shape")},
         "bound_by": "bytes", "captured": b4_real,
+        "captured_tombstone_or": b4_tomb,
         "synthetic": {"packed": b4, "packed_gated": b4g, "unpacked": b4u},
         "ok": True})
 
@@ -1596,7 +1996,8 @@ def main() -> int:
     log(smi)
     print(json.dumps({"phases_s": phase_s, "ranked": {
         m: {k: v for k, v in r.items() if k != "recent"}
-        for m, r in ranked.items()}, "stream": stream}), flush=True)
+        for m, r in ranked.items()}, "mutation": mut, "stream": stream}),
+        flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,14 +25,23 @@ Counterpart of the JAX package's ``index/engine.py`` for the modes ``and``,
      bounds against a static and then promoted per-query theta.  The one
      host copy is the compacted candidate bitmap, which the block-lazy float
      rescore ranks bit for bit as the host oracle.
+  5. **Mutation epochs**: the engine serves an ``InvertedIndex`` handle that
+     may carry tombstones and a delta segment on top of its immutable
+     generation.  Every query resolves a frozen :class:`_ExecCtx`
+     (generation, delta snapshot, tombstones, live corpus statistics) and
+     plans pin theirs, so a ``compact()`` under a pinned plan changes none
+     of its results.  The device paths gate with the epoch's packed live
+     row (one upload per epoch, no download); the host merges in a scan of
+     the small delta segment.  Results equal a from-scratch rebuild's bit
+     for bit.
 
 ``engine.plan(batch)`` resolves placement and per-term codec capabilities
 once; ``engine.execute(plan)`` follows the plan.  Entry points run on the
 card: ``to_device(torch_device="cuda")`` raises without one, and the CPU is
 used only when asked for by name (``torch_device="cpu"``).
 
-Not yet ported, raising ``NotImplementedError`` with their ``ROADMAP.md``
-step: plans on a mutated index (A.7) and doc-range sharded serving (A.10).
+Not yet ported, raising ``NotImplementedError`` with its ``ROADMAP.md``
+step: doc-range sharded serving (A.10).
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ import numpy as np
 import torch
 
 from ..core import codec as codec_lib
-from ..core.bits import to_np
+from ..core.bits import from_np, to_np
 from ..kernels import intersect, intersect_rounds, topk
 from ..obs.metrics import DevStatsView, MetricsRegistry
 from ..obs.trace import get_tracer
@@ -56,6 +65,7 @@ from .device import _to_device, resolve_device
 from .invindex import InvertedIndex
 from .scores import B, K1  # noqa: F401  (re-export, as the reference does)
 from .scores import bm25_scores, topk_select
+from .segments import dead_hits
 
 # plan-time auto-placement: batches of at most this many queries are planned
 # onto the host even when arenas exist.  The reference derives a measured
@@ -104,6 +114,15 @@ _EMPTY_U32.setflags(write=False)
 _EMPTY_I64 = np.zeros(0, np.int64)
 _EMPTY_I64.setflags(write=False)
 
+# a ranked margin so large the candidate compact keeps every member doc:
+# under a delta-bearing epoch the quantized accumulator holds generation-time
+# codes (stale df / avdl), so the theta cut is disarmed and the exact float
+# rescore (live stats) does all the ranking.  Tombstone-only epochs stay
+# armed through the Q16.16 idf-ratio deflation (``_iq_tomb``).  In
+# ``topk.candidate_bitmap`` the cut becomes ``scale - 2**30``, inside int32
+# for every scale below 2**16, so no sum is cut.
+_KEEP_ALL_MARGIN = 1 << 30
+
 # per-entry quantized upper bound so large the adaptive-theta work-list
 # masking never drops the entry (``and_scored`` rounds, whose membership
 # must cover the whole intersection, always scatter)
@@ -112,6 +131,19 @@ _UB_ALWAYS = 1 << 30
 # stacked-work-list memo entries kept per engine (each holds a round's
 # gathered device tensors; hot repeated batches skip the restacking)
 _ROUND_CACHE = 32
+
+
+def _merge_disjoint(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Union of two sorted uint32 docid arrays known to be disjoint (the
+    generation half and the delta half of a result: delta docids shadow
+    their base copies)."""
+    if len(b) == 0:
+        return a if a.flags.writeable else a.copy()
+    if len(a) == 0:
+        return b if b.flags.writeable else b.copy()
+    out = np.concatenate([a, b])
+    out.sort()
+    return out
 
 
 class BlockCache:
@@ -203,7 +235,8 @@ class TermCaps:
     """One term's execution capabilities, resolved once at plan time from
     the codec registry's declarations.
 
-    codec: the codec of the term's posting blocks.
+    codec: the codec of the term's posting blocks (None for a term only
+        the delta segment holds: it has no compressed blocks).
     arena: the codec declares an ``ArenaLayout``.
     fused: the arena's fused decode+AND tiles cover every block of the term.
     """
@@ -213,24 +246,58 @@ class TermCaps:
 
 
 class _ExecCtx:
-    """The frozen serving view a query (or a pinned plan) executes against:
-    one immutable generation and its corpus statistics (doclen, n_docs,
-    avdl), which every BM25 site reads.  Mutation epochs (tombstones, a
-    delta segment) are not yet served by the port (``ROADMAP.md``, step
-    A.7)."""
-    __slots__ = ("gen", "doclen", "n_docs", "avdl", "skey")
+    """One mutation epoch's frozen serving view: what a query (or a pinned
+    plan) needs to run bit for bit alike whatever writes or compactions land
+    afterwards.
+
+    gen: the immutable generation.
+    delta: frozen delta-segment snapshot (None when the epoch is unmutated).
+    dead: sorted int64 tombstoned base docids (all < ``gen.n_docs``).
+    doclen / n_docs / avdl: live corpus statistics over the whole
+        append-only doc space, what a from-scratch rebuild computes, so BM25
+        floats equal the rebuild's.
+    mutated: whether serving consults delta / tombstone state at all.
+    skey: the epoch key (gid, tombstone version, delta version) that score
+        cache entries carry.
+    """
+    __slots__ = ("gen", "delta", "dead", "doclen", "n_docs", "avdl",
+                 "mutated", "skey", "_df", "_live_dev", "_live_host")
 
     def __init__(self, idx):
-        if getattr(idx, "mutated", False):
-            raise NotImplementedError(
-                "serving a mutated index (tombstones / delta segment) is not "
-                "yet ported (ROADMAP.md, step A.7); compact() it first")
         gen = getattr(idx, "gen", idx)
         self.gen = gen
-        self.doclen = gen.doclen
-        self.n_docs = gen.n_docs
-        self.avdl = gen.avdl
-        self.skey = (gen.gid, 0, 0)
+        self.mutated = bool(getattr(idx, "mutated", False))
+        self._df: dict = {}        # term -> live df memo
+        self._live_dev = None      # uploaded packed live row (per epoch)
+        self._live_host = None     # pre-packed host words (shard ctxs, A.10)
+        if self.mutated:
+            self.delta = idx.delta.snapshot()
+            self.dead = idx.tomb.sorted_ids(below=gen.n_docs)
+            self.doclen = idx.doclen_now()
+            self.n_docs = int(idx.doc_space)
+            # the expression Generation.avdl uses, on the array a rebuild is
+            # given: bitwise-equal BM25 floats
+            self.avdl = (float(np.asarray(self.doclen).mean())
+                         if self.n_docs else 1.0)
+            self.skey = idx.epoch
+        else:
+            self.delta = None
+            self.dead = _EMPTY_I64
+            self.doclen = gen.doclen
+            self.n_docs = gen.n_docs
+            self.avdl = gen.avdl
+            self.skey = (gen.gid, 0, 0)
+
+    def live_dev(self, words: int, device) -> torch.Tensor:
+        """The epoch's packed live bitmap as one (words,) int32 row on
+        ``device``, uploaded on first use and reused by every round of every
+        batch in the epoch (the gate downloads nothing)."""
+        if self._live_dev is None or self._live_dev.device != device:
+            packed = (self._live_host if self._live_host is not None
+                      else intersect_rounds.pack_live_words(
+                          self.dead, self.gen.n_docs, words))
+            self._live_dev = from_np(packed, device)
+        return self._live_dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,7 +309,10 @@ class ExecutionPlan:
         Tiny batches (<= ``HOST_BATCH_MAX`` queries) are auto-placed on the
         host; ``note`` records that decision.
     terms: per distinct known term, its :class:`TermCaps`.
-    ctx: the pinned :class:`_ExecCtx` (the generation this plan serves).
+    ctx: the pinned :class:`_ExecCtx`: the mutation epoch (generation,
+        delta snapshot, tombstones) this plan serves.  Writes or
+        ``compact()`` calls after planning do not change its results;
+        re-plan to serve the new epoch.
     """
     mode: str
     k: int
@@ -266,6 +336,7 @@ _DEV_COUNTERS = (
     ("blocks_pruned", "ranked work-list entries dropped by block-max"),
     ("blocks_scored", "ranked work-list entries actually scored"),
     ("blocks_dense", "entries served from the dense-bitmap representation"),
+    ("tomb_gates", "device live-bitmap gates applied (uploads, not syncs)"),
 )
 _ENGINE_SEQ = itertools.count()
 
@@ -352,7 +423,6 @@ class QueryEngine:
         self.torch_device = dev
         if fused is not None:
             self._fused = fused
-        self._ctx_now()                      # a mutated index raises here
         self.arena = self.idx.to_device(build_fused=self._fused, device=dev)
         return self
 
@@ -446,6 +516,47 @@ class QueryEngine:
 
     def term_postings(self, t: int):
         return self.term_ids(t), self.term_tfs(t)
+
+    # ---- live (mutation-aware) posting views -------------------------------- #
+
+    def _df_live(self, t: int, ctx: _ExecCtx) -> int:
+        """Live document frequency of term t under ``ctx``: generation df
+        minus tombstoned postings plus delta postings (memoized per ctx).
+        Under mutation a term is known when its live df is > 0, exactly the
+        terms a from-scratch rebuild still holds."""
+        if not ctx.mutated:
+            tp = ctx.gen.terms.get(t)
+            return tp.df if tp is not None else 0
+        v = ctx._df.get(t)
+        if v is None:
+            tp = ctx.gen.terms.get(t)
+            base = tp.df if tp is not None else 0
+            if base and len(ctx.dead):
+                base -= int(dead_hits(ctx.dead, self.term_ids(t)).sum())
+            ctx._df[t] = v = base + ctx.delta.df(t)
+        return v
+
+    def _live_postings(self, t: int, ctx: _ExecCtx):
+        """Term t's live postings under ``ctx``: generation postings minus
+        tombstones, merge-sorted with the delta postings (disjoint by the
+        shadowing invariant); the arrays a from-scratch rebuild's
+        ``term_ids`` / ``term_tfs`` return."""
+        if t in ctx.gen.terms:
+            ids, tfs = self.term_ids(t), self.term_tfs(t)
+            if len(ctx.dead) and len(ids):
+                keep = ~dead_hits(ctx.dead, ids)
+                ids, tfs = ids[keep], tfs[keep]
+        else:
+            ids, tfs = _EMPTY_U32, _EMPTY_U32
+        dids, dtfs = ctx.delta.postings(t)
+        if len(dids):
+            if len(ids) == 0:
+                return dids.copy(), dtfs.copy()
+            ids = np.concatenate([ids, dids])
+            tfs = np.concatenate([tfs, dtfs])
+            order = np.argsort(ids, kind="stable")
+            ids, tfs = ids[order], tfs[order]
+        return ids, tfs
 
     # ---- fused decode-and-intersect (host candidates) ----------------------- #
 
@@ -631,10 +742,22 @@ class QueryEngine:
         return self._round_memo(key, lambda: sa.rows(pairs))
 
     def _and_qterms(self, queries: list, ctx: _ExecCtx) -> list:
-        """Per-query known terms sorted rarest-first (df ascending)."""
+        """Per-query known terms sorted rarest-first (df ascending).  Under
+        a mutation epoch a query whose live terms include a delta-only term
+        has no generation match at all and becomes ``[]`` (it seeds empty;
+        the caller unions in the delta-segment scan)."""
         idx = ctx.gen
-        return [sorted((t for t in q if t in idx.terms),
-                       key=lambda t: idx.terms[t].df) for q in queries]
+        if not ctx.mutated:
+            return [sorted((t for t in q if t in idx.terms),
+                           key=lambda t: idx.terms[t].df) for q in queries]
+        qterms = []
+        for q in queries:
+            known = [t for t in q if self._df_live(t, ctx) > 0]
+            if any(t not in idx.terms for t in known):
+                qterms.append([])       # delta-only live term: no base match
+            else:
+                qterms.append(sorted(known, key=lambda t: idx.terms[t].df))
+        return qterms
 
     def _and_many_resident(self, queries: list,
                            terms: Mapping[int, TermCaps] | None = None,
@@ -666,6 +789,11 @@ class QueryEngine:
         Returns (bitmap, qterms, cov): the (nq, words) device bitmap, the
         per-query known terms rarest-first, and the per-query seed coverage
         intervals.  Results are bit-identical to ``and_query`` per query.
+
+        Under a mutation epoch the seed bitmap is ANDed with the epoch's
+        packed live row right after round 0 (one upload, no download):
+        tombstoned docs then fail every later probe, so the final bitmaps
+        hold the generation's live intersections.
         """
         ctx = self._cur()
         idx = ctx.gen
@@ -728,6 +856,14 @@ class QueryEngine:
                               plain=len(plain0), dense=len(dense0)):
             bm = run_round(bm, plain0, [], dense0, seeds, probe=False)
             self.tracer.fence(bm)
+        if ctx.mutated and len(ctx.dead):
+            # gate the seed with the epoch's live row: every later round
+            # only keeps survivors, so one AND serves the whole batch
+            with self.tracer.span("and/tomb_gate", lane=self.trace_lane,
+                                  dead=len(ctx.dead)):
+                bm = bm & ctx.live_dev(words, dev)[None, :]
+                self.tracer.fence(bm)
+            self.metrics.inc("tomb_gates")
         cov = {i: (idx.block_firsts(qterms[i][0]),
                    idx.block_lasts(qterms[i][0])) for i in seeds}
 
@@ -766,6 +902,8 @@ class QueryEngine:
 
     def and_query(self, terms: list) -> np.ndarray:
         ctx = self._cur()
+        if ctx.mutated:
+            return self._and_query_mut(list(terms), ctx)
         return self._and_gen([t for t in terms if t in ctx.gen.terms], ctx)
 
     def _and_gen(self, terms: list, ctx: _ExecCtx) -> np.ndarray:
@@ -782,27 +920,56 @@ class QueryEngine:
             owned = True
         return cand if owned else cand.copy()
 
+    def _and_query_mut(self, terms: list, ctx: _ExecCtx) -> np.ndarray:
+        """Live AND under a mutation epoch: the generation intersection
+        (tombstones filtered out) unioned with the delta-segment scan, what
+        ``and_query`` on a from-scratch rebuild returns.  A term whose
+        postings are all tombstoned is unknown, as in the rebuild; a live
+        term only the delta holds leaves the generation half empty (delta
+        docids shadow their base copies)."""
+        known = [t for t in terms if self._df_live(t, ctx) > 0]
+        if not known:
+            return np.zeros(0, np.uint32)
+        if all(t in ctx.gen.terms for t in known):
+            base = self._and_gen(known, ctx)
+            if len(ctx.dead) and len(base):
+                base = base[~dead_hits(ctx.dead, base)]
+        else:
+            base = _EMPTY_U32
+        return _merge_disjoint(base, ctx.delta.scan_and(known))
+
     # ---- BM25 -------------------------------------------------------------- #
 
     def term_scores(self, t: int):
         """(docids, float64 BM25 impacts) of term t, through the score
-        cache."""
+        cache keyed by the epoch; under mutation the live postings with the
+        live df."""
         ctx = self._cur()
         key = (t,) + ctx.skey
         v = self.score_cache.get(key)
         if v is None:
-            ids, tfs = self.term_ids(t), self.term_tfs(t)
-            sc = bm25_scores(tfs, ctx.doclen[ids], ctx.gen.terms[t].df,
-                             ctx.n_docs, ctx.avdl)
+            if ctx.mutated:
+                ids, tfs = self._live_postings(t, ctx)
+                ids = self._freeze(ids)
+                df = len(ids)
+            else:
+                ids, tfs = self.term_ids(t), self.term_tfs(t)
+                df = ctx.gen.terms[t].df
+            sc = bm25_scores(tfs, ctx.doclen[ids], df, ctx.n_docs, ctx.avdl)
             v = (ids, self._freeze(sc))
             self.score_cache.put(key, v)
         return v
 
     def or_query(self, terms: list, k: int = 10):
         """Host top-k of the disjunction: exact BM25 summed over the known
-        terms, :func:`topk_select` order."""
+        terms (under mutation, the terms with live postings),
+        :func:`topk_select` order."""
         ctx = self._cur()
-        parts = [self.term_scores(t) for t in terms if t in ctx.gen.terms]
+        if ctx.mutated:
+            use = [t for t in terms if self._df_live(t, ctx) > 0]
+        else:
+            use = [t for t in terms if t in ctx.gen.terms]
+        parts = [self.term_scores(t) for t in use]
         if not parts:
             return []
         ids = np.concatenate([p[0] for p in parts])
@@ -817,13 +984,17 @@ class QueryEngine:
     def _score_docs(self, terms: list, docs: np.ndarray, k: int) -> list:
         """The host float top-k oracle: exact BM25 over ``docs`` (term-level
         score vectors through the score cache), accumulated in query-term
-        order and selected with :func:`topk_select`."""
+        order and selected with :func:`topk_select`.  Under a mutation
+        epoch the score vectors are the live ones (``_live_postings``)."""
         if len(docs) == 0:
             return []
         ctx = self._cur()
         scores = np.zeros(len(docs))
         for t in terms:
-            if t not in ctx.gen.terms or not ctx.gen.terms[t].blocks:
+            if ctx.mutated:
+                if self._df_live(t, ctx) <= 0:
+                    continue        # unknown (or fully tombstoned) scores 0
+            elif t not in ctx.gen.terms or not ctx.gen.terms[t].blocks:
                 continue            # unknown or zero-posting term scores 0
             ids, sc = self.term_scores(t)
             pos = np.searchsorted(ids, docs)
@@ -941,6 +1112,32 @@ class QueryEngine:
         keep = np.flatnonzero(ub > (theta0 * iq) >> 16)
         return keep, nb - len(keep), ub[keep]
 
+    def _iq_tomb(self, ts: list, ctx: _ExecCtx) -> int:
+        """Per-query Q16.16 threshold deflation ``floor(2**16 / Rmax)`` for
+        a tombstone-only epoch: ``Rmax`` is the worst live / generation idf
+        ratio over the query's terms (deletes only shrink df, so every ratio
+        is >= 1), and the integer floor is nudged down until ``iq * Rmax <=
+        2**16``, so float rounding never pushes a scaled threshold above
+        theta / Rmax."""
+        n = ctx.n_docs
+        rmax = 1.0
+        for t in ts:
+            tp = ctx.gen.terms.get(t)
+            if tp is None:
+                continue
+            dfg = tp.df
+            dfl = self._df_live(t, ctx)
+            if dfl <= 0 or dfl >= dfg:
+                continue
+            ig = float(np.log(1.0 + (n - dfg + 0.5) / (dfg + 0.5)))
+            il = float(np.log(1.0 + (n - dfl + 0.5) / (dfl + 0.5)))
+            if ig > 0.0 and il > ig:
+                rmax = max(rmax, il / ig)
+        iq = int((1 << 16) / rmax)
+        while iq * rmax > (1 << 16):
+            iq -= 1
+        return max(iq, 1)
+
     def _ranked_resident(self, queries: list, k: int, mode: str,
                          terms: Mapping[int, TermCaps] | None = None,
                          use_fused: bool = False) -> list:
@@ -956,33 +1153,77 @@ class QueryEngine:
         host copy is the compacted candidate bitmap (k-th quantized sum
         minus the quantization margin, a superset of the float top-k), which
         the block-lazy float rescore ranks exactly: results equal the host
-        path bit for bit, ties broken by ascending docid."""
+        path bit for bit, ties broken by ascending docid.
+
+        Under a delta-bearing mutation epoch the quantized tables carry
+        generation-time statistics, so the theta cut is disarmed (theta0 0,
+        a margin that keeps every member) and OR rounds gate with the
+        epoch's live row.  Tombstone-only epochs stay armed: a per-query
+        Q16.16 deflation ``iq`` (``_iq_tomb``) keeps every threshold test
+        sound against the generation-time tables, with theta0 from the
+        tombstone-filtered top-code tables (``ScoreArena.theta0_live``).
+        The rescore unions the delta-segment scan per query and runs the
+        live-statistics float oracle."""
         ctx = self._cur()
         nq = len(queries)
         if nq == 0:
             return []
-        known = [[t for t in q if t in ctx.gen.terms] for q in queries]
-        if k <= 0 or not any(known):
+        known, base_ts, tomb_only, armed, margins_l, iqs_l = \
+            self._ranked_params(queries, k, ctx)
+        if known is None:
             return [[] for _ in queries]
         acc, member, margins, iq_dev, width = self._ranked_accumulate(
-            queries, k, mode, terms, use_fused, base_ts=known)
+            queries, k, mode, terms, use_fused, base_ts=base_ts, armed=armed,
+            tomb_only=tomb_only, margins_l=margins_l, iqs_l=iqs_l)
         theta = topk.topk_threshold(acc, min(k, width))
         cand_bm = topk.candidate_bitmap(acc, member, theta, margins, iq_dev)
         del acc, member
         # the single host copy: candidate bitmaps -> exact float rescore
         self.metrics.inc("final_syncs")
-        cand = intersect_rounds.extract_ids(to_np(cand_bm), ctx.n_docs)
+        cand = intersect_rounds.extract_ids(to_np(cand_bm), ctx.gen.n_docs)
         del cand_bm
-        return self._ranked_rescore(queries, cand, k, mode)
+        return self._ranked_rescore(queries, cand, k, mode, known, ctx)
+
+    def _ranked_params(self, queries: list, k: int, ctx: _ExecCtx):
+        """The batch's epoch-derived ranked parameters: (known, base_ts,
+        tomb_only, armed, margins_l, iqs_l), known None when the batch
+        yields only empty results.  ``known``: each query's live terms;
+        ``base_ts``: those the generation holds; ``armed``: the theta cut
+        is sound (unmutated or tombstone-only epoch); ``margins_l``: the
+        quantization margin (the known-term count, or ``_KEEP_ALL_MARGIN``
+        disarmed); ``iqs_l``: the Q16.16 scale (identity unless
+        tombstone-only)."""
+        idx = ctx.gen
+        if ctx.mutated:
+            known = [[t for t in q if self._df_live(t, ctx) > 0]
+                     for q in queries]
+            base_ts = [[t for t in ts if t in idx.terms] for ts in known]
+        else:
+            known = [[t for t in q if t in idx.terms] for q in queries]
+            base_ts = known
+        if k <= 0 or not any(known):
+            return None, None, False, False, None, None
+        # tombstone-only: no delta doc and corpus statistics untouched
+        # (deletes never shrink the doc space or rewrite doclens; the array
+        # check guards a doclen override)
+        tomb_only = (ctx.mutated and len(ctx.delta) == 0
+                     and ctx.n_docs == idx.n_docs
+                     and np.array_equal(ctx.doclen, idx.doclen))
+        armed = not ctx.mutated or tomb_only
+        margins_l = [len(ts) if armed else _KEEP_ALL_MARGIN for ts in known]
+        iqs_l = ([self._iq_tomb(ts, ctx) if ts else 1 << 16 for ts in known]
+                 if tomb_only else [1 << 16] * len(queries))
+        return known, base_ts, tomb_only, armed, margins_l, iqs_l
 
     def _ranked_accumulate(self, queries: list, k: int, mode: str,
                            terms: Mapping[int, TermCaps] | None,
-                           use_fused: bool, *, base_ts: list):
+                           use_fused: bool, *, base_ts: list, armed: bool,
+                           tomb_only: bool, margins_l: list, iqs_l: list):
         """The round loop of :meth:`_ranked_resident`: accumulate the batch's
         quantized impact codes device-resident and return the final state
         ``(acc, member, margins, iq, width)``, no threshold, no download.
-        ``margins`` is each query's known-term count (the quantization
-        margin); ``iq`` the identity Q16.16 scale of an unmutated epoch."""
+        The epoch-derived inputs (``base_ts`` ... ``iqs_l``) come from
+        :meth:`_ranked_params`."""
         ctx = self._cur()
         idx = ctx.gen
         nq = len(queries)
@@ -997,18 +1238,32 @@ class QueryEngine:
         if mode == "and_scored":
             gate, _, cov = self._and_bitmap_resident(queries, terms,
                                                      use_fused)
+        eff_gate = gate
+        if gate is None and ctx.mutated and len(ctx.dead):
+            # OR mode under deletes: the epoch's live row gates every lane,
+            # one row a query in memory of its own (the wrappers and the
+            # dense window gather take contiguous tensors)
+            with self.tracer.span("ranked/tomb_gate", lane=self.trace_lane,
+                                  dead=len(ctx.dead)):
+                eff_gate = ctx.live_dev(words, dev).expand(
+                    nq, words).contiguous()
+                self.tracer.fence(eff_gate)
+            self.metrics.inc("tomb_gates")
         gate_tiles = None
         if use_fused:       # the probe target of the fused rounds: the AND
-            # bitmap, or (OR mode) all ones so only lane validity gates
-            gate_tiles = (gate if gate is not None else torch.full(
+            # bitmap (live-gated under mutation), the live rows, or (OR mode,
+            # no deletes) all ones so only lane validity gates
+            gate_tiles = (eff_gate if eff_gate is not None else torch.full(
                 (nq, words), -1, dtype=torch.int32, device=dev)
                           ).reshape(nq * crows, -1)
         order = [sorted(ts, key=lambda t: -sa.term_max[t]) for ts in base_ts]
-        margins = torch.as_tensor([len(ts) for ts in base_ts],
-                                  dtype=torch.int32, device=dev)
-        iq_dev = torch.full((nq,), 1 << 16, dtype=torch.int32, device=dev)
-        theta0 = ([sa.theta0(ts, k) for ts in base_ts] if mode == "or"
-                  else [0] * nq)
+        margins = torch.as_tensor(margins_l, dtype=torch.int32, device=dev)
+        iq_dev = torch.as_tensor(iqs_l, dtype=torch.int32, device=dev)
+        if mode == "or" and armed:
+            theta0 = [(sa.theta0_live(ts, k, ctx.dead) if tomb_only
+                       else sa.theta0(ts, k)) for ts in base_ts]
+        else:
+            theta0 = [0] * nq
         theta_dev = torch.as_tensor(theta0, dtype=torch.int32, device=dev)
         nrounds = max((len(ts) for ts in order), default=0)
         for r in range(nrounds):
@@ -1025,7 +1280,7 @@ class QueryEngine:
                 t = ts[r]
                 if mode == "or":
                     sel, pruned, ubs_i = self._prune_ranked_blocks(
-                        sa, ts, r, theta0[i])
+                        sa, ts, r, theta0[i], iqs_l[i])
                 else:
                     sel, pruned, ubs_i = (
                         self._select_blocks_static(t, *cov[i]), 0, None)
@@ -1050,7 +1305,7 @@ class QueryEngine:
                         plain_ub.append(u)
                 self.metrics.inc("blocks_dense", n_dense)
             self.metrics.inc("score_rounds")
-            probe = gate if gate is not None else member
+            probe = eff_gate if eff_gate is not None else member
             if plain:
                 rows, qs, ns = self._stack_worklist(plain)
                 codes = self._score_rows(sa, [(t, bi) for _, t, bi in plain])
@@ -1058,7 +1313,7 @@ class QueryEngine:
                     acc, member, rows, _to_device(qs, dev), codes,
                     _to_device(ns, dev), probe,
                     _to_device(np.asarray(plain_ub, np.int32), dev),
-                    theta_dev, iq_dev, gated=gate is not None)
+                    theta_dev, iq_dev, gated=eff_gate is not None)
             if fused_pairs:
                 ids, hits, codes, qs, ubf = ar.fused_round_scored(
                     fused_pairs, gate_tiles, fused_ub)
@@ -1071,8 +1326,8 @@ class QueryEngine:
                     dense, dense_ub, with_codes=True)
                 topk.dense_score_round(acc, member, dtiles, dw, dqs, dw0, dub,
                                        theta_dev, iq_dev, probe,
-                                       gated=gate is not None)
-            if mode == "or" and k <= width // 32 and r + 1 < nrounds:
+                                       gated=eff_gate is not None)
+            if mode == "or" and armed and k <= width // 32 and r + 1 < nrounds:
                 # adaptive promotion: the pooled k-th is a sound, monotone
                 # lower bound on the final k-th sum (only with the full k:
                 # fewer pooled groups than k would over-promote)
@@ -1083,14 +1338,26 @@ class QueryEngine:
                             dense=len(dense))
         return acc, member, margins, iq_dev, width
 
-    def _ranked_rescore(self, queries: list, cand: list, k: int,
-                        mode: str) -> list:
+    def _ranked_rescore(self, queries: list, cand: list, k: int, mode: str,
+                        known: list, ctx: _ExecCtx) -> list:
         """The exact float tail: block-lazy batch rescore of the candidates
-        (sorted docids).  Span ``ranked/rescore``."""
+        (sorted docids) on an unmutated epoch, else per query the union with
+        the delta-segment scan, scored by the live-statistics oracle.  Span
+        ``ranked/rescore``."""
         with self.tracer.span("ranked/rescore", lane=self.trace_lane,
                               nq=len(queries), mode=mode,
                               cands=sum(len(c) for c in cand)):
-            return self._rescore_batch_blockwise(queries, cand, k)
+            if not ctx.mutated:
+                return self._rescore_batch_blockwise(queries, cand, k)
+            out = []
+            for i, (q, c) in enumerate(zip(queries, cand)):
+                if mode == "or":
+                    d = ctx.delta.scan_any(known[i])
+                else:
+                    d = (ctx.delta.scan_and(known[i]) if known[i]
+                         else _EMPTY_U32)
+                out.append(self._score_docs(q, _merge_disjoint(c, d), k))
+            return out
 
     # ---- planned execution -------------------------------------------------- #
 
@@ -1103,7 +1370,11 @@ class QueryEngine:
         Auto-placement (``placement=None``) demotes batches of at most
         ``HOST_BATCH_MAX`` queries (or an installed crossover table's cut)
         to the host; ``plan.note`` records it.  An explicit ``placement``
-        skips the demotion and is validated against the arena state."""
+        skips the demotion and is validated against the arena state.
+
+        The plan pins the current mutation epoch (:class:`_ExecCtx`): run
+        after later writes or a ``compact()``, it returns what it would have
+        returned at plan time."""
         with self.tracer.span("engine/plan", lane=self.trace_lane,
                               mode=batch.mode, nq=len(batch.queries)):
             return self._plan_impl(batch, placement)
@@ -1147,19 +1418,28 @@ class QueryEngine:
                             f"HOST_BATCH_MAX={HOST_BATCH_MAX} "
                             "(static rule; no measured crossover)")
                     placement = "host"
+        if ctx.mutated:
+            mnote = (f"pinned epoch {ctx.skey}: {len(ctx.dead)} tombstone(s), "
+                     f"{len(ctx.delta)} delta doc(s)")
+            note = f"{note}; {mnote}" if note else mnote
         terms: dict[int, TermCaps] = {}
         for q in batch.queries:
             for t in q:
-                if t in terms or t not in ctx.gen.terms:
+                if t in terms:
                     continue
-                blocks = ctx.gen.terms[t].blocks
-                name = blocks[0][1].codec if blocks else None
-                spec = codec_lib.get(name) if name is not None else None
-                terms[t] = TermCaps(
-                    codec=name,
-                    arena=bool(spec is not None and spec.arena is not None),
-                    fused=(placement == "fused"
-                           and self.arena.has_fused(t, range(len(blocks)))))
+                if t in ctx.gen.terms:
+                    blocks = ctx.gen.terms[t].blocks
+                    name = blocks[0][1].codec if blocks else None
+                    spec = codec_lib.get(name) if name is not None else None
+                    terms[t] = TermCaps(
+                        codec=name,
+                        arena=bool(spec is not None
+                                   and spec.arena is not None),
+                        fused=(placement == "fused" and self.arena.has_fused(
+                            t, range(len(blocks)))))
+                elif ctx.delta is not None and ctx.delta.has_term(t):
+                    # delta-only term: no compressed blocks, host scan only
+                    terms[t] = TermCaps(codec=None, arena=False, fused=False)
         return ExecutionPlan(mode=batch.mode, k=batch.k, placement=placement,
                              queries=tuple(tuple(q) for q in batch.queries),
                              terms=terms, note=note, ctx=ctx)
@@ -1198,7 +1478,7 @@ class QueryEngine:
             prev_ctx, self._ctx = self._ctx, ctx
             prev_arena, self.arena = self.arena, arena
             try:
-                return self._execute_device(plan)
+                return self._execute_device(plan, ctx)
             finally:
                 self._ctx, self.arena = prev_ctx, prev_arena
         fn = {"and": self.and_query,
@@ -1221,10 +1501,18 @@ class QueryEngine:
             self._fused, self.arena = prev_fused, prev_arena
         return results
 
-    def _execute_device(self, plan: ExecutionPlan) -> list:
+    def _execute_device(self, plan: ExecutionPlan, ctx: _ExecCtx) -> list:
         queries = [list(q) for q in plan.queries]
         fused = plan.placement == "fused"
         if plan.mode == "and":
-            return self._and_many_resident(queries, plan.terms, fused)
+            base = self._and_many_resident(queries, plan.terms, fused)
+            if not ctx.mutated:
+                return base
+            out = []
+            for q, b in zip(queries, base):
+                known = [t for t in q if self._df_live(t, ctx) > 0]
+                d = ctx.delta.scan_and(known) if known else _EMPTY_U32
+                out.append(_merge_disjoint(b, d))
+            return out
         return self._ranked_resident(queries, plan.k, plan.mode, plan.terms,
                                      fused)

@@ -55,7 +55,7 @@ import numpy as np
 from ..core import codec as codec_lib
 from ..core.dgap import dgap_decode_np, dgap_encode_np
 from ..core.encoded import Encoded
-from .segments import DeltaSegment, Tombstones
+from .segments import DeltaSegment, Tombstones, dead_hits
 
 SKIP = 512
 SHORT = 64
@@ -438,7 +438,7 @@ class InvertedIndex:
             if t in g.terms:
                 ids, tfs = g.decode_term(t)
                 if len(dead) and len(ids):
-                    keep = ~np.isin(ids.astype(np.int64), dead)
+                    keep = ~dead_hits(dead, ids)
                     ids, tfs = ids[keep], tfs[keep]
             else:
                 ids, tfs = _EMPTY_POSTINGS

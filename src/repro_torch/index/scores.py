@@ -17,9 +17,11 @@ short:
     m}`` (theta the k-th largest sum) are a superset of the float top-k,
     which the exact float rescore then ranks bit for bit.
 
-Every table is computed from one generation's corpus statistics.  Serving a
-mutated index is not yet ported (``ROADMAP.md``, step A.7), so
-``ScoreArena.theta0_live`` is not either.
+Every table is computed from one generation's corpus statistics.  Under a
+mutation epoch the engine keeps them: a tombstone-only epoch re-arms the
+theta cut through a Q16.16 idf-ratio deflation and
+:meth:`ScoreArena.theta0_live`; a delta-bearing epoch disarms it and lets
+the exact float rescore rank.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..core.codec import get as codec_get
 from ..kernels.intersect_rounds import bitmap_geometry
 from ..kernels.topk import unpack_codes
 from .device import resolve_device
+from .segments import dead_hits
 
 K1, B = 1.2, 0.75
 
@@ -226,6 +229,25 @@ class ScoreArena:
             tops = self.term_tops.get(t)
             if tops is not None and k <= len(tops):
                 best = max(best, int(tops[k - 1]))
+        return best
+
+    def theta0_live(self, terms: list, k: int, dead: np.ndarray) -> int:
+        """:meth:`theta0` for a tombstone-only epoch (``dead``: its sorted
+        int64 tombstoned docids): tombstoned entries leave the per-term
+        top-code table (``term_top_ids``) before the k-th survivor is
+        taken, so the k docs backing the bound are all live.
+        Sound, and weaker than a rebuild's table where more than ``TOP_TABLE
+        - k`` of a term's top codes are dead (that term then gives 0)."""
+        if len(dead) == 0:
+            return self.theta0(terms, k)
+        best = 0
+        for t in terms:
+            tops = self.term_tops.get(t)
+            if tops is None or not len(tops):
+                continue
+            alive = tops[~dead_hits(dead, self.term_top_ids[t])]
+            if k <= len(alive):
+                best = max(best, int(alive[k - 1]))
         return best
 
     def range_max(self, t: int, lo: int, hi: int) -> int:

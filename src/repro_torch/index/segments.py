@@ -163,6 +163,16 @@ class DeltaSegment:
         return np.asarray(ids, np.uint32)
 
 
+def dead_hits(dead: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """Bool mask over ``ids`` marking the docids in ``dead`` (sorted int64,
+    non-empty, as ``Tombstones.sorted_ids`` gives it), by binary search.
+    ``np.isin`` sorts or tables the whole dead set on every call: 62 ms a
+    call against 252,051 dead docids on the H100 machine's host (numpy
+    2.3), where this takes 0.02 ms."""
+    pos = np.minimum(np.searchsorted(dead, ids), len(dead) - 1)
+    return dead[pos] == ids
+
+
 class Tombstones:
     """Deleted / shadowed base docids, with packed live-bitmap views.
 

@@ -2,8 +2,9 @@
 the host, device and fused placements against the JAX package's engine, on
 ``synth.make_corpus("gov2")`` with queries shaped like
 ``benchmarks/bench_query.make_queries`` (2-3 terms of the 120 most
-frequent); the device-resident counters; the legacy ``and_many`` through
-kernel B5; and the package importing with jax blocked."""
+frequent); the device-resident counters; one tombstone's epoch; the legacy
+``and_many`` through kernel B5; and the package importing with jax
+blocked."""
 
 import os
 import subprocess
@@ -84,11 +85,30 @@ def test_auto_placement_and_unported_paths_raise(gov2):
 
 
 def test_mutated_index_and_missing_card_raise():
+    """A one-tombstone index plans and serves ``and`` as the reference
+    does (the plan pins the epoch), and ``to_device()`` with no card
+    raises."""
     doclen, postings = synth.make_corpus("wikipedia")
-    idx = InvertedIndex.build(doclen, dict(list(postings.items())[:5]))
-    idx.delete(3)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        QueryEngine(idx).plan(QueryBatch([[0, 1]]))
+    sub = dict(list(postings.items())[:5])
+    idx = InvertedIndex.build(doclen, sub)
+    ref = RefIndex.build(doclen, sub, codec="group_simple")
+    dead = int(sub[0][0][0])            # a doc that holds term 0
+    idx.delete(dead)
+    ref.delete(dead)
+    queries = [[0, 1], [0], [2, 3, 4], [1, 9_999]]
+    want = RefEngine(ref).execute(RefBatch(queries, mode="and"))
+    assert dead not in want[1]
+    for placement in ("host", "device", "fused"):
+        eng = QueryEngine(idx)
+        if placement != "host":
+            eng.to_device(fused=placement == "fused", torch_device="cpu")
+        plan = eng.plan(QueryBatch(queries, mode="and"), placement=placement)
+        assert plan.ctx.mutated and "1 tombstone(s)" in plan.note
+        for q, a, b in zip(queries, eng.execute(plan), want):
+            np.testing.assert_array_equal(a, b, err_msg=f"{placement} {q}")
+        if placement != "host":
+            assert eng.dev_stats["tomb_gates"] == 1
+            assert eng.dev_stats["cand_syncs"] == 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             QueryEngine(idx).to_device()

@@ -929,3 +929,57 @@ def test_cuda_uint4_kernels_refuse_misaligned_views(kernel, cuda_device):
         else:
             intersect.bitmap_and_tiles(view, flat[:-1].view(rows, 128))
     assert kernels.LAUNCHES[kernel] == n0
+
+
+def _live_rows(seed: int, words: int, n_rows: int) -> np.ndarray:
+    """A mutation epoch's live row (``pack_live_words``: 1 % of the docs
+    tombstoned, bits past the doc space 0) repeated for ``n_rows`` query
+    rows, as the ranked ``or`` rounds gate with it."""
+    rng = np.random.default_rng(seed)
+    n_docs = words * 32 - 7
+    dead = np.sort(rng.choice(n_docs, n_docs // 100, replace=False))
+    row = intersect_rounds.pack_live_words(dead, n_docs, words)
+    assert 0.98 < np.unpackbits(row.view(np.uint8)).mean() < 0.995
+    return np.tile(row, (n_rows, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw", BW_BUCKETS)
+def test_cuda_decode_and_probes_a_live_row(bw, cuda_device):
+    """B1 probing the live row of a tombstone epoch (1 % of its bits
+    cleared), as the fused ``or`` rounds do under deletes, against its
+    plain version, bitwise."""
+    tiles, slots, qslots, firsts, ns, _ = _decode_inputs(bw, seed=bw + 40)
+    live = _live_rows(bw, CROWS * 128, Q).reshape(Q * CROWS, 128)
+    args = [t32(a, cuda_device)
+            for a in (tiles, slots, qslots, firsts, ns, live)]
+    n0 = kernels.LAUNCHES["B1"]
+    got = intersect_rounds.segmented_decode_and(*args, bw=bw, crows=CROWS)
+    assert kernels.LAUNCHES["B1"] == n0 + 1
+    want = intersect_rounds.segmented_decode_and_plain(*args, bw=bw,
+                                                       crows=CROWS)
+    for g, w in zip(got, want):
+        assert_u32_equal(g, w, f"B1 live row bw={bw}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_dense_add_packed_under_a_live_gate(cuda_device):
+    """B4's gated packed form under a window gate with 99 % of its bits set
+    (the live row of a tombstone epoch, as the ranked ``or`` rounds gate
+    their dense windows under deletes), against its plain version,
+    bitwise."""
+    acc, tiles, _, qslot, col0, act = _packed_inputs(6)
+    win = _live_rows(6, 128, len(qslot))
+    dev = [t32(a, cuda_device) for a in (acc, tiles, win, qslot, col0)]
+    start, tiles_t, win_t, qslot_t, col0_t = dev
+    act_t = torch.as_tensor(act, device=cuda_device)
+    n0 = kernels.LAUNCHES["B4"]
+    got = accumulate.dense_add_packed(start.clone(), tiles_t, win_t, qslot_t,
+                                      col0_t, act_t, gated=True)
+    assert kernels.LAUNCHES["B4"] == n0 + 1
+    assert kernels.RECENT[-1][1]["gated"]
+    assert_u32_equal(got, accumulate.dense_add_packed_plain(
+        start.clone(), tiles_t, win_t, qslot_t, col0_t, act_t, gated=True),
+                     "B4 packed under a live gate")
+    torch.cuda.synchronize()

@@ -134,9 +134,14 @@ def test_ranked_accumulator_and_candidates_match_reference(name, placement,
                                       np.asarray(rmargins), riq)
 
     plan = eng.plan(QueryBatch(queries, mode=mode, k=k), placement=placement)
+    params = eng._ranked_params([list(q) for q in queries], k, eng._cur())
+    assert params[:4] == (known, base_ts, tomb_only, armed)
+    assert list(params[4]) == list(margins_l)
+    assert list(params[5]) == [int(v) for v in iqs_l]
     acc, mem, margins, iq, pwidth = eng._ranked_accumulate(
         [list(q) for q in queries], k, mode, plan.terms,
-        placement == "fused", base_ts=base_ts)
+        placement == "fused", base_ts=params[1], armed=params[3],
+        tomb_only=params[2], margins_l=params[4], iqs_l=params[5])
     assert pwidth == width
     theta = topk.topk_threshold(acc, min(k, width))
     cand = topk.candidate_bitmap(acc, mem, theta, margins, iq)
