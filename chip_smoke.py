@@ -3,9 +3,11 @@
 
 Drives the port's main paths, fused device-resident AND serving, ranked
 BM25 top-k serving (modes ``or`` and ``and_scored``), serving under
-mutation epochs and the stream codec (encode and decode of every posting
-list), through the entry points a user calls, at the real document count
-of the TREC GOV2 collection, and holds every CUDA kernel of the paths
+mutation epochs, the stream codec (encode and decode of every posting
+list) and the paper's Group codecs (a Group-PFD index served on the
+``device`` placement, and the decode table of every codec with a torch
+decoder), through the entry points a user calls, at the real document
+count of the TREC GOV2 collection, and holds every CUDA kernel of the paths
 against its plain torch version on the card:
 
   card       the card, its power limit, torch / CUDA / nvcc versions
@@ -73,6 +75,29 @@ against its plain torch version on the card:
              ``np.intersect1d``; B6-B10 launched.  Then the whole-corpus
              decode rate, fused and two-pass, in postings per second: CUDA
              events around the 200 lists, warm, host enqueue included.
+  codecs     with every earlier engine and arena freed:
+             ``InvertedIndex.build(..., codec="group_pfd")`` on the same
+             postings (timed; blocks with exceptions counted, > 0), then
+             ``QueryEngine(idx).to_device(fused=True)`` and
+             ``ensure_scores()`` (each timed) serving the main
+             path's own fresh batches (256 queries), ``and``, ``or`` and
+             ``and_scored`` (k=10) on the ``device`` placement, then ``and``
+             on the ``fused`` one, counts set to 0 just before each; every
+             result equals the oracle the main path computed for that
+             batch; cand_syncs == 0, final_syncs == 1, ranked score_syncs
+             == 0, B2 launched, and every block decoded on the card
+             (``arena.stats["blocks_host"] == 0``); the main path's traced
+             batch of each mode under the fenced span tracer; peak device
+             memory.  Then the decode table (the paper's Table VII on the
+             card): every codec that declares ``Codec.torch`` on 20 whole
+             lists (every tenth of the 200 by descending df; encoded on the
+             host by worker processes during the build), ``decode_torch_vec``
+             equal to the d-gaps, timed over the 20 lists (CUDA events,
+             median of 5 after one, host enqueue included), postings/s and
+             bits/posting; ``decode_torch_scalar`` (equal to the d-gaps,
+             one timed run: a run is 4,096+ loop steps) beside ``vec`` on
+             the first 4,096 quadruples of the longest list; the stream
+             codec's fused decode over the same lists.
   kernels    B1 (every bit-width bucket), B5, B2 (both forms), B3, B4 and
              B6-B10 on inputs made from --seed at the largest shape any main
              path gave each kernel (B1 probed against a random bitmap and
@@ -147,6 +172,10 @@ QUERY_TERMS = 120               # queries draw from the most frequent terms
 MUT_INSERTS = 4096              # fresh docs past the doc space (delta epoch)
 MUT_UPSERTS = 1024              # base docs re-inserted (delta epoch)
 MUT_OR_QUERIES = 32             # the delta epoch's disarmed `or` batch
+TABLE_STEP = 10                 # decode table: every tenth list by df
+TABLE_RUNS = 5                  # decode table: timed passes (after one)
+SCALAR_QUADS = 4096             # decode table: the scalar decode's input
+ENCODE_WORKERS = 6              # processes encoding the decode table's lists
 
 
 def log(msg: str) -> None:
@@ -231,6 +260,43 @@ def max_abs_err(got, want, torch) -> int:
         d = ((g.long() & 0xFFFFFFFF) - (w.long() & 0xFFFFFFFF)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
     return err
+
+
+def events_ms(fn, torch, runs: int, warm: bool = True) -> tuple:
+    """(median, all runs) of CUDA-event times of ``fn()`` over ``runs``
+    calls (after one warm-up call where ``warm``), each from an idle queue
+    (host enqueue included)."""
+    if warm:
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2], times
+
+
+_TABLE_LISTS: list = []         # an encode worker's d-gap lists
+
+
+def _encode_init(src: str, lists: list) -> None:
+    """Encode worker set-up: the port on the path, the lists kept."""
+    sys.path.insert(0, src)
+    _TABLE_LISTS[:] = lists
+
+
+def _encode_task(name: str, i: int):
+    """Encode worker task: list ``i`` through codec ``name`` (host numpy);
+    returns the ``Encoded`` and the seconds it took."""
+    from repro_torch.core import codec as codec_lib
+    t0 = time.perf_counter()
+    enc = codec_lib.get(name).encode(_TABLE_LISTS[i])
+    return enc, time.perf_counter() - t0
 
 
 def bit_share(words) -> float:
@@ -657,6 +723,214 @@ def mutation_phase(idx, doclen, postings, terms, seed, np, torch) -> dict:
     return out
 
 
+def codecs_phase(doclen, postings, fresh, src, smi, np, torch) -> dict:
+    """The codecs phase (module docstring): the Group-PFD index served on
+    the ``device`` placement (and ``fused`` ``and``) against the main
+    path's oracles, then the decode table of every codec that declares
+    ``Codec.torch``.  Raises on any failed check; returns the figures."""
+    import multiprocessing
+    from repro_torch import kernels as K
+    from repro_torch.core import codec as codec_lib
+    from repro_torch.core.bits import ebw_np, from_np, to_np
+    from repro_torch.core.dgap import dgap_encode_np
+    from repro_torch.index.engine import QueryBatch, QueryEngine
+    from repro_torch.index.invindex import InvertedIndex
+    from repro_torch.kernels import ops
+    from repro_torch.obs.trace import enable_tracing
+
+    dev = torch.device("cuda", 0)
+    out = {"serving": {}, "table": {}}
+    order = sorted(postings, key=lambda t: (-len(postings[t][0]), t))
+    table_terms = order[::TABLE_STEP]
+    gaps = [dgap_encode_np(postings[t][0]) for t in table_terms]
+    n_table = sum(len(g) for g in gaps)
+    names = [n for n in codec_lib.names() if codec_lib.get(n).torch]
+    # the decode table's host encodes run in worker processes beside the
+    # Group-PFD build (longest lists first); the serving below starts once
+    # the build is done, so they take no host time from the batches
+    pool = concurrent.futures.ProcessPoolExecutor(
+        ENCODE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_encode_init, initargs=(src, gaps))
+    try:
+        jobs = {(name, int(i)): pool.submit(_encode_task, name, int(i))
+                for i in np.argsort([-len(g) for g in gaps], kind="stable")
+                for name in names}
+
+        log("== codecs: the Group-PFD index on the device placement")
+        t0 = time.perf_counter()
+        idx = InvertedIndex.build(doclen, postings, codec="group_pfd")
+        out["build_s"] = time.perf_counter() - t0
+        encs = [e for tp in idx.terms.values() for _, e, _ in tp.blocks]
+        pfd = [e for e in encs if e.codec == "group_pfd"]
+        n_exc = sum(1 for e in pfd if len(e.exceptions))
+        out["blocks"] = {"all": len(encs), "group_pfd": len(pfd),
+                         "with_exceptions": n_exc,
+                         "exception_bits": sum(e.exception_bits for e in pfd),
+                         "codecs": sorted({e.codec for e in encs})}
+        log(f"InvertedIndex.build(codec='group_pfd'): {len(encs)} docid "
+            f"blocks ({len(pfd)} group_pfd, {n_exc} of them with "
+            f"exceptions, the rest {out['blocks']['codecs']}) in "
+            f"{out['build_s']:.2f} s")
+        if n_exc <= 0:
+            raise AssertionError("the Group-PFD index holds no exceptions")
+        del encs, pfd
+        t0 = time.perf_counter()
+        eng = QueryEngine(idx, cache_blocks=1 << 22).to_device(fused=True)
+        torch.cuda.synchronize()
+        out["to_device_s"] = time.perf_counter() - t0
+        ar = eng.arena
+        t0 = time.perf_counter()
+        ar.ensure_scores()
+        torch.cuda.synchronize()
+        out["ensure_scores_s"] = time.perf_counter() - t0
+        log(f"to_device(fused=True): {out['to_device_s']:.2f} s; "
+            f"ensure_scores: {out['ensure_scores_s']:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+
+        def same(mode, got, want):
+            for j, (a, b) in enumerate(zip(got, want)):
+                if not (np.array_equal(a, b) if mode == "and" else a == b):
+                    raise AssertionError(f"group_pfd {mode}, query {j}: "
+                                         f"differs from the numpy oracle")
+
+        for mode, placement in (("and", "device"), ("or", "device"),
+                                ("and_scored", "device"), ("and", "fused")):
+            what = f"{mode}/{placement}"
+            (queries, want), (traced_q, traced_want) = fresh[mode]
+            batch = QueryBatch(queries, mode=mode, k=RANKED_K)
+            K.reset_launches()
+            torch.cuda.synchronize()
+            with eng.metrics.scoped() as s:
+                t0 = time.perf_counter()
+                res = eng.execute(eng.plan(batch, placement=placement))
+                dt = time.perf_counter() - t0
+            launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            same(mode, res, want)
+            stats = {n: s.delta(n) for n in (
+                "cand_syncs", "final_syncs", "score_syncs", "resident_rounds",
+                "score_rounds", "worklist_decodes", "fallback_decodes",
+                "blocks_dense", "blocks_scored")}
+            log(f"{what}: {QUERIES} queries in {dt:.4f} s = "
+                f"{QUERIES / dt:.2f} qps (fresh batch of the main path, "
+                f"equal to its oracle); counters {stats}; launches "
+                f"{launches}")
+            if stats["cand_syncs"] != 0 or stats["final_syncs"] != 1:
+                raise AssertionError(f"{what} syncs: {stats}")
+            if mode != "and" and stats["score_syncs"] != 0:
+                raise AssertionError(f"{what} score syncs: {stats}")
+            if launches.get("B2", 0) + launches.get("B2add", 0) <= 0 or (
+                    mode != "or" and launches.get("B2", 0) <= 0):
+                raise AssertionError(f"{what} did not launch B2: {launches}")
+            tracer = enable_tracing(True, fenced=True)
+            tracer.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            traced = eng.execute(eng.plan(QueryBatch(traced_q, mode=mode,
+                                                     k=RANKED_K),
+                                          placement=placement))
+            dt_traced = time.perf_counter() - t0
+            enable_tracing(False)
+            same(mode, traced, traced_want)
+            spans = span_breakdown(tracer, (
+                "and/seed", "and/round", "ranked/round", "kernel/topk",
+                "kernel/extract_ids", "ranked/rescore"))
+            tracer.clear()
+            log(f"{what} fenced span breakdown of the main path's traced "
+                f"batch ({dt_traced:.4f} s):")
+            for name, (n, tot) in sorted(spans.items(),
+                                         key=lambda kv: -kv[1][1]):
+                log(f"  {name:24s} x{n:<3d} {tot:10.2f} ms")
+            out["serving"][what] = {
+                "qps": QUERIES / dt, "seconds": dt, "stats": stats,
+                "launches": launches,
+                "spans_ms": {n: v[1] for n, v in spans.items()}}
+            del res, traced
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["arena_stats"] = dict(ar.stats)
+        log(f"arena stats {ar.stats}; max_memory_allocated "
+            f"{out['peak_bytes']} bytes ({out['peak_bytes'] / 2**30:.2f} "
+            f"GiB) over the four batches and their traced repeats")
+        if ar.stats["blocks_host"] != 0 or ar.stats["blocks_device"] <= 0:
+            raise AssertionError(f"blocks decoded on the host: {ar.stats}")
+        del eng, ar, idx
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log("== codecs: decode table (Codec.torch on the card)")
+        log(f"lists (every {TABLE_STEP}th by descending df): terms "
+            f"{table_terms}, {n_table} postings; longest {len(gaps[0])}")
+        t0 = time.perf_counter()
+        encoded = {key: job.result() for key, job in jobs.items()}
+        log(f"waited {time.perf_counter() - t0:.2f} s for the encode "
+            f"workers")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    head = gaps[0][:4 * SCALAR_QUADS]
+    for name in names:
+        spec = codec_lib.get(name)
+        encs = [encoded[(name, i)][0] for i in range(len(gaps))]
+        enc_s = sum(encoded[(name, i)][1] for i in range(len(gaps)))
+        kws = [spec.torch.args(e, device=dev) for e in encs]
+        for i, (g, kw) in enumerate(zip(gaps, kws)):
+            if not np.array_equal(to_np(spec.torch.vec(**kw)), g):
+                raise AssertionError(f"{name}: decode_torch_vec of list "
+                                     f"{table_terms[i]} differs")
+
+        def vec_all(kws=kws, spec=spec):
+            for kw in kws:
+                spec.torch.vec(**kw)
+
+        ms, runs = events_ms(vec_all, torch, TABLE_RUNS)
+        kw_s = spec.torch.args(spec.encode(head), device=dev)
+        got_s = []
+        s_ms, _ = events_ms(lambda: got_s.append(spec.torch.scalar(**kw_s)),
+                            torch, 1, warm=False)
+        if not np.array_equal(to_np(got_s[0]), head):
+            raise AssertionError(f"{name}: decode_torch_scalar differs")
+        v_ms, _ = events_ms(lambda: spec.torch.vec(**kw_s), torch,
+                            TABLE_RUNS)
+        bits = sum(e.total_bits for e in encs)
+        row = {"ms": ms, "runs_ms": runs, "postings_per_s": n_table / ms * 1e3,
+               "bits_per_posting": bits / n_table, "encode_s": enc_s,
+               "scalar_ms": s_ms, "scalar_postings_per_s": len(head) / s_ms * 1e3,
+               "vec_head_ms": v_ms,
+               "vec_head_postings_per_s": len(head) / v_ms * 1e3}
+        out["table"][name] = row
+        log(f"{name:18s} vec {ms:9.4f} ms = {row['postings_per_s']:.4e} "
+            f"postings/s, {row['bits_per_posting']:.4f} bits/posting; "
+            f"first {SCALAR_QUADS} quads: scalar {s_ms:.4f} ms "
+            f"({row['scalar_postings_per_s']:.4e}/s), vec {v_ms:.4f} ms "
+            f"({row['vec_head_postings_per_s']:.4e}/s); host encode "
+            f"{enc_s:.2f} s")
+        del kws, kw_s, encs
+    packed = []
+    for t, g in zip(table_terms, gaps):
+        bw = max(1, int(ebw_np(g.max())))
+        pk = ops.pack_stream(from_np(g, dev), bw)
+        if not np.array_equal(to_np(ops.unpack_delta_stream(pk, bw, len(g))),
+                              postings[t][0]):
+            raise AssertionError(f"stream codec: list {t} differs")
+        packed.append((pk, bw, len(g)))
+
+    def stream_all():
+        for pk, bw, n in packed:
+            ops.unpack_delta_stream(pk, bw, n)
+
+    ms, runs = events_ms(stream_all, torch, TABLE_RUNS)
+    words = sum(pk.numel() for pk, _, _ in packed)
+    out["table"]["stream (fused, B6)"] = {
+        "ms": ms, "runs_ms": runs, "postings_per_s": n_table / ms * 1e3,
+        "bits_per_posting": words * 32 / n_table}
+    log(f"{'stream (fused, B6)':18s} vec {ms:9.4f} ms = "
+        f"{n_table / ms * 1e3:.4e} postings/s, "
+        f"{words * 32 / n_table:.4f} bits/posting (docids: decode and "
+        f"prefix sum); CUDA events around the {len(gaps)} lists, median of "
+        f"{TABLE_RUNS} after one, host enqueue included; {smi}")
+    out["table_lists"] = {"terms": [int(t) for t in table_terms],
+                          "postings": n_table}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -845,6 +1119,8 @@ def main() -> int:
         traced, dt_traced = run_batch(traced_q)
         enable_tracing(False)
         check("traced batch", traced_q, traced, traced_want)
+    # the fresh batches and their oracles, served again by the codecs phase
+    fresh = {"and": ((queries, want), (traced_q, traced_want))}
     spans = span_breakdown(tracer, ("and/seed", "and/round",
                                     "kernel/extract_ids"))
     log(f"fenced span breakdown of another fresh batch ({dt_traced:.4f} s):")
@@ -1017,6 +1293,7 @@ def main() -> int:
             f"({dt_traced:.4f} s):")
         for name, (n, tot) in sorted(spans.items(), key=lambda kv: -kv[1][1]):
             log(f"  {name:24s} x{n:<3d} {tot:10.2f} ms")
+        fresh[mode] = ((rq, rwant), (traced_q, traced_want))
         ranked[mode] = {"qps": QUERIES / dt, "seconds": dt, "stats": stats,
                         "launches": launches, "recent": rrecent,
                         "peak_bytes": peak,
@@ -1059,7 +1336,6 @@ def main() -> int:
         tiles[:len(gaps)] = gaps
         lists.append((ids, gaps, np.maximum(ebw_np(np.bitwise_or.reduce(
             tiles.reshape(f, -1), axis=1)), 1)))
-    del postings
     n_stream = sum(len(ids) for ids, _, _ in lists)
     log(f"numpy d-gaps and widths of {len(lists)} lists, {n_stream} "
         f"postings: {time.perf_counter() - t0:.2f} s")
@@ -1138,8 +1414,15 @@ def main() -> int:
               "decode": decode}
     del packed_all, lists, a, b, both
 
-    # ---- kernels ---------------------------------------------------------- #
+    # ---- codecs ----------------------------------------------------------- #
     phase_done("stream path")
+    codecs = codecs_phase(doclen, postings, fresh, src, smi, np, torch)
+    del postings, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- kernels ---------------------------------------------------------- #
+    phase_done("codecs")
     log("== kernels vs plain versions (bitwise)")
     log(f"memory_allocated {torch.cuda.memory_allocated()} bytes at the start")
     gen = torch.Generator(device=dev)
@@ -1996,7 +2279,8 @@ def main() -> int:
     log(smi)
     print(json.dumps({"phases_s": phase_s, "ranked": {
         m: {k: v for k, v in r.items() if k != "recent"}
-        for m, r in ranked.items()}, "mutation": mut, "stream": stream}),
+        for m, r in ranked.items()}, "mutation": mut, "stream": stream,
+        "codecs": codecs}),
         flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 32-bit words held in torch tensors.
 
 numpy side (copied from the JAX package's ``core/bits.py``): effective bit
-width, masks and the vectorized bit-stream writer used by the encoders.
+width, masks, the vectorized bit-stream writer and reader, and the unary
+and bit-array helpers used by the encoders and ``decode_np`` oracles.
 
 torch side: uint32 words are stored as **int32 bit patterns**.
 ``torch.uint32`` lacks ``>>``, ``+`` and ``scatter_add_`` on the CPU, so every
@@ -14,7 +15,10 @@ semantics widens to int64 first:
 * prefix sums run in int64 and are masked to 32 bits (:func:`cumsum_u32`),
   which reproduces the reference's ``cumsum(..., dtype=uint32)`` wrap;
 * bitmap word indices are computed unsigned (in int64) before the
-  ``cand_words - 1`` clamp (:func:`word_index`).
+  ``cand_words - 1`` clamp (:func:`word_index`);
+* a bit-field read (:func:`gather_bits`) guards the ``bit == 0`` case (a
+  shift by 32 is undefined in torch and in CUDA) and builds the mask of a
+  32-bit field in int64.
 
 Bit order convention (everywhere): LSB-first within a 32-bit word, words in
 increasing index order.
@@ -71,6 +75,66 @@ def pack_bits_np(values: np.ndarray, lengths: np.ndarray) -> tuple[np.ndarray, i
     return words[: (total + 31) // 32].copy(), total
 
 
+def gather_bits_np(words: np.ndarray, offs: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Read lengths[i] (<= 32) bits at bit offset offs[i] from a uint32 stream."""
+    words = np.asarray(words, dtype=np.uint32)
+    offs = np.asarray(offs, dtype=np.int64)
+    lengths = np.asarray(lengths, dtype=np.uint64)
+    w = np.concatenate([words, np.zeros(2, dtype=np.uint32)])
+    word = offs >> 5
+    bit = (offs & 31).astype(np.uint64)
+    lo = w[word].astype(np.uint64)
+    hi = w[word + 1].astype(np.uint64)
+    v = ((lo | (hi << np.uint64(32))) >> bit)
+    msk = np.where(lengths >= 64, ~np.uint64(0), (np.uint64(1) << lengths) - np.uint64(1))
+    return (v & msk).astype(np.uint32)
+
+
+def unary_stream_np(counts: np.ndarray) -> tuple[np.ndarray, int]:
+    """Encode counts[i] >= 1 as (counts[i]-1) one-bits + one zero-bit, LSB-first.
+
+    Returns (words uint32, total_bits): the stream is all-ones with zeros at
+    positions cumsum(counts)-1.
+    """
+    counts = np.asarray(counts, dtype=np.int64)
+    total = int(counts.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.uint32), 0
+    nw = (total + 31) // 32
+    bits = np.ones(nw * 32, dtype=np.uint8)
+    zpos = np.cumsum(counts) - 1
+    bits[zpos] = 0
+    bits[total:] = 0  # pad with zeros past the end
+    words = np.packbits(bits.reshape(-1, 32)[:, ::-1], axis=1, bitorder="big")
+    words = words[:, ::-1].copy().view(np.uint32).reshape(-1)
+    return words, total
+
+
+def unary_decode_np(words: np.ndarray, total_bits: int, n: int) -> np.ndarray:
+    """Decode the first n unary counts from a stream produced by unary_stream_np."""
+    words = np.asarray(words, dtype=np.uint32)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")[:total_bits]
+    zpos = np.flatnonzero(bits == 0)[:n]
+    prev = np.concatenate([[-1], zpos[:-1]])
+    return (zpos - prev).astype(np.int64)
+
+
+def bits_to_words_np(bits: np.ndarray) -> np.ndarray:
+    """uint8 bit array (LSB-first stream order) -> uint32 words."""
+    pad = (-len(bits)) % 32
+    if pad:
+        bits = np.concatenate([bits, np.zeros(pad, dtype=np.uint8)])
+    by = np.packbits(bits, bitorder="little")
+    padb = (-len(by)) % 4
+    if padb:
+        by = np.concatenate([by, np.zeros(padb, dtype=np.uint8)])
+    return by.view(np.uint32)
+
+
+def words_to_bits_np(words: np.ndarray, total_bits: int) -> np.ndarray:
+    return np.unpackbits(np.asarray(words, np.uint32).view(np.uint8), bitorder="little")[:total_bits]
+
+
 # --------------------------------------------------------------------------- #
 # torch words (int32 bit patterns)
 # --------------------------------------------------------------------------- #
@@ -82,6 +146,17 @@ def from_np(a: np.ndarray, device=None) -> torch.Tensor:
     if a.dtype.itemsize != 4 or a.dtype.kind not in "iu":
         a = a.astype(np.uint32)
     return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def const(a: np.ndarray, device, dtype=torch.int64) -> torch.Tensor:
+    """A codec's constant table on ``device`` with no host sync: on the
+    card, a pinned host copy queued asynchronously (a pageable copy would
+    wait for the card)."""
+    t = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def to_np(t: torch.Tensor) -> np.ndarray:
@@ -111,3 +186,34 @@ def cumsum_u32(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def word_index(ids: torch.Tensor, cand_words: int) -> torch.Tensor:
     """Bitmap word of each docid, unsigned, clamped to ``cand_words - 1``."""
     return torch.clamp(u32(ids) >> 5, max=cand_words - 1)
+
+
+def mask(bw: torch.Tensor) -> torch.Tensor:
+    """All-ones masks of ``bw`` (0..32) bits, int64 (``bw == 32`` gives
+    2**32 - 1)."""
+    return (torch.ones_like(bw, dtype=torch.int64) << bw.to(torch.int64)) - 1
+
+
+def gather_bits(words: torch.Tensor, offs: torch.Tensor,
+                bws: torch.Tensor) -> torch.Tensor:
+    """Read ``bws`` (<= 32) bits at bit offsets ``offs`` from int32 word
+    streams: the counterpart of the JAX package's ``gather_bits_jnp``.
+
+    words: (W,) or (P, W) int32 bit patterns with >= 1 slack word past the
+        last offset read; a 2-D ``words`` is read row by row, with ``offs``
+        of shape (P, N).
+    offs, bws: integer tensors of one shape.
+    Returns int64 values in [0, 2**32).
+    """
+    offs = offs.to(torch.int64)
+    word = offs >> 5
+    bit = offs & 31
+    w = u32(words)
+    if w.dim() == 1:
+        lo, hi = w[word], w[word + 1]
+    else:
+        lo, hi = torch.gather(w, 1, word), torch.gather(w, 1, word + 1)
+    # lo >> bit | hi << (32 - bit), in two 32-bit halves; the hi half is 0
+    # where bit == 0 (a shift by 32)
+    hi_part = torch.where(bit == 0, 0, (hi << (32 - bit)) & U32_MASK)
+    return ((lo >> bit) | hi_part) & mask(bws)

@@ -1,39 +1,61 @@
 """Codec protocol: capability-declaring codecs, the registry the index, the
 device arenas and the tests discover codecs through.
 
-Counterpart of the JAX package's ``core/codec.py``, holding the three codecs
-the inverted index stores, ``group_simple`` (long lists), ``stream_vbyte``
-(lists under 64 postings) and ``dense_bitmap`` (dense blocks), and the
-stream codec's host codec ``bp_tpu`` (no arena, as in the reference).  Any
-other name raises the reference's ``KeyError`` with the nearest-name hint.
+Counterpart of the JAX package's ``core/codec.py``, with the same 31 codecs
+under the same names, categories, ``max_bits``, ``is_group`` flags and arena
+layouts: the scalar baselines (host only), Stream VByte, the paper's Group
+family (Group-Simple, the 10 Group-Scheme variants, Group-AFOR, Group-VSE,
+Group-PFD, Group-OptPFD, BP128, Group-PackedBinary), the dense-bitmap
+blocks and the stream codec's host codec ``bp_tpu``.  Any other name raises
+a ``KeyError`` with the nearest-name hint.
 
 A :class:`Codec` provides the host surface
 
   encode(np.uint32[N]) -> Encoded
   decode_np(Encoded)   -> np.uint32[N]          (numpy oracle)
 
-and may declare an :class:`ArenaLayout`: N named padded columns
-(:class:`ArenaColumn`) per posting block plus a batched
-``decode_block(*column_slices, *column_lens, n_valid)`` in torch.  Where the
-reference decodes one block under ``vmap``, each slice here is a
-``(P, width)`` int32 tensor and each length a ``(P,)`` tensor, so one call
-decodes a whole work-list.
+and may declare
+
+  * :class:`TorchDecode` (``Codec.torch``), where the reference declares
+    ``JaxDecode``: ``args(Encoded, device=...)`` packs the keyword
+    arguments with the tensors on an explicit device, ``scalar(**kw)`` is
+    the paper's one-quadruple-a-step routine (a loop where the reference
+    has ``lax.scan``) and ``vec(**kw)`` its vectorized decode of a whole
+    list (the Table VII rows);
+  * :class:`ArenaLayout`: N named padded columns (:class:`ArenaColumn`) per
+    posting block plus a batched ``decode_block(*column_slices,
+    *column_lens, n_valid)`` in torch.  Where the reference decodes one
+    block under ``vmap``, each slice here is a ``(P, width)`` int32 tensor
+    and each length a ``(P,)`` tensor, so one call decodes a whole
+    work-list, with no host sync.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import difflib
+import functools
 from typing import Any, Callable, Optional
 
 import numpy as np
 
-from . import bp_tpu, dense_bitmap, group_simple, stream_vbyte
+from . import bp128, group_afor, group_pfd, group_scheme, group_simple, scalar
+from . import bp_tpu, dense_bitmap, group_vse, stream_vbyte
 from .encoded import Encoded
 
 # One posting block of the inverted index is at most this many integers; all
 # declared arena widths are padded maxima for a block of this size.
 ARENA_BLOCK = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchDecode:
+    """Device decode capability: argument packing on an explicit device,
+    and the scalar and vectorized whole-list decoders (int32 words)."""
+
+    args: Callable[..., dict]
+    scalar: Callable[..., Any]
+    vec: Callable[..., Any]
 
 
 def _block_ctrl_default(enc: Encoded) -> np.ndarray:
@@ -152,6 +174,7 @@ class Codec:
     decode_np: Callable[[Encoded], np.ndarray]
     max_bits: int = 32             # values above 2**max_bits-1 unsupported
     is_group: bool = False         # uses the paper's Group approach
+    torch: Optional[TorchDecode] = None
     arena: Optional[ArenaLayout] = None
 
     @property
@@ -189,7 +212,8 @@ def names(category: str | None = None, group_only: bool = False) -> list[str]:
 
 
 # --------------------------------------------------------------------------- #
-# arena layouts of the three index codecs
+# arena layouts: thin shims binding each codec module's batched decoder to
+# the uniform column contract, created once at registration
 # --------------------------------------------------------------------------- #
 
 _GS_PMAX = ARENA_BLOCK // 4            # max Group-Simple vectors per block
@@ -208,6 +232,34 @@ _GS_ARENA = ArenaLayout.two_column(
     ctrl_width=_GS_PMAX, data_width=4 * _GS_PMAX, out_width=ARENA_BLOCK,
     decode_block=_gs_decode_block, block_ctrl=_gs_block_ctrl)
 
+_BP_WMAX = ARENA_BLOCK // 4            # max data words per component per block
+
+
+def _bp_block_ctrl(enc: Encoded) -> np.ndarray:
+    return np.asarray(enc.control, np.int32)
+
+
+def _bp_decode_block(ctrl, data, ctrl_len, n_valid, *, frame_quads):
+    return bp128.decode_arena_block(
+        ctrl, data.reshape(data.shape[0], -1, 4), n_valid, frame_quads)
+
+
+def _bp_supports(enc: Encoded, *, frame_quads) -> bool:
+    # the layout's frame size is baked into its fixed shapes; a block encoded
+    # at any other frame size takes the host oracle
+    return enc.meta.get("frame_quads") == frame_quads
+
+
+def _bp_arena(frame_quads: int) -> ArenaLayout:
+    return ArenaLayout.two_column(
+        ctrl_width=-(-_BP_WMAX // frame_quads),
+        data_width=4 * (_BP_WMAX + 2),
+        out_width=ARENA_BLOCK,
+        decode_block=functools.partial(_bp_decode_block,
+                                       frame_quads=frame_quads),
+        block_ctrl=_bp_block_ctrl,
+        supports=functools.partial(_bp_supports, frame_quads=frame_quads))
+
 
 def _svb_block_data(enc: Encoded) -> np.ndarray:
     # payload bytes widened to one word each
@@ -222,6 +274,48 @@ _SVB_ARENA = ArenaLayout.two_column(
     block_ctrl=_block_ctrl_default,            # control bytes, one per word
     block_data=_svb_block_data,
     ctrl_dtype=np.uint32)
+
+
+def _gsch_arena(variant: str) -> ArenaLayout:
+    return ArenaLayout.two_column(
+        ctrl_width=group_scheme.arena_ctrl_width(variant),
+        data_width=4 * (ARENA_BLOCK // 4 + 2),
+        out_width=ARENA_BLOCK,
+        decode_block=functools.partial(group_scheme.decode_arena_block,
+                                       variant=variant),
+        block_ctrl=group_scheme.arena_block_ctrl,
+        ctrl_dtype=np.uint32)
+
+
+# ---- frame-family layouts (AFOR / VSE / PFD): shared vertical data stream -- #
+
+_FR_WMAX = ARENA_BLOCK // 4        # max data words per component per block
+_FR_DATA = 4 * (_FR_WMAX + 2)      # flat words incl. the unpack slack rows
+
+
+def _ctrl_col(width: int) -> ArenaColumn:
+    return ArenaColumn("ctrl", width, _block_ctrl_default, np.int32)
+
+
+_AFOR_ARENA = ArenaLayout(
+    columns=(_ctrl_col(group_afor.ARENA_F), ArenaColumn("data", _FR_DATA)),
+    out_width=ARENA_BLOCK, decode_block=group_afor.decode_arena_block)
+
+_VSE_ARENA = ArenaLayout(
+    columns=(_ctrl_col(2 * group_vse.ARENA_F), ArenaColumn("data", _FR_DATA)),
+    out_width=ARENA_BLOCK, decode_block=group_vse.decode_arena_block)
+
+
+def _pfd_block_exc(enc: Encoded) -> np.ndarray:
+    exc = enc.exceptions
+    return np.zeros(0, np.uint32) if exc is None else np.asarray(exc, np.uint32)
+
+
+_PFD_ARENA = ArenaLayout(
+    columns=(_ctrl_col(2 * group_pfd.ARENA_F), ArenaColumn("data", _FR_DATA),
+             ArenaColumn("exceptions", group_pfd.ARENA_EXC_WORDS + 2,
+                         _pfd_block_exc)),
+    out_width=ARENA_BLOCK, decode_block=group_pfd.decode_arena_block)
 
 
 def _dense_block_ctrl(enc: Encoded) -> np.ndarray:
@@ -239,11 +333,64 @@ _DENSE_ARENA = ArenaLayout(
     is_bitmap=dense_bitmap.is_bitmap)
 
 
+def _torch_of(module) -> TorchDecode:
+    return TorchDecode(module.torch_args, module.decode_torch_scalar,
+                       module.decode_torch_vec)
+
+
+# --------------------------------------------------------------------------- #
+# registry: every codec module registered through the protocol
+# --------------------------------------------------------------------------- #
+
+# ---- scalar baselines ------------------------------------------------------ #
+register(Codec("varbyte", "byte", scalar.vb_encode, scalar.vb_decode))
 register(Codec("stream_vbyte", "byte", stream_vbyte.encode,
-               stream_vbyte.decode_np, arena=_SVB_ARENA))
+               stream_vbyte.decode_np, torch=_torch_of(stream_vbyte),
+               arena=_SVB_ARENA))
+register(Codec("gvb", "byte", scalar.gvb_encode, scalar.gvb_decode))
+register(Codec("g8iu", "byte", scalar.g8iu_encode, scalar.g8iu_decode))
+register(Codec("g8cu", "byte", scalar.g8cu_encode, scalar.g8cu_decode))
+register(Codec("simple9", "word", scalar.simple9_encode, scalar.simple9_decode,
+               max_bits=28))
+register(Codec("simple16", "word", scalar.simple16_encode,
+               scalar.simple16_decode, max_bits=28))
+register(Codec("rice", "bit", scalar.rice_encode, scalar.rice_decode))
+register(Codec("gamma", "bit", scalar.gamma_encode, scalar.gamma_decode,
+               max_bits=31))
+register(Codec("pfordelta", "frame", scalar.pfd_encode, scalar.pfd_decode))
+register(Codec("afor", "frame", scalar.afor_encode, scalar.afor_decode))
+register(Codec("packed_binary", "frame", scalar.packedbinary_encode,
+               scalar.packedbinary_decode))
+
+# ---- Group family (this paper) --------------------------------------------- #
 register(Codec("group_simple", "word", group_simple.encode,
-               group_simple.decode_np, is_group=True, arena=_GS_ARENA))
-register(Codec("dense_bitmap", "word", dense_bitmap.encode,
-               dense_bitmap.decode_np, arena=_DENSE_ARENA))
+               group_simple.decode_np, is_group=True,
+               torch=_torch_of(group_simple), arena=_GS_ARENA))
+
+for _v in group_scheme.VARIANTS:
+    register(Codec(
+        f"group_scheme_{_v}", "bit" if int(_v.split("-")[0]) < 8 else "byte",
+        functools.partial(group_scheme.encode, variant=_v),
+        group_scheme.decode_np, is_group=True,
+        torch=_torch_of(group_scheme), arena=_gsch_arena(_v)))
+
+register(Codec("group_afor", "frame", group_afor.encode, group_afor.decode_np,
+               is_group=True, torch=_torch_of(group_afor), arena=_AFOR_ARENA))
+register(Codec("group_vse", "frame", group_vse.encode, group_vse.decode_np,
+               is_group=True, torch=_torch_of(group_vse), arena=_VSE_ARENA))
+register(Codec("group_pfd", "frame", group_pfd.encode, group_pfd.decode_np,
+               is_group=True, torch=_torch_of(group_pfd), arena=_PFD_ARENA))
+register(Codec("group_optpfd", "frame",
+               functools.partial(group_pfd.encode, opt=True),
+               group_pfd.decode_np, is_group=True,
+               torch=_torch_of(group_pfd),
+               arena=_PFD_ARENA))       # same block format -> shared layout
+register(Codec("bp128", "frame", bp128.encode, bp128.decode_np, is_group=True,
+               torch=_torch_of(bp128), arena=_bp_arena(32)))
 register(Codec("bp_tpu", "frame", bp_tpu.encode, bp_tpu.decode_np,
                is_group=True))
+register(Codec("dense_bitmap", "word", dense_bitmap.encode,
+               dense_bitmap.decode_np, arena=_DENSE_ARENA))
+register(Codec("g_packed_binary", "frame", bp128.encode_packed_binary,
+               bp128.decode_np, is_group=True, torch=_torch_of(bp128),
+               arena=_bp_arena(128)))

@@ -10,23 +10,34 @@ Ten patterns (Table III): (NUM, BW) with NUM integers per component, BW bits
 each.  Pattern selection (Algorithm 1) runs on the quad max array.
 
 Counterpart of the JAX package's ``core/group_simple.py``: ``encode`` and
-``decode_np`` are its numpy code; ``decode_arena_block`` is the device-arena
-decode in torch, batched as explicit ``(P, width)`` tensors where the
-reference maps one block at a time under ``vmap``.
+``decode_np`` are its numpy code; ``torch_args`` / ``decode_torch_vec`` /
+``decode_torch_scalar`` are the torch forms of its ``jax_args`` /
+``decode_jax_vec`` / ``decode_jax_scalar``, and ``decode_arena_block`` is the
+device-arena decode in torch, batched as explicit ``(P, width)`` tensors
+where the reference maps one block at a time under ``vmap``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from .bits import ebw_np, i32, mask_np, pack_bits_np, u32
+from .bits import const, ebw_np, from_np, i32, mask_np, pack_bits_np, u32
 from .encoded import Encoded
 from .layout import quadmax_np, to_vertical_np
 
 NUM = np.array([32, 16, 10, 8, 6, 5, 4, 3, 2, 1], dtype=np.int32)
 BW = np.array([1, 2, 3, 4, 5, 6, 8, 10, 16, 32], dtype=np.int32)
 MASKS = mask_np(BW)
+
+
+@functools.cache
+def _tables(device) -> tuple:
+    """(NUM, BW, MASKS) as int64 tensors on ``device``, made once per
+    device (no copy per call)."""
+    return tuple(const(a, device) for a in (NUM, BW, MASKS))
 
 
 # --------------------------------------------------------------------------- #
@@ -119,6 +130,66 @@ def decode_np(enc: Encoded) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------- #
+# torch decoders
+# --------------------------------------------------------------------------- #
+
+
+def torch_args(enc: Encoded, device="cuda") -> dict:
+    """``decode_torch_vec`` / ``decode_torch_scalar`` keyword arguments, the
+    tensors on ``device``."""
+    return {"sels": torch.as_tensor(enc.meta["sels"].astype(np.int64),
+                                    device=device),
+            "data": from_np(np.asarray(enc.data, np.uint32).reshape(-1, 4),
+                            device),
+            "n": enc.n}
+
+
+def decode_torch_vec(sels: torch.Tensor, data: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """SIMD-Group-Simple decode, gather formulation: every output integer
+    locates its (vector, slot, component) and extracts with one
+    shift+mask."""
+    dev = data.device
+    num_t, bw_t, mask_t = _tables(dev)
+    sels = sels.to(torch.int64)
+    num = num_t[sels]
+    ends = torch.cumsum(4 * num, 0)
+    starts = ends - 4 * num
+    i = torch.arange(n, device=dev)
+    # segment id via boundary marks + cumsum; marks past n land in the
+    # spare last slot
+    marks = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    marks.scatter_add_(0, starts.clamp(max=n), torch.ones_like(starts))
+    p = torch.cumsum(marks[:n], 0) - 1
+    sel = sels[p]
+    local = i - starts[p]
+    word = u32(data.reshape(-1))[p * 4 + (local & 3)]
+    return i32((word >> ((local >> 2) * bw_t[sel])) & mask_t[sel])
+
+
+def decode_torch_scalar(sels: torch.Tensor, data: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    """Paper-faithful scalar decode: one 128-bit vector per loop step, its
+    pattern's slots written at the running offset (the selector is read on
+    the device, so the loop never waits for the card)."""
+    dev = data.device
+    num_t, bw_t, mask_t = _tables(dev)
+    d = u32(data)
+    k = torch.arange(32, device=dev)
+    out = torch.zeros(n + 128, dtype=torch.int64, device=dev)
+    off = torch.zeros(1, dtype=torch.int64, device=dev)
+    for j in range(sels.shape[0]):
+        sel = sels[j:j + 1].to(torch.int64)
+        num, bw = num_t[sel], bw_t[sel]
+        vals = (d[j][None, :] >> torch.clamp(k * bw, max=31)[:, None]) \
+            & mask_t[sel]
+        buf = torch.where(k[:, None] < num, vals, 0).reshape(-1)
+        out.index_copy_(0, off + torch.arange(128, device=dev), buf)
+        off = off + 4 * num
+    return i32(out[:n])
+
+
+# --------------------------------------------------------------------------- #
 # torch arena decode
 # --------------------------------------------------------------------------- #
 
@@ -137,9 +208,7 @@ def decode_arena_block(sels: torch.Tensor, data: torch.Tensor,
     dev = sels.device
     p, pmax = sels.shape
     nmax = 4 * pmax
-    num_t = torch.as_tensor(NUM, dtype=torch.int64, device=dev)
-    bw_t = torch.as_tensor(BW, dtype=torch.int64, device=dev)
-    mask_t = torch.as_tensor(MASKS.astype(np.int64), device=dev)
+    num_t, bw_t, mask_t = _tables(dev)
     sels = sels.to(torch.int64).clamp(0, 9)       # slack may hold anything
     valid_p = (torch.arange(pmax, device=dev)[None, :]
                < p_len.to(torch.int64)[:, None])

@@ -5,8 +5,11 @@
   data = concat(little-endian payload bytes of each x[i])
 
 Counterpart of the JAX package's ``core/stream_vbyte.py``: ``encode`` and
-``decode_np`` are its numpy code; ``decode_arena_block`` is the device-arena
-decode in torch, batched over ``(P, width)`` tensors.
+``decode_np`` are its numpy code; ``torch_args`` / ``decode_torch_vec`` (all
+byte lengths at once, one gather per byte slot) / ``decode_torch_scalar`` (one
+integer a step) are the torch forms of its JAX decoders, and
+``decode_arena_block`` is the device-arena decode in torch, batched over
+``(P, width)`` tensors.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .bits import ebw_np, i32
+from .bits import ebw_np, from_np, i32
 from .encoded import Encoded
 
 NAME = "stream_vbyte"
@@ -57,6 +60,53 @@ def decode_np(enc: Encoded) -> np.ndarray:
         sel = nb > j
         vals[sel] |= by[starts[sel] + j].astype(np.uint64) << np.uint64(8 * j)
     return vals.astype(np.uint32)
+
+
+def torch_args(enc: Encoded, device="cuda") -> dict:
+    """``decode_torch_vec`` / ``decode_torch_scalar`` keyword arguments: the
+    byte streams widened to one word a byte on ``device``, with slack so
+    the quadruple gather never reads past the end."""
+    control = np.concatenate([enc.control, np.zeros(1, np.uint8)]).astype(np.uint32)
+    data = np.concatenate([enc.data, np.zeros(4, np.uint8)]).astype(np.uint32)
+    return {"control": from_np(control, device), "data": from_np(data, device),
+            "n": enc.n}
+
+
+def decode_torch_vec(control: torch.Tensor, data: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """SIMD-style decode: all byte-lengths at once, one gather per byte slot."""
+    dev = data.device
+    i = torch.arange(n, device=dev)
+    code = (control.to(torch.int64)[i >> 2] >> ((i & 3) * 2)) & 3
+    nb = code + 1
+    starts = torch.cumsum(nb, 0) - nb
+    by = data.to(torch.int64)
+    val = torch.zeros(n, dtype=torch.int64, device=dev)
+    for j in range(4):
+        val = val | torch.where(j < nb, by[starts + j] << (8 * j), 0)
+    return i32(val)
+
+
+def decode_torch_scalar(control: torch.Tensor, data: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    """Sequential decode: one integer per loop step, the byte position
+    carried on the device."""
+    dev = data.device
+    ctrl = control.to(torch.int64)
+    by = data.to(torch.int64)
+    pos = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = []
+    for i in range(n):
+        nb = ((ctrl[i >> 2:(i >> 2) + 1] >> ((i & 3) * 2)) & 3) + 1
+        val = torch.index_select(by, 0, pos)
+        for j in range(1, 4):
+            val = val | torch.where(nb > j, torch.index_select(by, 0, pos + j)
+                                    << (8 * j), 0)
+        out.append(val)
+        pos = pos + nb
+    if not out:
+        return torch.zeros(0, dtype=torch.int32, device=dev)
+    return i32(torch.cat(out))
 
 
 def decode_arena_block(control: torch.Tensor, data: torch.Tensor,

@@ -40,6 +40,13 @@ from ..kernels.bitpack import LANES
 from ..kernels.intersect import bitmap_build_np
 from ..obs.trace import get_tracer
 
+# rows a work-list decode hands the codec's ``decode_block`` at once: the
+# batched decoders make several (rows, 512) int64 tensors (Group-PFD's
+# patch lanes among them), so a round's 0.4-0.8 M entries decode in fixed
+# chunks of at most this many rows, each chunk's words written into the
+# one output tensor
+DECODE_CHUNK_ROWS = 1 << 16
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The torch device an entry point runs on.  ``"cuda"`` with no card
@@ -134,10 +141,15 @@ class _ArenaGroup:
         lens = [_to_device(v[slots], dev) for v in self.lens]
         n_t, first_t, delta_t = (_to_device(c, dev) for c in
                                  (ns, self.tab["first"][slots], delta))
-        res = _decode_worklist(
-            self.arenas, offs, lens, n_t, first_t, delta_t,
-            decode=self.layout.decode_block,
-            widths=tuple(col.width for col in self.layout.columns))
+        widths = tuple(col.width for col in self.layout.columns)
+        res = torch.empty((len(slots), self.layout.out_width),
+                          dtype=torch.int32, device=dev)
+        for a in range(0, len(slots), DECODE_CHUNK_ROWS):
+            b = a + DECODE_CHUNK_ROWS
+            res[a:b] = _decode_worklist(
+                self.arenas, [o[a:b] for o in offs], [v[a:b] for v in lens],
+                n_t[a:b], first_t[a:b], delta_t[a:b],
+                decode=self.layout.decode_block, widths=widths)
         return res, ns
 
     def decode(self, items: list, out: list) -> None:

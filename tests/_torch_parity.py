@@ -63,7 +63,16 @@ def assert_encoded_equal(got, want, msg: str = "") -> None:
         assert getattr(got, f) == getattr(want, f), (msg, f)
     assert set(got.meta) == set(want.meta), msg
     for k, v in want.meta.items():
-        assert np.array_equal(np.asarray(got.meta[k]), np.asarray(v)), (msg, k)
+        assert _same_value(got.meta[k], v), (msg, k)
+
+
+def _same_value(a, b) -> bool:
+    """Equal meta values: arrays by value, lists and tuples (``bp_tpu``'s
+    ``parts``) item by item."""
+    if isinstance(b, (list, tuple)):
+        return (isinstance(a, (list, tuple)) and len(a) == len(b)
+                and all(_same_value(x, y) for x, y in zip(a, b)))
+    return np.array_equal(np.asarray(a), np.asarray(b))
 
 
 def export_state(ref_idx) -> dict:

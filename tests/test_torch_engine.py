@@ -138,6 +138,12 @@ def test_port_imports_without_jax():
         "import repro_torch.data.synth, repro_torch.obs\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "import repro_torch.kernels.intersect, repro_torch.core.bp_tpu\n"
+        "import repro_torch.core.bits, repro_torch.core.frames\n"
+        "import repro_torch.core.bp128, repro_torch.core.group_afor\n"
+        "import repro_torch.core.group_vse, repro_torch.core.group_pfd\n"
+        "import repro_torch.core.group_scheme, repro_torch.core.scalar\n"
+        "from repro_torch.core import codec\n"
+        "assert len(codec.names()) == 31\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith(('repro.', 'jax.'))]\n"
         "assert not bad, bad\n"

@@ -2,8 +2,8 @@
 the same encoded words, skip tables and impact maxima; an index carried
 across with ``from_state(export_state(ref))`` serves the same results; and
 ``DeviceArena.decode_blocks`` equals the reference's, on the corpus of
-``test_device_arena.py`` (1,500 docs) restricted to the port's three
-codecs."""
+``test_device_arena.py`` (1,500 docs), for the index's three codecs and
+the Group-PFD index."""
 
 import numpy as np
 import pytest
@@ -59,9 +59,23 @@ def test_from_state_serves_the_reference_index():
 
 
 def test_from_state_refuses_unported_codecs():
-    ref = RefIndex.build(DOCLEN, POSTINGS, codec="bp128")
-    with pytest.raises(KeyError, match="unknown codec 'bp128'"):
-        InvertedIndex.from_state(export_state(ref))
+    """``from_state`` serves a reference ``group_pfd`` index (exception
+    streams and all) as the reference serves it; a state whose codec name
+    neither package registers raises the registry's ``KeyError``."""
+    ref = RefIndex.build(DOCLEN, POSTINGS, codec="group_pfd")
+    state = export_state(ref)
+    idx = InvertedIndex.from_state(state)
+    _assert_same_index(idx, ref)
+    want = RefEngine(ref).execute(RefBatch(QUERIES, mode="and"))
+    eng = QueryEngine(idx).to_device(torch_device="cpu")
+    got = eng.execute(eng.plan(QueryBatch(QUERIES, mode="and"),
+                               placement="device"))
+    for q, a, b in zip(QUERIES, got, want):
+        np.testing.assert_array_equal(a, b, err_msg=str(q))
+    assert eng.arena.stats["blocks_host"] == 0
+    state["codec"] = "group_pfd2"
+    with pytest.raises(KeyError, match="unknown codec 'group_pfd2'"):
+        InvertedIndex.from_state(state)
 
 
 @pytest.mark.parametrize("name", CODECS)

@@ -2,8 +2,9 @@
 against the JAX package's engine and against a from-scratch rebuild of the
 live corpus, bitwise.
 
-The cases are ``tests/test_mutation.py``'s on ``group_simple`` (the port's
-long-list codec).  Every index mutation goes to a reference index and to a
+The cases are ``tests/test_mutation.py``'s, each on ``group_simple`` (the
+index's default long-list codec) and on ``group_pfd`` (exception streams
+in the arena), as the reference runs them on both.  Every index mutation goes to a reference index and to a
 port index alike; each query step runs every mode on the port's host,
 device and fused placements (``torch_device="cpu"``: every kernel wrapper
 takes its plain torch version), on the reference's three placements (its
@@ -25,7 +26,7 @@ from repro_torch.index.scores import TOP_TABLE, ScoreArena
 from test_mutation import (K, MODES, N_STEPS, QUERY_EVERY, _random_doc,
                            _random_queries, _seed_corpus)
 
-CODEC = "group_simple"
+CODECS = ("group_simple", "group_pfd")
 PLACEMENTS = ("host", "device", "fused")
 SYNC_COUNTERS = ("cand_syncs", "score_syncs", "final_syncs", "tomb_gates")
 
@@ -44,6 +45,11 @@ def _ref_engine(idx, placement: str) -> RefEngine:
     return eng
 
 
+@pytest.fixture(params=CODECS)
+def codec(request) -> str:
+    return request.param
+
+
 def _assert_same(mode: str, got: list, want: list, where: str) -> None:
     assert len(got) == len(want), where
     for i, (g, w) in enumerate(zip(got, want)):
@@ -60,10 +66,12 @@ class DualModel:
     engines (persistent across the run, as a serving process keeps them),
     and a plain-dict oracle of the live corpus."""
 
-    def __init__(self, doclen, postings, n_terms, placements=PLACEMENTS):
+    def __init__(self, doclen, postings, n_terms, codec,
+                 placements=PLACEMENTS):
         self.n_terms = n_terms
-        self.ref_idx = RefIndex.build(doclen, postings, codec=CODEC)
-        self.idx = InvertedIndex.build(doclen, postings, codec=CODEC)
+        self.codec = codec
+        self.ref_idx = RefIndex.build(doclen, postings, codec=codec)
+        self.idx = InvertedIndex.build(doclen, postings, codec=codec)
         # docid -> {term: tf} for live docs; docid -> last-set doclen
         self.live: dict = {d: {} for d in range(len(doclen))}
         self.dl: dict = {d: int(v) for d, v in enumerate(doclen)}
@@ -114,7 +122,8 @@ class DualModel:
                 tfs.append(f)
         postings = {t: (np.asarray(i, np.uint32), np.asarray(f, np.uint32))
                     for t, (i, f) in postings.items()}
-        return QueryEngine(InvertedIndex.build(doclen, postings, codec=CODEC))
+        return QueryEngine(InvertedIndex.build(doclen, postings,
+                                               codec=self.codec))
 
     def check_queries(self, queries):
         ora = self.oracle()
@@ -173,23 +182,25 @@ def _run_interleaving(model, rng, n_steps):
     model.check_queries(_random_queries(rng, model.n_terms))
 
 
-def test_stateful_mutation_differential():
+@pytest.mark.parametrize("codec,seed", [("group_simple", 0),
+                                        ("group_pfd", 1)])
+def test_stateful_mutation_differential(codec, seed):
     """More than 200 seeded insert / delete / compact / query steps; every
     query step bitwise equal to the rebuild and to the reference on every
     placement and mode, with no per-round sync."""
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     doclen, postings = _seed_corpus(rng, n_docs=400, n_terms=8)
-    model = DualModel(doclen, postings, n_terms=8)
+    model = DualModel(doclen, postings, n_terms=8, codec=codec)
     _run_interleaving(model, rng, N_STEPS)
     assert model.steps >= 200
     model.assert_zero_syncs()
 
 
-def test_delta_only_corpus_all_placements():
+def test_delta_only_corpus_all_placements(codec):
     """A corpus held entirely by the delta segment (the generation has docs
     and no terms), before and after its first compaction."""
     rng = np.random.default_rng(7)
-    model = DualModel(np.full(10, 25, np.int64), {}, n_terms=5)
+    model = DualModel(np.full(10, 25, np.int64), {}, n_terms=5, codec=codec)
     for _ in range(30):
         terms, dl = _random_doc(rng, 5)
         model.insert(int(rng.integers(0, 40)), terms, dl)
@@ -203,13 +214,13 @@ def test_delta_only_corpus_all_placements():
     model.assert_zero_syncs()
 
 
-def test_delta_only_term_beside_base_terms():
+def test_delta_only_term_beside_base_terms(codec):
     """Queries that mix generation terms with a term only the delta holds:
     the generation half is empty for AND (delta docids shadow their base
     copies) and the delta scan carries every match."""
     rng = np.random.default_rng(11)
     doclen, postings = _seed_corpus(rng, n_docs=350, n_terms=6)
-    model = DualModel(doclen, postings, n_terms=6)
+    model = DualModel(doclen, postings, n_terms=6, codec=codec)
     model.delete(7)
     for d, terms in ((351, {0: 2, 9: 1}), (12, {0: 1, 1: 3, 9: 2}),
                      (400, {9: 4}), (30, {1: 1, 9: 1})):
@@ -218,11 +229,11 @@ def test_delta_only_term_beside_base_terms():
     model.assert_zero_syncs()
 
 
-def test_tombstone_only_mutation():
+def test_tombstone_only_mutation(codec):
     """Deletes with an empty delta segment: the live-row gate alone."""
     rng = np.random.default_rng(3)
     doclen, postings = _seed_corpus(rng, n_docs=300, n_terms=6)
-    model = DualModel(doclen, postings, n_terms=6)
+    model = DualModel(doclen, postings, n_terms=6, codec=codec)
     for d in rng.choice(300, 40, replace=False).tolist():
         model.delete(int(d))
     assert not model.idx.delta and model.idx.tomb
@@ -235,13 +246,13 @@ def test_tombstone_only_mutation():
 # --------------------------------------------------------------------------- #
 
 
-def _pin_fixture():
+def _pin_fixture(codec):
     """``test_mutation``'s pinning corpus (350 docs, 6 terms) as a
     reference and a port index."""
     rng = np.random.default_rng(11)
     doclen, postings = _seed_corpus(rng, n_docs=350, n_terms=6)
-    return (rng, RefIndex.build(doclen, postings, codec=CODEC),
-            InvertedIndex.build(doclen, postings, codec=CODEC))
+    return (rng, RefIndex.build(doclen, postings, codec=codec),
+            InvertedIndex.build(doclen, postings, codec=codec))
 
 
 def _both(fn, ref_idx, idx):
@@ -250,11 +261,11 @@ def _both(fn, ref_idx, idx):
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_plan_pins_generation_across_compact(fused):
+def test_plan_pins_generation_across_compact(fused, codec):
     """A plan made before ``compact()`` keeps returning its epoch's results
     from the old generation's arena; a fresh plan on the same engine serves
     the new generation."""
-    _, ref_idx, idx = _pin_fixture()
+    _, ref_idx, idx = _pin_fixture(codec)
     eng = QueryEngine(idx).to_device(fused=fused, torch_device="cpu")
     queries = [[0, 1], [2, 3, 4], [1, 5], [0, 2]]
     plans = {m: eng.plan(QueryBatch(queries, mode=m, k=K)) for m in MODES}
@@ -286,10 +297,10 @@ def test_plan_pins_generation_across_compact(fused):
                                                         k=K))), want, m)
 
 
-def test_plan_pins_mutation_epoch_without_compact():
+def test_plan_pins_mutation_epoch_without_compact(codec):
     """Pinning is per epoch: writes after planning stay invisible to the
     plan, and a fresh plan sees them (as the reference does)."""
-    _, ref_idx, idx = _pin_fixture()
+    _, ref_idx, idx = _pin_fixture(codec)
     eng = QueryEngine(idx).to_device(fused=False, torch_device="cpu")
     ref = RefEngine(ref_idx).to_device(fused=False)
 
@@ -336,13 +347,13 @@ def _assert_same_cands(cands: dict, n_batches: int) -> None:
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_tombstone_only_ranked_superset_contract(fused):
+def test_tombstone_only_ranked_superset_contract(fused, codec):
     """Ranked top-k under tombstones, no compaction: the armed candidate
     set still holds the true top-k (results equal the rebuild), no deleted
     doc appears, and the candidate sets the one download carries, and what
     block-max pruning drops, equal the reference's (the theta cut stays
     armed through the deflated scale)."""
-    rng, ref_idx, idx = _pin_fixture()
+    rng, ref_idx, idx = _pin_fixture(codec)
     dead = sorted(int(d) for d in rng.choice(350, 60, replace=False))
     for d in dead:
         ref_idx.delete(d)
@@ -359,7 +370,7 @@ def test_tombstone_only_ranked_superset_contract(fused):
         if keep:
             postings[t] = (ids[keep], tfs[keep])
     ora = QueryEngine(InvertedIndex.build(np.asarray(idx.doclen_now()),
-                                          postings, codec=CODEC))
+                                          postings, codec=codec))
     for mode in ("or", "and_scored"):
         want = ora.execute(QueryBatch(queries, mode=mode, k=K))
         got = eng.execute(QueryBatch(queries, mode=mode, k=K))
@@ -376,15 +387,15 @@ def test_tombstone_only_ranked_superset_contract(fused):
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_tombstone_only_epoch_keeps_pruning_armed_and_exact(fused):
+def test_tombstone_only_epoch_keeps_pruning_armed_and_exact(fused, codec):
     """``test_ranked``'s rare-clustered corpus, where block-max pruning
     fires, under deletes that include the top-table docs of the query
     terms: the port prunes the blocks the reference prunes (deflated
     thresholds, ``theta0_live``), downloads the same candidates, and every
     result equals the rebuild of the live corpus."""
     from test_ranked import DOCLEN, N_DOCS, POSTINGS
-    ref_idx = RefIndex.build(DOCLEN, POSTINGS, codec=CODEC)
-    idx = InvertedIndex.build(DOCLEN, POSTINGS, codec=CODEC)
+    ref_idx = RefIndex.build(DOCLEN, POSTINGS, codec=codec)
+    idx = InvertedIndex.build(DOCLEN, POSTINGS, codec=codec)
     eng = QueryEngine(idx).to_device(fused=fused, torch_device="cpu")
     sa = eng.arena.ensure_scores().scores
     rng = np.random.default_rng(31)
@@ -401,7 +412,7 @@ def test_tombstone_only_epoch_keeps_pruning_armed_and_exact(fused):
                            if d not in dead], np.int64)
         if len(keep):
             live[t] = (ids[keep], tfs[keep])
-    rebuilt = QueryEngine(InvertedIndex.build(DOCLEN, live, codec=CODEC))
+    rebuilt = QueryEngine(InvertedIndex.build(DOCLEN, live, codec=codec))
     cands = {"port": _capture_cands(eng), "ref": _capture_cands(ref)}
     prunes = {"port": [], "ref": []}
     for name, e in (("port", eng), ("ref", ref)):
@@ -444,11 +455,11 @@ def test_tombstone_only_epoch_keeps_pruning_armed_and_exact(fused):
 # --------------------------------------------------------------------------- #
 
 
-def test_caches_keyed_by_generation_not_stale_after_compact():
+def test_caches_keyed_by_generation_not_stale_after_compact(codec):
     """After a ``compact()`` that rewrites a term's first block, a warm
     engine serves the new postings: every block-cache entry carries its gid
     and every score-cache entry its epoch."""
-    _, ref_idx, idx = _pin_fixture()
+    _, ref_idx, idx = _pin_fixture(codec)
     eng = QueryEngine(idx)
     queries = [[0, 1], [0], [1, 2]]
     eng.execute(QueryBatch(queries, mode="and"))
@@ -472,10 +483,10 @@ def test_caches_keyed_by_generation_not_stale_after_compact():
     assert any(k[1] == gid0 + 1 for k in eng.score_cache.keys())
 
 
-def test_score_cache_keyed_by_tombstone_epoch():
+def test_score_cache_keyed_by_tombstone_epoch(codec):
     """Score vectors depend on live df and avdl, so one tombstone without
     compaction misses the old score-cache entry."""
-    _, ref_idx, idx = _pin_fixture()
+    _, ref_idx, idx = _pin_fixture(codec)
     eng = QueryEngine(idx)
     r0 = eng.or_query([0, 1], k=K)
     d = int(idx.gen.decode_term(0)[0][0])
@@ -486,11 +497,11 @@ def test_score_cache_keyed_by_tombstone_epoch():
     assert r1 != r0
 
 
-def test_theta0_live_matches_reference():
+def test_theta0_live_matches_reference(codec):
     """``ScoreArena.theta0_live`` against the reference's on a table whose
     top ids are partly dead: some terms keep k live top codes, one loses so
     many that its k-th survivor falls off the table (it then gives 0)."""
-    rng, ref_idx, idx = _pin_fixture()
+    rng, ref_idx, idx = _pin_fixture(codec)
     sa = ScoreArena(idx.gen, device="cpu")
     ref_sa = RefScoreArena(ref_idx.gen)
     assert sa.term_tops.keys() == ref_sa.term_tops.keys()

@@ -1,7 +1,10 @@
 """The ranked slice as a whole: the port's ``plan``/``execute`` in modes
 ``or`` and ``and_scored`` on the host, device and fused placements against
 the JAX package's engine, on the corpora of ``tests/test_ranked.py`` built
-with ``group_simple`` (``stream_vbyte`` and ``dense_bitmap`` beneath it);
+with ``group_simple`` (``stream_vbyte`` and ``dense_bitmap`` beneath it),
+and with ``stream_vbyte`` and ``group_pfd`` as the base codec (its
+``RANKED_CODECS`` cases: placement parity and the float oracle, the
+heavy-tail exception corpus, the dense-bitmap corpus, eviction pressure);
 the accumulator, membership and candidate bitmaps after the round loop; the
 ranked counters; and the quantized score arena.
 
@@ -26,8 +29,9 @@ from repro_torch.index.invindex import InvertedIndex
 from repro_torch.kernels import topk
 
 from _torch_parity import assert_u32_equal
-from test_ranked import (DENSE_QUERIES, DOCLEN, HDOCLEN, HPOSTINGS, POSTINGS,
-                         QUERIES, TDOCLEN, TPOSTINGS, _dense_corpus)
+from test_ranked import (DENSE_QUERIES, DOCLEN, HDOCLEN, HPOSTINGS, N_DOCS,
+                         POSTINGS, QUERIES, TDOCLEN, TPOSTINGS, _dense_corpus,
+                         brute_or_topk)
 
 # the rare-clustered + common shapes of test_ranked's pruning and
 # adaptive-theta cases: block-max pruning fires on them
@@ -223,3 +227,73 @@ def test_host_scoring_helpers_match_reference():
         want = ref._score_docs_blockwise(q, docs, 8)
         assert eng._score_docs_blockwise(q, docs, 8) == want
         assert eng._score_docs(q, docs, 8) == want
+
+
+# --------------------------------------------------------------------------- #
+# the other base codecs of test_ranked's RANKED_CODECS
+# --------------------------------------------------------------------------- #
+
+BASE_CODECS = ("stream_vbyte", "group_pfd")
+# name -> (doclen, postings, queries, k), test_ranked's for its
+# RANKED_CODECS cases
+BASE_CORPORA = {
+    "default": (DOCLEN, POSTINGS, QUERIES, 7),
+    "heavy": (HDOCLEN, HPOSTINGS, QUERIES, 9),
+    "dense": (*_dense_corpus(), DENSE_QUERIES, 7),
+}
+
+
+@pytest.mark.parametrize("corpus", sorted(BASE_CORPORA))
+@pytest.mark.parametrize("name", BASE_CODECS)
+def test_ranked_base_codec_matches_reference(name, corpus):
+    """Both ranked modes on the host, device and fused placements equal the
+    reference's, with its counters; on the default and dense corpora the
+    ``or`` results also equal a brute-force float oracle; the heavy corpus
+    gives ``group_pfd`` exception streams, the dense one bitmap blocks."""
+    doclen, postings, queries, k = BASE_CORPORA[corpus]
+    ref_idx = RefIndex.build(doclen, postings, codec=name)
+    idx = InvertedIndex.build(doclen, postings, codec=name)
+    if corpus == "heavy" and name == "group_pfd":
+        assert any(encg.exceptions is not None and len(encg.exceptions)
+                   for tp in idx.terms.values()
+                   for _, encg, _ in tp.blocks), "no exception streams"
+    for mode in MODES:
+        for placement in PLACEMENTS:
+            ref, eng = RefEngine(ref_idx), QueryEngine(idx)
+            if placement != "host":
+                ref.to_device(fused=placement == "fused")
+                eng.to_device(fused=placement == "fused", torch_device="cpu")
+            want = ref.execute(ref.plan(RefBatch(queries, mode=mode, k=k),
+                                        placement=placement))
+            got = eng.execute(eng.plan(QueryBatch(queries, mode=mode, k=k),
+                                       placement=placement))
+            assert got == want, (name, corpus, mode, placement)
+            if placement == "host":
+                continue
+            for c in RANKED_COUNTERS:
+                assert eng.dev_stats[c] == ref.dev_stats[c], (placement, c)
+            assert eng.dev_stats["score_syncs"] == 0
+            assert eng.dev_stats["final_syncs"] == 1
+            assert eng.arena.stats["blocks_host"] == 0
+            if corpus == "dense":
+                assert eng.dev_stats["blocks_dense"] > 0
+        if mode == "or" and corpus != "heavy":
+            n_docs = N_DOCS if corpus == "default" else len(doclen)
+            for q, res in zip(queries, got):
+                oracle = brute_or_topk(doclen, postings, n_docs, q, k)
+                assert [(d, pytest.approx(s_, rel=1e-12))
+                        for d, s_ in oracle] == res, q
+
+
+def test_ranked_eviction_pressure_stays_exact():
+    """``group_pfd`` on the heavy corpus with a two-block cache and one
+    score term: evictions, and the results equal the reference's."""
+    ref_idx = RefIndex.build(HDOCLEN, HPOSTINGS, codec="group_pfd")
+    idx = InvertedIndex.build(HDOCLEN, HPOSTINGS, codec="group_pfd")
+    tiny = QueryEngine(idx, cache_blocks=2, cache_score_terms=1).to_device(
+        torch_device="cpu")
+    for mode in MODES:
+        want = RefEngine(ref_idx).execute(RefBatch(QUERIES, mode=mode, k=6))
+        got = tiny.execute(tiny.plan(QueryBatch(QUERIES, mode=mode, k=6)))
+        assert got == want, mode
+    assert tiny.cache.evictions > 0
