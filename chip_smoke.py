@@ -4,11 +4,12 @@
 Drives the port's main paths, fused device-resident AND serving, ranked
 BM25 top-k serving (modes ``or`` and ``and_scored``), serving under
 mutation epochs, the stream codec (encode and decode of every posting
-list) and the paper's Group codecs (a Group-PFD index served on the
+list), the paper's Group codecs (a Group-PFD index served on the
 ``device`` placement, and the decode table of every codec with a torch
-decoder), through the entry points a user calls, at the real document
-count of the TREC GOV2 collection, and holds every CUDA kernel of the paths
-against its plain torch version on the card:
+decoder), doc-range sharded serving and the ``IndexServer`` serving loop,
+through the entry points a user calls, at the real document count of the
+TREC GOV2 collection, and holds every CUDA kernel of the paths against its
+plain torch version on the card:
 
   card       the card, its power limit, torch / CUDA / nvcc versions
   build      nvcc builds every kernels/csrc/*.cu and tools/and_round_forms.cu
@@ -35,7 +36,9 @@ against its plain torch version on the card:
              batch timed with every launch count set to 0 just before, and
              a third fresh batch under the fenced span tracer.  Every result
              equals a numpy oracle (a dense float64 accumulator per query,
-             term scores added in query-term order, ``topk_select``'s rule);
+             term scores added in query-term order, ``topk_select``'s rule;
+             the ``or`` oracles computed by 4 worker processes, each making
+             the corpus from --seed, while the main path's index builds);
              final_syncs == 1, score_syncs == cand_syncs == 0, and kernels
              B1, B2 (both forms) and B3 launched, B4 too where the batch
              scored dense-bitmap blocks, packed and at most once a round.
@@ -75,7 +78,9 @@ against its plain torch version on the card:
              ``np.intersect1d``; B6-B10 launched.  Then the whole-corpus
              decode rate, fused and two-pass, in postings per second: CUDA
              events around the 200 lists, warm, host enqueue included.
-  codecs     with every earlier engine and arena freed:
+  codecs     with every earlier engine and arena freed (the main path's
+             unmutated generation is kept on the host only, for the
+             sharded and serve phases):
              ``InvertedIndex.build(..., codec="group_pfd")`` on the same
              postings (timed; blocks with exceptions counted, > 0), then
              ``QueryEngine(idx).to_device(fused=True)`` and
@@ -98,6 +103,38 @@ against its plain torch version on the card:
              one timed run: a run is 4,096+ loop steps) beside ``vec`` on
              the first 4,096 quadruples of the longest list; the stream
              codec's fused decode over the same lists.
+  sharded    the main path's unmutated ``group_simple`` generation (its
+             host tables; no unsharded arena on the card) behind a fresh
+             handle: ``ShardSpec.derive`` (4 shards, bounds printed),
+             then ``QueryEngine(...).to_device(fused=True, shards=4,
+             mesh=serving_mesh(4))`` (one card a shard where the machine
+             has 4, else logical shards on one card; printed), timed with
+             ``shard_generation``, the shards' arenas and ``ensure_scores``
+             apart.  The main path's fresh batches (256 queries) in ``and``,
+             ``or`` and ``and_scored`` (k=10) on ``fused`` and ``and`` on
+             ``device``, counts set to 0 just before each: every result
+             equal to the main path's (its numpy oracles); on the shard
+             engines cand_syncs == score_syncs == 0; merge_syncs == 1 and
+             collective_bytes == shards x 256 x 8 a ranked batch (0 for
+             ``and``), shard_final_syncs == the non-empty shards a batch;
+             B1 (fused), B2, and for the ranked batches B2 add, B3 and B4
+             (where dense blocks scored) launched.  The traced batches of
+             the three modes on ``fused`` under the fenced span tracer:
+             ``sharded/merge``, per shard ``ranked/round``, ``kernel/topk``
+             and ``kernel/extract_ids``.  Peak device memory.
+  serve      an ``IndexServer`` (max_batch 16, max_wait_ms 4, placement
+             ``fused``, warm-up in ``and`` and ``or``) in front of a fresh
+             unsharded engine over the same generation (its arenas built
+             again, timed; the score arena in the warm-up): a seeded open-loop
+             Poisson stream at 20 requests/s of the main path's 256 fresh
+             ``and`` queries and 64 of its fresh ``or`` queries (k=10),
+             shuffled, each with a 60,000 ms deadline, counts set to 0
+             after the warm-up; shed_rate == 0, every served result equal
+             to the main path's, the ``serve/*`` spans present, B1, B2, B2
+             add and B3 launched; warm-up, p50/p99/p999, goodput, mean
+             batch and the batch-size histogram printed.  Then ``python -m
+             repro_torch.launch.serve --index --smoke`` in a subprocess,
+             exit 0.
   kernels    B1 (every bit-width bucket), B5, B2 (both forms), B3, B4 and
              B6-B10 on inputs made from --seed at the largest shape any main
              path gave each kernel (B1 probed against a random bitmap and
@@ -155,6 +192,7 @@ import concurrent.futures
 import contextlib
 import gc
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -176,6 +214,12 @@ TABLE_STEP = 10                 # decode table: every tenth list by df
 TABLE_RUNS = 5                  # decode table: timed passes (after one)
 SCALAR_QUADS = 4096             # decode table: the scalar decode's input
 ENCODE_WORKERS = 6              # processes encoding the decode table's lists
+ORACLE_WORKERS = 4              # processes computing the ranked `or` oracles
+SHARDS = 4                      # doc-range shards of the sharded phase
+SERVE_AND = 256                 # serve phase: `and` requests of the stream
+SERVE_OR = 64                   # serve phase: `or` (k=10) requests
+SERVE_RATE = 20.0               # serve phase: Poisson arrivals per second
+SERVE_DEADLINE_MS = 60_000.0    # serve phase: every request's budget
 
 
 def log(msg: str) -> None:
@@ -297,6 +341,37 @@ def _encode_task(name: str, i: int):
     t0 = time.perf_counter()
     enc = codec_lib.get(name).encode(_TABLE_LISTS[i])
     return enc, time.perf_counter() - t0
+
+
+_ORACLE_STATE: dict = {}
+
+
+def _oracle_init(src: str, seed: int, n_docs: int) -> None:
+    """`or` oracle worker set-up: the same corpus as the main process (made
+    from the seed), the BM25 impacts of the query terms (the main
+    process's formula, on the same arrays) and one accumulator pair."""
+    sys.path.insert(0, src)
+    import numpy as np
+    from repro_torch.data import synth
+    from repro_torch.index.scores import bm25_scores
+    doclen, postings = synth.make_corpus("gov2", seed=seed, n_docs=n_docs)
+    avdl = float(np.asarray(doclen).mean())
+    _ORACLE_STATE["sc"] = {
+        t: (postings[t][0], bm25_scores(postings[t][1],
+                                        doclen[postings[t][0]],
+                                        len(postings[t][0]), len(doclen),
+                                        avdl))
+        for t in sorted(postings)[:QUERY_TERMS]}
+    _ORACLE_STATE["buf"] = (np.zeros(len(doclen)),
+                            np.zeros(len(doclen), bool))
+
+
+def _oracle_or_task(queries: list) -> list:
+    """`or` oracle worker task: :func:`oracle_or` of each query."""
+    import numpy as np
+    from repro_torch.index.scores import topk_select
+    return [oracle_or(_ORACLE_STATE["sc"], q, RANKED_K, _ORACLE_STATE["buf"],
+                      np, topk_select) for q in queries]
 
 
 def bit_share(words) -> float:
@@ -728,7 +803,6 @@ def codecs_phase(doclen, postings, fresh, src, smi, np, torch) -> dict:
     the ``device`` placement (and ``fused`` ``and``) against the main
     path's oracles, then the decode table of every codec that declares
     ``Codec.torch``.  Raises on any failed check; returns the figures."""
-    import multiprocessing
     from repro_torch import kernels as K
     from repro_torch.core import codec as codec_lib
     from repro_torch.core.bits import ebw_np, from_np, to_np
@@ -931,6 +1005,290 @@ def codecs_phase(doclen, postings, fresh, src, smi, np, torch) -> dict:
     return out
 
 
+
+@contextlib.contextmanager
+def timed_methods(targets: dict):
+    """Wrap ``{name: (owner, attribute)}`` with :func:`timed_calls` while
+    the block runs; yields {name: [seconds]}."""
+    totals = {name: [0.0] for name in targets}
+    saved = {name: getattr(owner, attr) for name, (owner, attr)
+             in targets.items()}
+    for name, (owner, attr) in targets.items():
+        setattr(owner, attr, timed_calls(saved[name], totals[name]))
+    try:
+        yield totals
+    finally:
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, saved[name])
+
+
+def sharded_phase(gen, fresh, smi, np, torch) -> dict:
+    """The sharded phase (module docstring): the main path's unmutated
+    ``group_simple`` generation split into SHARDS doc-range shards, the
+    main path's fresh batches served over them and held against the main
+    path's oracles.  Raises on any failed check; returns the figures."""
+    from repro_torch import kernels as K
+    from repro_torch.index import shards as shards_mod
+    from repro_torch.index.device import DeviceArena
+    from repro_torch.index.engine import QueryBatch, QueryEngine
+    from repro_torch.index.invindex import Generation, InvertedIndex
+    from repro_torch.launch.mesh import serving_mesh
+    from repro_torch.obs.trace import enable_tracing
+
+    log(f"== sharded: {SHARDS} doc-range shards of the main path's index")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = serving_mesh(SHARDS)
+    out = {"shards": SHARDS, "placement": "mesh" if mesh else "logical",
+           "batches": {}, "traced": {}}
+    log(f"placement: {out['placement']} ("
+        + (f"one card a shard: {[str(d) for d in mesh]}" if mesh else
+           f"{torch.cuda.device_count()} card(s): the {SHARDS} shards run "
+           f"logically on cuda:0") + ")")
+    t0 = time.perf_counter()
+    spec = shards_mod.ShardSpec.derive(gen, SHARDS)
+    out["derive_s"] = time.perf_counter() - t0
+    out["bounds"] = list(spec.bounds)
+    log(f"ShardSpec.derive: bounds {list(spec.bounds)} in "
+        f"{out['derive_s']:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_methods({
+            "shard_generation": (shards_mod, "shard_generation"),
+            "arenas": (Generation, "to_device"),
+            "ensure_scores": (DeviceArena, "ensure_scores")}) as took:
+        eng = QueryEngine(InvertedIndex(gen=gen), cache_blocks=1 << 22
+                          ).to_device(fused=True, shards=SHARDS, mesh=mesh)
+        torch.cuda.synchronize()
+    out["to_device_s"] = time.perf_counter() - t0
+    out.update({f"{k}_s": v[0] for k, v in took.items()})
+    got_spec, engs, _ = eng._shard_engines(eng._ctx_now())
+    if got_spec.bounds != spec.bounds:
+        raise AssertionError(f"engine bounds {got_spec.bounds} != derived "
+                             f"{spec.bounds}")
+    live = [e for e in engs if e is not None]
+    out["shard_docs"] = [hi - lo for lo, hi in spec.ranges()]
+    out["shard_blocks"] = [sum(len(tp.blocks) for tp in e.idx.terms.values())
+                           for e in live]
+    log(f"to_device(fused=True, shards={SHARDS}): {out['to_device_s']:.2f} s "
+        f"(shard_generation {out['shard_generation_s']:.2f} s, the shards' "
+        f"arenas {out['arenas_s']:.2f} s, ensure_scores "
+        f"{out['ensure_scores_s']:.2f} s); {len(live)} shards, docs "
+        f"{out['shard_docs']}, blocks {out['shard_blocks']}")
+
+    def run(mode, placement, queries, want):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        with contextlib.ExitStack() as st:
+            parent = st.enter_context(eng.metrics.scoped())
+            subs = [st.enter_context(e.metrics.scoped()) for e in live]
+            t0 = time.perf_counter()
+            res = eng.execute(eng.plan(QueryBatch(queries, mode=mode,
+                                                  k=RANKED_K),
+                                       placement=placement))
+            dt = time.perf_counter() - t0
+        for j, (a, b) in enumerate(zip(res, want)):
+            if not (np.array_equal(a, b) if mode == "and" else a == b):
+                raise AssertionError(f"sharded {mode}/{placement}, query "
+                                     f"{j}: differs from the main path's "
+                                     f"result")
+        st_ = {n: parent.delta(n) for n in ("merge_syncs", "collective_bytes",
+                                            "shard_final_syncs")}
+        for n in ("cand_syncs", "score_syncs", "final_syncs",
+                  "blocks_dense", "score_rounds", "resident_rounds"):
+            st_[n] = sum(s.delta(n) for s in subs)
+        return res, dt, st_, dict(K.LAUNCHES)
+
+    launches_all = {}
+    for mode, placement in (("and", "fused"), ("or", "fused"),
+                            ("and_scored", "fused"), ("and", "device")):
+        what = f"{mode}/{placement}"
+        (queries, want), _ = fresh[mode]
+        res, dt, stats, launches = run(mode, placement, queries, want)
+        ranked = mode != "and"
+        need = {"merge_syncs": int(ranked),
+                "collective_bytes": len(live) * len(queries) * 8 * ranked,
+                "shard_final_syncs": len(live), "cand_syncs": 0,
+                "score_syncs": 0}
+        bad = {n: (stats[n], v) for n, v in need.items() if stats[n] != v}
+        if bad:
+            raise AssertionError(f"sharded {what} counters (got, want): {bad}")
+        want_k = ["B2"] + (["B1"] if placement == "fused" else []) + (
+            ["B2add", "B3"] if ranked else []) + (
+            ["B4"] if ranked and stats["blocks_dense"] > 0 else [])
+        missing = [k for k in want_k if launches.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"sharded {what} did not launch {missing}: "
+                                 f"{launches}")
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+        out["batches"][what] = {"qps": len(queries) / dt, "seconds": dt,
+                                "stats": stats, "launches": launches}
+        log(f"sharded {what}: {len(queries)} queries in {dt:.4f} s = "
+            f"{len(queries) / dt:.2f} qps, equal to the main path's "
+            f"results; counters {stats}; launches {launches}")
+        del res
+    for k in ("B1", "B2", "B2add", "B3", "B4"):
+        if launches_all.get(k, 0) <= 0:
+            raise AssertionError(f"the sharded phase never launched {k}")
+    out["launches"] = launches_all
+
+    for mode in ("and", "or", "and_scored"):
+        _, (queries, want) = fresh[mode]
+        tracer = enable_tracing(True, fenced=True)
+        tracer.clear()
+        try:
+            res, dt, _, _ = run(mode, "fused", queries, want)
+        finally:
+            enable_tracing(False)
+        per = {}
+        for sp in tracer.spans():
+            key = (sp.name if sp.name in ("engine/execute", "engine/plan",
+                                          "sharded/merge", "ranked/rescore")
+                   else f"{sp.name}@{sp.lane}")
+            per.setdefault(key, []).append(sp.dur * 1e3)
+        tracer.clear()
+        out["traced"][mode] = {"seconds": dt, "spans_ms": {
+            k: {"n": len(v), "ms": sum(v), "calls_ms": v}
+            for k, v in per.items()}}
+        log(f"sharded {mode}/fused, fenced spans of another fresh batch "
+            f"({dt:.4f} s):")
+        for k, v in sorted(per.items(), key=lambda kv: -sum(kv[1])):
+            calls = (" [" + ", ".join(f"{x:.2f}" for x in v) + "]"
+                     if k.startswith(("kernel/topk", "kernel/extract_ids"))
+                     else "")
+            log(f"  {k:32s} x{len(v):<3d} {sum(v):10.2f} ms{calls}")
+        del res
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"sharded max_memory_allocated {out['peak_bytes']} bytes "
+        f"({out['peak_bytes'] / 2**30:.2f} GiB) over the shard build and "
+        f"the 7 batches; {smi}")
+    del eng, engs, live
+    gen.__dict__.pop("_shard_serving", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_phase(gen, fresh, root, seed, smi, np, torch) -> dict:
+    """The serve phase (module docstring): an ``IndexServer`` in front of
+    the unsharded ``fused`` engine over the main path's generation, a
+    seeded open-loop Poisson stream of the main path's queries, every
+    served result held against the main path's oracle; then the port's
+    ``launch.serve --index --smoke`` in a subprocess.  Raises on any failed
+    check; returns the figures."""
+    import asyncio
+    from repro_torch import kernels as K
+    from repro_torch.index.engine import QueryEngine
+    from repro_torch.index.invindex import InvertedIndex
+    from repro_torch.index.serve import (IndexServer, Rejected, Request,
+                                         ServeConfig, drive_open_loop,
+                                         poisson_offsets)
+    from repro_torch.obs.trace import trace_coverage
+
+    log(f"== serve: IndexServer, {SERVE_AND} `and` + {SERVE_OR} `or` "
+        f"requests, Poisson at {SERVE_RATE} requests/s")
+    (and_q, and_want), _ = fresh["and"]
+    (or_q, or_want), _ = fresh["or"]
+    items = ([("and", q, w) for q, w in zip(and_q[:SERVE_AND],
+                                            and_want[:SERVE_AND])]
+             + [("or", q, w) for q, w in zip(or_q[:SERVE_OR],
+                                             or_want[:SERVE_OR])])
+    order = np.random.default_rng(seed + 11).permutation(len(items))
+    items = [items[i] for i in order]
+    reqs = [Request(list(q), mode=m, k=RANKED_K,
+                    deadline_ms=SERVE_DEADLINE_MS) for m, q, _ in items]
+    offsets = poisson_offsets(len(reqs), SERVE_RATE, seed=seed + 13)
+    t0 = time.perf_counter()
+    eng = QueryEngine(InvertedIndex(gen=gen), cache_blocks=1 << 22
+                      ).to_device(fused=True)
+    torch.cuda.synchronize()
+    out = {"to_device_s": time.perf_counter() - t0}
+    log(f"unsharded arenas rebuilt: to_device(fused=True) "
+        f"{out['to_device_s']:.2f} s (the score arena follows in the "
+        f"server's warm-up)")
+    cfg = ServeConfig(max_batch=16, max_wait_ms=4.0, placement="fused",
+                      default_deadline_ms=SERVE_DEADLINE_MS,
+                      queue_cap=max(1024, len(reqs)),
+                      warm_modes=("and", "or"))
+    server = IndexServer(eng, cfg)
+    launches = {}
+
+    async def go():
+        await server.start()
+        K.reset_launches()
+        try:
+            return await drive_open_loop(server, reqs, offsets)
+        finally:
+            await server.stop()
+            launches.update(K.LAUNCHES)
+
+    t0 = time.perf_counter()
+    results = asyncio.run(go())
+    out["wall_s"] = time.perf_counter() - t0
+    stats = server.stats
+    snap = stats.snapshot()
+    for j, ((mode, q, want), got) in enumerate(zip(items, results)):
+        if isinstance(got, Rejected):
+            raise AssertionError(f"serve: request {j} ({mode} {q}) rejected: "
+                                 f"{got}")
+        if not (np.array_equal(got, want) if mode == "and" else got == want):
+            raise AssertionError(f"serve: request {j} ({mode} {q}) differs "
+                                 f"from the main path's result")
+    if snap["shed_rate"] != 0 or snap["served"] != len(reqs):
+        raise AssertionError(f"serve: shed_rate {snap['shed_rate']}, served "
+                             f"{snap['served']} of {len(reqs)}")
+    names = {s.name for s in stats.tracer.spans()}
+    need = {"serve/request", "serve/close", "serve/batch", "serve/plan",
+            "serve/execute", "serve/deliver"}
+    if not need <= names:
+        raise AssertionError(f"serve: spans missing {sorted(need - names)}")
+    missing = [k for k in ("B1", "B2", "B2add", "B3")
+               if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"serve: the stream did not launch {missing}: "
+                             f"{launches}")
+    cov = trace_coverage(stats.tracer.spans())
+    lat = snap["latency_ms"]
+    hist = {p: dict(sorted(h.items())) for p, h in snap["batch_hist"].items()}
+    out.update({"requests": len(reqs), "served": snap["served"],
+                "shed_rate": snap["shed_rate"], "warmup_s": snap["warmup_s"],
+                "latency_ms": lat, "goodput_qps": snap["goodput_qps"],
+                "on_time_frac": snap["on_time_frac"],
+                "stream_wall_s": snap["wall_s"],
+                "mean_batch": snap["mean_batch"],
+                "n_batches": snap["n_batches"], "batch_hist": hist,
+                "launches": launches, "trace_coverage": cov})
+    log(f"served {snap['served']}/{len(reqs)} (shed_rate "
+        f"{snap['shed_rate']}), every result equal to the main path's; "
+        f"warm-up {snap['warmup_s']:.2f} s; latency ms p50 "
+        f"{lat['p50']:.2f} p99 {lat['p99']:.2f} p999 {lat['p999']:.2f} "
+        f"(mean {lat['mean']:.2f}, max {lat['max']:.2f}); goodput "
+        f"{snap['goodput_qps']:.2f} requests/s over {snap['wall_s']:.2f} s; "
+        f"{snap['n_batches']} batches, mean {snap['mean_batch']:.2f}, "
+        f"sizes {hist}; batch trace coverage {cov:.3f}; launches "
+        f"{launches}; {smi}")
+    del eng, server, results
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--index", "--smoke"], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    out["launch_serve_s"] = time.perf_counter() - t0
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-4:]
+    for line in tail:
+        log(f"  launch.serve | {line}")
+    if proc.returncode != 0 or "index serve smoke ok" not in proc.stdout:
+        raise AssertionError(f"python -m repro_torch.launch.serve --index "
+                             f"--smoke exited {proc.returncode}")
+    log(f"python -m repro_torch.launch.serve --index --smoke: exit 0 in "
+        f"{out['launch_serve_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -954,7 +1312,7 @@ def main() -> int:
     from repro_torch.data import synth
     from repro_torch.index.engine import QueryBatch, QueryEngine
     from repro_torch import kernels as K
-    from repro_torch.index.invindex import InvertedIndex
+    from repro_torch.index.invindex import Generation, InvertedIndex
     from repro_torch.index.scores import bm25_scores, topk_select
     from repro_torch.core.bits import ebw_np, from_np, to_np
     from repro_torch.core.dgap import dgap_encode_np
@@ -1007,12 +1365,29 @@ def main() -> int:
     log("== main path: fused device-resident AND")
     if args.n_docs != GOV2_DOCS:
         log(f"reduced: n_docs={args.n_docs} of GOV2's {GOV2_DOCS}")
+    # the ranked path's `or` oracles (a dense pass over every doc a query)
+    # are computed by worker processes, each making the same corpus from
+    # the seed, while the index builds; the batches start after them
+    oracle_pool = concurrent.futures.ProcessPoolExecutor(
+        ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_oracle_init, initargs=(src, args.seed, args.n_docs))
     t0 = time.perf_counter()
     doclen, postings = synth.make_corpus("gov2", seed=args.seed,
                                          n_docs=args.n_docs)
     n_post = sum(len(v[0]) for v in postings.values())
     log(f"corpus: {args.n_docs} docs, {len(postings)} terms, {n_post} "
         f"postings in {time.perf_counter() - t0:.2f} s")
+    terms = sorted(postings)
+    rrng = np.random.default_rng(args.seed + 5)
+    # three batches a ranked mode (warm-up, timed, traced), drawn in the
+    # order the ranked path serves them
+    ranked_q = {m: [[rrng.choice(terms[:QUERY_TERMS],
+                                 size=rrng.integers(2, 4),
+                                 replace=False).tolist()
+                     for _ in range(QUERIES)] for _ in range(3)]
+                for m in ("or", "and_scored")}
+    or_jobs = [[oracle_pool.submit(_oracle_or_task, qs[i:i + 32])
+                for i in range(0, len(qs), 32)] for qs in ranked_q["or"]]
     t0 = time.perf_counter()
     idx = InvertedIndex.build(doclen, postings)
     n_blocks = sum(len(tp.blocks) for tp in idx.terms.values())
@@ -1027,7 +1402,6 @@ def main() -> int:
         f"{ {bw: len(pk['n']) for bw, pk in ar._pk.items()} }")
 
     rng = np.random.default_rng(args.seed + 3)
-    terms = sorted(postings)
 
     def draw_batch():
         """QUERIES AND queries of 2-3 terms from the 120 most frequent, with
@@ -1052,6 +1426,12 @@ def main() -> int:
     (warm_q, warm_want), (queries, want), (traced_q, traced_want) = (
         draw_batch(), draw_batch(), draw_batch())
     log(f"numpy oracle, 3 batches: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for jobs in or_jobs:
+        concurrent.futures.wait(jobs)
+    oracle_pool.shutdown()
+    log(f"the ranked path's `or` oracles ({ORACLE_WORKERS} worker processes, "
+        f"beside the build) done; waited {time.perf_counter() - t0:.2f} s")
     # each AND batch's largest B1 call per bit width and largest B2 bits
     # call per round kind, kept from the warm-up batches for the kernel phase
     and_caps = {"and": {}, "and_scored": {}}
@@ -1168,18 +1548,14 @@ def main() -> int:
                    bm25_scores(postings[t][1], doclen[postings[t][0]],
                                len(postings[t][0]), len(doclen), avdl))
                for t in terms[:QUERY_TERMS]}
-    buf = (np.zeros(len(doclen)), np.zeros(len(doclen), bool))
     log(f"oracle term scores: {time.perf_counter() - t0:.2f} s")
-    rrng = np.random.default_rng(args.seed + 5)
 
-    def draw_ranked(mode):
-        """QUERIES ranked queries shaped like the AND batches, with the
-        oracle's answers."""
-        qs = [rrng.choice(terms[:QUERY_TERMS], size=rrng.integers(2, 4),
-                          replace=False).tolist() for _ in range(QUERIES)]
+    def draw_ranked(mode, i):
+        """Batch ``i`` of QUERIES ranked queries shaped like the AND
+        batches, with the oracle's answers."""
+        qs = ranked_q[mode][i]
         if mode == "or":
-            want = [oracle_or(term_sc, q, RANKED_K, buf, np, topk_select)
-                    for q in qs]
+            want = [r for f in or_jobs[i] for r in f.result()]
         else:
             want = [oracle_and_scored(postings, term_sc, q, RANKED_K, np,
                                       topk_select) for q in qs]
@@ -1206,7 +1582,7 @@ def main() -> int:
     for mode in ("or", "and_scored"):
         t0 = time.perf_counter()
         (warm_q, warm_want), (rq, rwant), (traced_q, traced_want) = (
-            draw_ranked(mode), draw_ranked(mode), draw_ranked(mode))
+            draw_ranked(mode, 0), draw_ranked(mode, 1), draw_ranked(mode, 2))
         log(f"{mode}: numpy oracle, 3 batches: "
             f"{time.perf_counter() - t0:.2f} s")
         torch.cuda.reset_peak_memory_stats()
@@ -1310,12 +1686,18 @@ def main() -> int:
     ranked_launches = {k: {m: v["launches"][k] for m, v in ranked.items()}
                        for k in ("B1", "B2", "B2add", "B3", "B4")}
     n_docs = idx.n_docs
-    del eng, ar, sa, again, legacy, term_sc, buf
+    del eng, ar, sa, again, legacy, term_sc, or_jobs
     gc.collect()        # the main engine's caches go; its arenas stay on idx
     torch.cuda.empty_cache()
 
     # ---- mutation epochs -------------------------------------------------- #
     phase_done("ranked path")
+    # the unmutated generation's host tables, kept for the shard and serve
+    # phases; a fresh handle, so its device arenas stay with idx and go
+    # when the mutation phase compacts it away
+    g = idx.gen
+    gen0 = Generation(g.codec, g.terms, g.n_docs, g.doclen, g.gid)
+    del g
     mut = mutation_phase(idx, doclen, postings, terms, args.seed, np, torch)
     mcaps = mut.pop("captured")
     del idx
@@ -1417,12 +1799,23 @@ def main() -> int:
     # ---- codecs ----------------------------------------------------------- #
     phase_done("stream path")
     codecs = codecs_phase(doclen, postings, fresh, src, smi, np, torch)
-    del postings, fresh
+    del postings
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- doc-range shards ------------------------------------------------- #
+    phase_done("codecs")
+    sharded = sharded_phase(gen0, fresh, smi, np, torch)
+
+    # ---- serving loop ----------------------------------------------------- #
+    phase_done("sharded")
+    serve = serve_phase(gen0, fresh, root, args.seed, smi, np, torch)
+    del fresh, gen0
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---- kernels ---------------------------------------------------------- #
-    phase_done("codecs")
+    phase_done("serve")
     log("== kernels vs plain versions (bitwise)")
     log(f"memory_allocated {torch.cuda.memory_allocated()} bytes at the start")
     gen = torch.Generator(device=dev)
@@ -2274,13 +2667,23 @@ def main() -> int:
         f"{big['bound_ms']:.4f} ms")
     del x, flat, packed, a, b
 
+    # the kernels the shard and serve phases launched, counted there
+    for entry in report:
+        key = {"segmented_decode_and (B1)": "B1", "scatter_bits (B2)": "B2",
+               "scatter_add (B2, add form)": "B2add",
+               "unpack_codes (B3)": "B3", "dense_add (B4)": "B4"
+               }.get(entry["name"])
+        if key is not None:
+            entry["sharded_launches"] = sharded["launches"].get(key, 0)
+            entry["serve_launches"] = serve["launches"].get(key, 0)
+
     phase_done("kernels")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"phases_s": phase_s, "ranked": {
         m: {k: v for k, v in r.items() if k != "recent"}
         for m, r in ranked.items()}, "mutation": mut, "stream": stream,
-        "codecs": codecs}),
+        "codecs": codecs, "sharded": sharded, "serve": serve}),
         flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

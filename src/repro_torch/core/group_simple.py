@@ -108,25 +108,20 @@ def encode(x: np.ndarray) -> Encoded:
 
 
 def decode_np(enc: Encoded) -> np.ndarray:
+    """The reference's per-pattern decode, with every vector's 32 slots
+    unpacked at once: slot k of vector i is quad ``starts[i] + k`` for
+    k < NUM, so the valid slots in row-major order are the quads in order."""
     if enc.n == 0:
         return np.zeros(0, np.uint32)
-    sels = enc.meta["sels"]
-    p = len(sels)
-    data = enc.data.reshape(p, 4)
-    starts = np.concatenate([[0], np.cumsum(NUM[sels])[:-1]])
-    total_q = int(starts[-1] + NUM[sels[-1]]) if p else 0
-    out = np.zeros((total_q, 4), dtype=np.uint32)
-    for s in range(10):
-        rows = np.flatnonzero(sels == s)
-        if len(rows) == 0:
-            continue
-        num, bw = int(NUM[s]), int(BW[s])
-        shifts = (np.arange(num) * bw).astype(np.uint64)
-        vals = (data[rows].astype(np.uint64)[:, None, :] >> shifts[None, :, None]) & np.uint64(mask_np(bw))
-        idx = starts[rows][:, None] + np.arange(num)[None, :]
-        keep = idx < total_q
-        out[np.minimum(idx, total_q - 1)[keep]] = vals.astype(np.uint32)[keep]
-    return out.reshape(-1)[: enc.n]
+    sels = np.asarray(enc.meta["sels"], np.intp)
+    data = enc.data.reshape(len(sels), 4).astype(np.uint64)
+    num = NUM[sels]
+    k = np.arange(32)
+    valid = k[None, :] < num[:, None]                           # (P, 32)
+    shifts = np.where(valid, k[None, :] * BW[sels][:, None], 0)
+    vals = (data[:, None, :] >> shifts.astype(np.uint64)[:, :, None]) \
+        & MASKS[sels].astype(np.uint64)[:, None, None]          # (P, 32, 4)
+    return vals[valid].astype(np.uint32).reshape(-1)[: enc.n]
 
 
 # --------------------------------------------------------------------------- #

@@ -34,18 +34,24 @@ Counterpart of the JAX package's ``index/engine.py`` for the modes ``and``,
      row (one upload per epoch, no download); the host merges in a scan of
      the small delta segment.  Results equal a from-scratch rebuild's bit
      for bit.
+  6. **Doc-range sharded serving** (``to_device(shards=/bounds=/mesh=)``):
+     every generation splits into self-contained shard generations
+     (``index/shards.py``), each served by a sub-engine on the card (or on
+     its own card of a ``launch.mesh.serving_mesh``).  Rounds run
+     shard-local; a ranked batch merges per-shard (k-th sum, count)
+     statistics once (``distributed/collectives.merge_topk_stats``), and
+     the exact float tail runs on the parent.  Results equal the unsharded
+     paths bit for bit.
 
 ``engine.plan(batch)`` resolves placement and per-term codec capabilities
 once; ``engine.execute(plan)`` follows the plan.  Entry points run on the
 card: ``to_device(torch_device="cuda")`` raises without one, and the CPU is
 used only when asked for by name (``torch_device="cpu"``).
-
-Not yet ported, raising ``NotImplementedError`` with its ``ROADMAP.md``
-step: doc-range sharded serving (A.10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import difflib
 import itertools
@@ -58,14 +64,16 @@ import torch
 
 from ..core import codec as codec_lib
 from ..core.bits import from_np, to_np
+from ..distributed import collectives
 from ..kernels import intersect, intersect_rounds, topk
 from ..obs.metrics import DevStatsView, MetricsRegistry
 from ..obs.trace import get_tracer
+from . import shards as shards_lib
 from .device import _to_device, resolve_device
 from .invindex import InvertedIndex
 from .scores import B, K1  # noqa: F401  (re-export, as the reference does)
 from .scores import bm25_scores, topk_select
-from .segments import dead_hits
+from .segments import DeltaSegment, dead_hits
 
 # plan-time auto-placement: batches of at most this many queries are planned
 # onto the host even when arenas exist.  The reference derives a measured
@@ -269,7 +277,7 @@ class _ExecCtx:
         self.mutated = bool(getattr(idx, "mutated", False))
         self._df: dict = {}        # term -> live df memo
         self._live_dev = None      # uploaded packed live row (per epoch)
-        self._live_host = None     # pre-packed host words (shard ctxs, A.10)
+        self._live_host = None     # pre-packed host words (shard ctxs only)
         if self.mutated:
             self.delta = idx.delta.snapshot()
             self.dead = idx.tomb.sorted_ids(below=gen.n_docs)
@@ -291,7 +299,9 @@ class _ExecCtx:
     def live_dev(self, words: int, device) -> torch.Tensor:
         """The epoch's packed live bitmap as one (words,) int32 row on
         ``device``, uploaded on first use and reused by every round of every
-        batch in the epoch (the gate downloads nothing)."""
+        batch in the epoch (the gate downloads nothing).  Shard ctxs
+        pre-pack their boundary-sliced words (``pack_live_words_range``),
+        so a tombstone epoch uploads only each shard's span."""
         if self._live_dev is None or self._live_dev.device != device:
             packed = (self._live_host if self._live_host is not None
                       else intersect_rounds.pack_live_words(
@@ -337,6 +347,9 @@ _DEV_COUNTERS = (
     ("blocks_scored", "ranked work-list entries actually scored"),
     ("blocks_dense", "entries served from the dense-bitmap representation"),
     ("tomb_gates", "device live-bitmap gates applied (uploads, not syncs)"),
+    ("merge_syncs", "sharded ranked top-k merge collectives (one/batch)"),
+    ("collective_bytes", "wire bytes moved by the top-k merge collectives"),
+    ("shard_final_syncs", "per-shard end-of-batch result downloads"),
 )
 _ENGINE_SEQ = itertools.count()
 
@@ -361,7 +374,11 @@ class QueryEngine:
         self.dev_stats = DevStatsView(self.metrics,
                                       tuple(n for n, _ in _DEV_COUNTERS))
         self.tracer = get_tracer()   # process-global; disabled by default
-        self.trace_lane = "engine"
+        self.trace_lane = "engine"   # sub-engines relabel to "shard<i>"
+        self._shard_cfg = None     # doc-range sharded serving config
+        self._shard_device = None  # a sub-engine's mesh device, if placed
+        self._sctx_cache: dict = {}  # (skey, lo, hi) -> shard _ExecCtx
+        self._last_shard_cands = None  # last ranked batch's shard candidates
         # (gid, kind, work-list) -> the round's gathered device tensors
         self._round_cache: OrderedDict = OrderedDict()
         if device or fused:
@@ -409,12 +426,16 @@ class QueryEngine:
         (the card unless the caller names the CPU; ``"cuda"`` without a card
         raises).  ``fused`` additionally routes AND rounds through the fused
         decode+probe kernel; its tile arenas are built only when requested.
-        Sharded serving (``shards`` / ``mesh`` / ``bounds``) is not yet
-        ported."""
-        if shards is not None or bounds is not None or mesh is not None:
-            raise NotImplementedError(
-                "doc-range sharded serving is not yet ported (ROADMAP.md, "
-                "step A.10)")
+
+        Doc-range sharded serving: any of ``shards`` (a count, boundaries
+        from build metadata, :meth:`.shards.ShardSpec.derive`), ``bounds``
+        (an explicit ``(0, ..., n_docs)``; uneven and empty ranges are
+        legal) or ``mesh`` (a list of one torch device per shard,
+        ``launch.mesh.serving_mesh``; absent or of another size, the shards
+        run logically on ``torch_device``) splits every generation into
+        self-contained per-shard engines (``_shard_engines``).  Resident
+        rounds then run shard-local; a ranked batch merges once
+        (``_execute_sharded``)."""
         dev = resolve_device(torch_device)
         if self.torch_device is not None and dev != self.torch_device:
             # cached device rows and stacked rounds live on the old device
@@ -423,6 +444,22 @@ class QueryEngine:
         self.torch_device = dev
         if fused is not None:
             self._fused = fused
+        if shards is not None or bounds is not None or mesh is not None:
+            b = tuple(int(x) for x in bounds) if bounds is not None else None
+            if mesh is not None:
+                mesh = [resolve_device(d) for d in mesh]
+            n = (int(shards) if shards is not None
+                 else len(b) - 1 if b is not None
+                 else len(mesh))
+            if n < 1:
+                raise ValueError(f"need at least one shard, got {n}")
+            if b is not None and len(b) - 1 != n:
+                raise ValueError(
+                    f"bounds {b} define {len(b) - 1} shard(s), not {n}")
+            self._shard_cfg = {"n": n, "bounds": b, "mesh": mesh}
+            self.arena = None           # the shards own the arenas
+            self._shard_engines(self._ctx_now())    # build eagerly
+            return self
         self.arena = self.idx.to_device(build_fused=self._fused, device=dev)
         return self
 
@@ -1218,12 +1255,20 @@ class QueryEngine:
     def _ranked_accumulate(self, queries: list, k: int, mode: str,
                            terms: Mapping[int, TermCaps] | None,
                            use_fused: bool, *, base_ts: list, armed: bool,
-                           tomb_only: bool, margins_l: list, iqs_l: list):
+                           tomb_only: bool, margins_l: list, iqs_l: list,
+                           qterms: list | None = None,
+                           theta0_l: list | None = None):
         """The round loop of :meth:`_ranked_resident`: accumulate the batch's
         quantized impact codes device-resident and return the final state
         ``(acc, member, margins, iq, width)``, no threshold, no download.
         The epoch-derived inputs (``base_ts`` ... ``iqs_l``) come from
-        :meth:`_ranked_params`."""
+        :meth:`_ranked_params`: under sharded execution this engine serves
+        one doc-range shard and they come from the parent's global epoch,
+        with ``qterms`` the shard's restriction of the ``and_scored`` terms.
+        ``theta0_l`` overrides the static OR thresholds: the sharded path
+        pools the per-shard theta0 on the host (the max over shards is
+        sound: some shard provably holds k docs reaching it) and seeds every
+        shard with it; the per-round promotion stays shard-local."""
         ctx = self._cur()
         idx = ctx.gen
         nq = len(queries)
@@ -1237,7 +1282,7 @@ class QueryEngine:
         gate = cov = None
         if mode == "and_scored":
             gate, _, cov = self._and_bitmap_resident(queries, terms,
-                                                     use_fused)
+                                                     use_fused, qterms=qterms)
         eff_gate = gate
         if gate is None and ctx.mutated and len(ctx.dead):
             # OR mode under deletes: the epoch's live row gates every lane,
@@ -1260,8 +1305,9 @@ class QueryEngine:
         margins = torch.as_tensor(margins_l, dtype=torch.int32, device=dev)
         iq_dev = torch.as_tensor(iqs_l, dtype=torch.int32, device=dev)
         if mode == "or" and armed:
-            theta0 = [(sa.theta0_live(ts, k, ctx.dead) if tomb_only
-                       else sa.theta0(ts, k)) for ts in base_ts]
+            theta0 = (list(theta0_l) if theta0_l is not None else
+                      [(sa.theta0_live(ts, k, ctx.dead) if tomb_only
+                        else sa.theta0(ts, k)) for ts in base_ts])
         else:
             theta0 = [0] * nq
         theta_dev = torch.as_tensor(theta0, dtype=torch.int32, device=dev)
@@ -1359,6 +1405,247 @@ class QueryEngine:
                 out.append(self._score_docs(q, _merge_disjoint(c, d), k))
             return out
 
+    # ---- doc-range sharded execution ---------------------------------------- #
+
+    def _shard_engines(self, ctx: _ExecCtx):
+        """The per-shard serving set of ``ctx``'s generation: a
+        :class:`.shards.ShardSpec` plus one sub-engine per non-empty shard
+        (empty ranges hold ``None``), each over a self-contained
+        statistics-fixed shard generation (:func:`.shards.shard_generation`).
+        The whole set is built eagerly and cached on the generation, keyed
+        by (bounds, fused, devices), so a ``compact()`` swaps every shard
+        at once: a pinned plan keeps the old generation's set through its
+        ctx, and the new epoch's first query builds the new one.  With a
+        mesh of one device per shard each shard's arenas live on its own
+        device (and its calls run there, ``_pinned``); otherwise every shard
+        runs on this engine's ``torch_device``."""
+        cfg = self._shard_cfg
+        gen = ctx.gen
+        bounds = cfg["bounds"]
+        if bounds is not None and bounds[-1] == gen.n_docs:
+            spec = shards_lib.ShardSpec(bounds)
+        else:
+            # derived boundaries; also the fallback when explicit bounds
+            # went stale across a compaction (the doc space changed)
+            spec = shards_lib.ShardSpec.derive(gen, cfg["n"])
+        mesh = cfg["mesh"]
+        devs = (list(mesh) if mesh is not None and len(mesh) == spec.n_shards
+                else None)
+        key = (spec.bounds, self._fused,
+               tuple(map(str, devs)) if devs is not None
+               else str(self.torch_device))
+        cache = gen.__dict__.setdefault("_shard_serving", {})
+        got = cache.get(key)
+        if got is None:
+            engs = []
+            for s, (lo, hi) in enumerate(spec.ranges()):
+                if hi <= lo:
+                    engs.append(None)
+                    continue
+                dev = devs[s] if devs is not None else self.torch_device
+                sgen = shards_lib.shard_generation(gen, lo, hi)
+                eng = QueryEngine(sgen).to_device(fused=self._fused,
+                                                  torch_device=dev)
+                eng.arena.ensure_scores()
+                eng._shard_device = dev if devs is not None else None
+                eng.trace_lane = f"shard{s}"    # own Perfetto lane
+                eng.metrics.relabel(shard=f"s{s}")
+                engs.append(eng)
+            cache[key] = got = (spec, engs)
+        return got[0], got[1], mesh
+
+    def _shard_ctx(self, ctx: _ExecCtx, lo: int, hi: int, sgen) -> _ExecCtx:
+        """A shard's frozen view of the parent epoch: tombstones translated
+        into the shard's local docid space, an empty delta snapshot (delta
+        docids all sit above the generation's doc space, so no shard serves
+        them; the parent unions the delta scan into the final results), and
+        the parent's live statistics where they matter.  The packed live
+        row is pre-sliced at the shard boundary (``pack_live_words_range``),
+        so a tombstone epoch uploads only each shard's words."""
+        key = (ctx.skey, lo, hi)
+        got = self._sctx_cache.get(key)
+        if got is not None:
+            return got
+        sctx = _ExecCtx.__new__(_ExecCtx)
+        sctx.gen = sgen
+        sctx.mutated = ctx.mutated
+        sctx._df = {}
+        sctx._live_dev = None
+        sctx._live_host = None
+        sctx.delta = DeltaSegment.empty_snapshot() if ctx.mutated else None
+        dead = ctx.dead
+        sctx.dead = ((dead[(dead >= lo) & (dead < hi)] - lo)
+                     if len(dead) else _EMPTY_I64)
+        sctx.doclen = np.asarray(ctx.doclen)[lo:hi]
+        sctx.n_docs = hi - lo
+        sctx.avdl = ctx.avdl
+        sctx.skey = tuple(ctx.skey) + (lo, hi)
+        if len(sctx.dead):
+            words, _ = intersect_rounds.bitmap_geometry(sgen.n_docs)
+            sctx._live_host = intersect_rounds.pack_live_words_range(
+                ctx.dead, lo, hi, words)
+        self._sctx_cache[key] = sctx
+        return sctx
+
+    @staticmethod
+    def _shard_qterms(ts: list, sgen) -> list:
+        """One query's global rarest-first AND term list restricted to a
+        shard.  A known term with no postings in the shard's range means no
+        doc of the range can match: the ``[]`` sentinel (as for the
+        delta-only case).  Otherwise the parent's order is kept: shard dfs
+        are fixed up to the global ones."""
+        if not ts or any(t not in sgen.terms for t in ts):
+            return []
+        return list(ts)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _pinned(eng: "QueryEngine", sctx: _ExecCtx):
+        """Run a sub-engine call under its shard ctx (and, placed on a mesh
+        card, with that card current): the shard's rounds resolve
+        ``_cur()`` to the shard's frozen epoch view, never the parent's."""
+        prev = eng._ctx
+        eng._ctx = sctx
+        dev = eng._shard_device
+        try:
+            with (torch.cuda.device(dev) if dev is not None
+                  and dev.type == "cuda" else contextlib.nullcontext()):
+                yield
+        finally:
+            eng._ctx = prev
+
+    def _execute_sharded(self, plan: ExecutionPlan, ctx: _ExecCtx) -> list:
+        """Planned execution over the doc-range shard set: every resident
+        round runs shard-local (no candidate crosses shards), a ranked batch
+        merges once, and the exact float tail runs on the parent against
+        global docids.  Results equal the unsharded paths bit for bit."""
+        queries = [list(q) for q in plan.queries]
+        fused = plan.placement == "fused"
+        spec, engs, mesh = self._shard_engines(ctx)
+        parts = [(lo, hi, eng, self._shard_ctx(ctx, lo, hi, eng.idx))
+                 for (lo, hi), eng in zip(spec.ranges(), engs)
+                 if eng is not None]
+        if plan.mode == "and":
+            return self._sharded_and(queries, fused, parts, ctx)
+        return self._sharded_ranked(queries, plan.k, plan.mode, fused,
+                                    parts, mesh, ctx)
+
+    def _sharded_and(self, queries: list, fused: bool, parts: list,
+                     ctx: _ExecCtx) -> list:
+        """AND across shards: the parent resolves the batch's known terms
+        once, each shard intersects its restriction device-resident, and
+        the per-shard extractions concatenate in range order (already
+        globally sorted: the ranges are disjoint and ascending)."""
+        qterms = self._and_qterms(queries, ctx)
+        per_q = [[] for _ in queries]
+        for lo, hi, eng, sctx in parts:
+            sub_q = [self._shard_qterms(ts, eng.idx) for ts in qterms]
+            with self._pinned(eng, sctx):
+                ids = eng._and_many_resident(queries, None, fused,
+                                             qterms=sub_q)
+            self.metrics.inc("shard_final_syncs")
+            for i, a in enumerate(ids):
+                if len(a):
+                    per_q[i].append(a + np.uint32(lo))
+        base = [(ps[0] if len(ps) == 1 else np.concatenate(ps)) if ps
+                else _EMPTY_U32.copy() for ps in per_q]
+        if not ctx.mutated:
+            return base
+        out = []
+        for q, b in zip(queries, base):
+            known = [t for t in q if self._df_live(t, ctx) > 0]
+            d = ctx.delta.scan_and(known) if known else _EMPTY_U32
+            out.append(_merge_disjoint(b, d))
+        return out
+
+    def _sharded_ranked(self, queries: list, k: int, mode: str, fused: bool,
+                        parts: list, mesh, ctx: _ExecCtx) -> list:
+        """Ranked top-k across shards, margin-preserving merge:
+
+        1. the parent derives the epoch parameters once
+           (:meth:`_ranked_params`) and, for an armed OR batch, pools the
+           per-shard static thresholds on the host (max over shards);
+        2. every shard runs the whole round loop shard-local
+           (:meth:`_ranked_accumulate` under ``_pinned``);
+        3. the one collective: per-shard (k-th quantized sum, candidate
+           count) gathered and maxed (``collectives.merge_topk_stats``).
+           ``theta_merged = max_s theta_s`` <= the global k-th sum, so every
+           shard cut at ``theta_merged - margin`` keeps every global top-k
+           doc: the union of the shards' candidates is a superset of the
+           float top-k under the unsharded path's margin contract;
+        4. per-shard candidate extraction, translated to global docids and
+           concatenated in range order, feeds the parent's exact float tail
+           (:meth:`_ranked_rescore`): bitwise the unsharded result."""
+        nq = len(queries)
+        known, base_ts, tomb_only, armed, margins_l, iqs_l = \
+            self._ranked_params(queries, k, ctx)
+        if known is None or not parts:
+            return [[] for _ in queries]
+        theta0_l = None
+        if mode == "or" and armed:
+            pooled = [0] * nq
+            for lo, hi, eng, sctx in parts:
+                sa = eng.arena.ensure_scores().scores
+                for i, ts in enumerate(base_ts):
+                    sts = [t for t in ts if t in eng.idx.terms]
+                    if not sts:
+                        continue
+                    th = (sa.theta0_live(sts, k, sctx.dead) if tomb_only
+                          else sa.theta0(sts, k))
+                    if th > pooled[i]:
+                        pooled[i] = int(th)
+            theta0_l = pooled
+        and_q = (self._and_qterms(queries, ctx) if mode == "and_scored"
+                 else None)
+        per_shard, th_parts, cnt_parts = [], [], []
+        for lo, hi, eng, sctx in parts:
+            sts = [[t for t in ts if t in eng.idx.terms] for ts in base_ts]
+            qt = ([self._shard_qterms(ts, eng.idx) for ts in and_q]
+                  if and_q is not None else None)
+            with self._pinned(eng, sctx):
+                acc, member, margins, iq_dev, _ = eng._ranked_accumulate(
+                    queries, k, mode, None, fused, base_ts=sts, armed=armed,
+                    tomb_only=tomb_only, margins_l=margins_l, iqs_l=iqs_l,
+                    qterms=qt, theta0_l=theta0_l)
+                # raw k on purpose: a shard holding fewer than k scored docs
+                # reports theta 0 (the sound degenerate answer); min(k,
+                # width) would report its width-th sum, which can exceed the
+                # global k-th and break the superset contract
+                th, cnt = topk.topk_stats(acc, k)
+            per_shard.append((lo, hi, eng, sctx, acc, member, margins,
+                              iq_dev))
+            th_parts.append(th)
+            cnt_parts.append(cnt)
+        with self.tracer.span("sharded/merge", lane=self.trace_lane,
+                              shards=len(parts), nq=nq):
+            theta_m, _, wire = collectives.merge_topk_stats(th_parts,
+                                                            cnt_parts,
+                                                            mesh=mesh)
+        self.metrics.inc("merge_syncs")
+        self.metrics.inc("collective_bytes", int(wire))
+        del th_parts, cnt_parts
+        theta_np = theta_m.astype(np.int32)
+        cand_parts = [[] for _ in queries]
+        shard_cands = []
+        while per_shard:
+            lo, hi, eng, sctx, acc, member, margins, iq_dev = per_shard.pop(0)
+            with self._pinned(eng, sctx):
+                theta_dev = torch.as_tensor(theta_np, device=acc.device)
+                bm = topk.candidate_bitmap(acc, member, theta_dev, margins,
+                                           iq_dev)
+                del acc, member
+                self.metrics.inc("shard_final_syncs")
+                ids = intersect_rounds.extract_ids(to_np(bm), hi - lo)
+                del bm
+            shard_cands.append(ids)
+            for i, a in enumerate(ids):
+                if len(a):
+                    cand_parts[i].append(a + np.uint32(lo))
+        self._last_shard_cands = shard_cands
+        cand = [(ps[0] if len(ps) == 1 else np.concatenate(ps)) if ps
+                else _EMPTY_U32 for ps in cand_parts]
+        return self._ranked_rescore(queries, cand, k, mode, known, ctx)
+
     # ---- planned execution -------------------------------------------------- #
 
     def plan(self, batch: QueryBatch,
@@ -1384,7 +1671,7 @@ class QueryEngine:
         _check_mode(batch.mode)
         ctx = self._cur()
         note = ""
-        resident = self.arena is not None
+        resident = self.arena is not None or self._shard_cfg is not None
         if placement is not None:
             if placement not in PLACEMENTS:
                 raise ValueError(f"unknown placement {placement!r}; "
@@ -1418,6 +1705,11 @@ class QueryEngine:
                             f"HOST_BATCH_MAX={HOST_BATCH_MAX} "
                             "(static rule; no measured crossover)")
                     placement = "host"
+        if self._shard_cfg is not None and placement != "host":
+            spec, _, mesh = self._shard_engines(ctx)
+            snote = (f"sharded x{spec.n_shards} bounds={list(spec.bounds)} "
+                     f"({'mesh-placed' if mesh is not None else 'logical'})")
+            note = f"{note}; {snote}" if note else snote
         if ctx.mutated:
             mnote = (f"pinned epoch {ctx.skey}: {len(ctx.dead)} tombstone(s), "
                      f"{len(ctx.delta)} delta doc(s)")
@@ -1431,12 +1723,17 @@ class QueryEngine:
                     blocks = ctx.gen.terms[t].blocks
                     name = blocks[0][1].codec if blocks else None
                     spec = codec_lib.get(name) if name is not None else None
+                    # a sharded plan records the nominal capability: each
+                    # shard probes its own arena's fused coverage when it
+                    # runs (its block geometry differs)
                     terms[t] = TermCaps(
                         codec=name,
                         arena=bool(spec is not None
                                    and spec.arena is not None),
-                        fused=(placement == "fused" and self.arena.has_fused(
-                            t, range(len(blocks)))))
+                        fused=(placement == "fused"
+                               and (self._shard_cfg is not None
+                                    or self.arena.has_fused(
+                                        t, range(len(blocks))))))
                 elif ctx.delta is not None and ctx.delta.has_term(t):
                     # delta-only term: no compressed blocks, host scan only
                     terms[t] = TermCaps(codec=None, arena=False, fused=False)
@@ -1453,7 +1750,8 @@ class QueryEngine:
         so queries sharing terms hit the decoded-block and score caches back
         to back; on the device/fused placements the batch runs round-batched
         and device-resident: mode ``and`` through ``_and_many_resident``,
-        the ranked modes through ``_ranked_resident``."""
+        the ranked modes through ``_ranked_resident``; a sharded engine runs
+        the batch over its shard set (``_execute_sharded``)."""
         if isinstance(work, QueryBatch):
             work = self.plan(work)
         with self.tracer.span("engine/execute", lane=self.trace_lane,
@@ -1465,6 +1763,14 @@ class QueryEngine:
         _check_mode(plan.mode)
         ctx: _ExecCtx = plan.ctx if plan.ctx is not None else self._cur()
         if plan.placement != "host":
+            if self._shard_cfg is not None:
+                # the shard set (not self.arena) holds the arenas; the
+                # sub-engines pin their shard ctxs per call
+                prev_ctx, self._ctx = self._ctx, ctx
+                try:
+                    return self._execute_sharded(plan, ctx)
+                finally:
+                    self._ctx = prev_ctx
             if self.arena is None:
                 raise ValueError(
                     f"plan placement {plan.placement!r} needs device arenas; "

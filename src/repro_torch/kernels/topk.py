@@ -147,14 +147,17 @@ def topk_threshold(acc, k: int):
 def topk_stats(acc, k: int):
     """Per-query (theta, count) merge statistics for doc-range sharded
     top-k: theta with the raw k (a shard with fewer than k scored docs
-    reports 0), and the candidate count at ``max(theta, 1)``."""
-    with get_tracer().span("kernel/topk", lane="device", k=k,
-                           nq=int(acc.shape[0]), stats=True):
+    reports 0), and the candidate count at ``max(theta, 1)``.  Span
+    ``kernel/topk``, fenced as :func:`topk_threshold`'s."""
+    tracer = get_tracer()
+    with tracer.span("kernel/topk", lane="device", k=k,
+                     nq=int(acc.shape[0]), stats=True):
         theta = _kth_descend(acc, k)
         floor = torch.clamp(theta, min=1)
         count = torch.empty_like(theta)
         for rows in _row_chunks(*acc.shape):
             count[rows] = (acc[rows] >= floor[rows, None]).sum(dim=1)
+        tracer.fence(theta, count)
         return theta, count
 
 

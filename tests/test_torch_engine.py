@@ -80,8 +80,9 @@ def test_auto_placement_and_unported_paths_raise(gov2):
         assert eng.plan(QueryBatch(queries, mode=mode)).placement == "fused"
     with pytest.raises(ValueError, match="did you mean 'and'"):
         eng.plan(QueryBatch(queries, mode="adn"))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        QueryEngine(idx).to_device(shards=2, torch_device="cpu")
+    # a 2-shard engine plans the batch over its shards
+    sh = QueryEngine(idx).to_device(shards=2, torch_device="cpu")
+    assert "sharded x2" in sh.plan(QueryBatch(queries)).note
 
 
 def test_mutated_index_and_missing_card_raise():
@@ -142,6 +143,12 @@ def test_port_imports_without_jax():
         "import repro_torch.core.bp128, repro_torch.core.group_afor\n"
         "import repro_torch.core.group_vse, repro_torch.core.group_pfd\n"
         "import repro_torch.core.group_scheme, repro_torch.core.scalar\n"
+        "import repro_torch.index.shards, repro_torch.index.serve\n"
+        "import repro_torch.distributed.sharding\n"
+        "import repro_torch.distributed.collectives\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.serve\n"
+        "import repro_torch.obs.regress\n"
+        "from repro_torch.obs import regress, run_gate\n"
         "from repro_torch.core import codec\n"
         "assert len(codec.names()) == 31\n"
         "bad = [m for m in sys.modules if m == 'repro' "
