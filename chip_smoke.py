@@ -8,8 +8,10 @@ list), the paper's Group codecs (a Group-PFD index served on the
 ``device`` placement, and the decode table of every codec with a torch
 decoder), doc-range sharded serving and the ``IndexServer`` serving loop,
 through the entry points a user calls, at the real document count of the
-TREC GOV2 collection, and holds every CUDA kernel of the paths against its
-plain torch version on the card:
+TREC GOV2 collection; the examples, the one-shot query shims and dense-LM
+serving (smollm-135m and starcoder2-3b at full width, prompts from the
+compressed token store); and holds every CUDA kernel of the paths against
+its plain torch version on the card:
 
   card       the card, its power limit, torch / CUDA / nvcc versions
   build      nvcc builds every kernels/csrc/*.cu and tools/and_round_forms.cu
@@ -45,6 +47,20 @@ plain torch version on the card:
              Each mode's warm-up batch leaves host copies of its largest
              B2-add and B4 calls for the kernel phase, ``and_scored``'s
              also of its AND rounds' B1 and B2 bits calls, as above.
+  serve      an ``IndexServer`` (max_batch 16, max_wait_ms 4, placement
+             ``fused``, warm-up in ``and`` and ``or``), right after the
+             ranked path, in front of a fresh engine over the main path's
+             generation (its arenas and score arena, cached on the
+             generation, reused; ``to_device`` timed): a seeded open-loop
+             Poisson stream at 20 requests/s of the main path's 256 fresh
+             ``and`` queries and 64 of its fresh ``or`` queries (k=10),
+             shuffled, each with a 60,000 ms deadline, counts set to 0
+             after the warm-up; shed_rate == 0, every served result equal
+             to the main path's, the ``serve/*`` spans present, B1, B2, B2
+             add and B3 launched; warm-up, p50/p99/p999, goodput, mean
+             batch and the batch-size histogram printed.  Then ``python -m
+             repro_torch.launch.serve --index --smoke`` in a subprocess,
+             exit 0.
   mutation   on the same index, a fresh engine (fused placement) per
              generation.  Tombstone-only epoch: 1 % of the docs deleted (a
              permutation from --seed), then one fresh batch of each mode
@@ -63,7 +79,9 @@ plain torch version on the card:
              served across the swap, the old engine freed, the new
              generation put on the card and ``and`` and ``or`` (256) served.
              Every result equals a numpy oracle over the live postings
-             (BM25 with live df, the doc space, the live doclen mean);
+             (BM25 with live df, the doc space, the live doclen mean; the
+             ``or`` oracles computed by the ranked path's 4 worker
+             processes, each scoring the epoch from its own corpus);
              cand_syncs == score_syncs == 0, final_syncs == 1 a batch,
              tomb_gates >= 1 a batch under an epoch with deletes (0 after
              the compaction), and the path's kernels launched.
@@ -80,9 +98,12 @@ plain torch version on the card:
              events around the 200 lists, warm, host enqueue included.
   codecs     with every earlier engine and arena freed (the main path's
              unmutated generation is kept on the host only, for the
-             sharded and serve phases):
+             sharded and examples phases):
              ``InvertedIndex.build(..., codec="group_pfd")`` on the same
-             postings (timed; blocks with exceptions counted, > 0), then
+             postings (in a spawned worker process, which makes the corpus
+             from --seed and builds from the main path's start on; timed
+             there, and the wait for it here; blocks with exceptions
+             counted, > 0), then
              ``QueryEngine(idx).to_device(fused=True)`` and
              ``ensure_scores()`` (each timed) serving the main
              path's own fresh batches (256 queries), ``and``, ``or`` and
@@ -96,12 +117,13 @@ plain torch version on the card:
              memory.  Then the decode table (the paper's Table VII on the
              card): every codec that declares ``Codec.torch`` on 20 whole
              lists (every tenth of the 200 by descending df; encoded on the
-             host by worker processes during the build), ``decode_torch_vec``
+             host by worker processes while the arenas build),
+             ``decode_torch_vec``
              equal to the d-gaps, timed over the 20 lists (CUDA events,
              median of 5 after one, host enqueue included), postings/s and
              bits/posting; ``decode_torch_scalar`` (equal to the d-gaps,
-             one timed run: a run is 4,096+ loop steps) beside ``vec`` on
-             the first 4,096 quadruples of the longest list; the stream
+             one timed run: a run is 1,024+ loop steps) beside ``vec`` on
+             the first 1,024 quadruples of the longest list; the stream
              codec's fused decode over the same lists.
   sharded    the main path's unmutated ``group_simple`` generation (its
              host tables; no unsharded arena on the card) behind a fresh
@@ -122,19 +144,18 @@ plain torch version on the card:
              the three modes on ``fused`` under the fenced span tracer:
              ``sharded/merge``, per shard ``ranked/round``, ``kernel/topk``
              and ``kernel/extract_ids``.  Peak device memory.
-  serve      an ``IndexServer`` (max_batch 16, max_wait_ms 4, placement
-             ``fused``, warm-up in ``and`` and ``or``) in front of a fresh
-             unsharded engine over the same generation (its arenas built
-             again, timed; the score arena in the warm-up): a seeded open-loop
-             Poisson stream at 20 requests/s of the main path's 256 fresh
-             ``and`` queries and 64 of its fresh ``or`` queries (k=10),
-             shuffled, each with a 60,000 ms deadline, counts set to 0
-             after the warm-up; shed_rate == 0, every served result equal
-             to the main path's, the ``serve/*`` spans present, B1, B2, B2
-             add and B3 launched; warm-up, p50/p99/p999, goodput, mean
-             batch and the batch-size histogram printed.  Then ``python -m
-             repro_torch.launch.serve --index --smoke`` in a subprocess,
-             exit 0.
+  examples   the one-shot shims ``index.query.and_query`` and
+             ``or_query`` (k=10) on 8 of the main path's fresh queries
+             each, over its unmutated generation on the host placement
+             (the shims take no device): every result equal to the main
+             path's.  Then ``examples/quickstart_torch.py``, ``examples/
+             serve_quickstart_torch.py`` and ``python -m
+             repro_torch.launch.serve --arch smollm-135m --tokens 8`` (the
+             full config), subprocesses on the card started together at
+             the start of the sharded phase (its shard build is host work
+             of this process alone), collected: each exits 0 and prints
+             its result line, and the quickstart's own launch counts show
+             B2, B3, B6 and B7a (B4 printed, launched or not).
   kernels    B1 (every bit-width bucket), B5, B2 (both forms), B3, B4 and
              B6-B10 on inputs made from --seed at the largest shape any main
              path gave each kernel (B1 probed against a random bitmap and
@@ -174,6 +195,30 @@ plain torch version on the card:
              counted from a ``torch.profiler`` trace; B10 and
              ``torch.bitwise_and`` also at 65,536 rows (3 x 32 MiB, above
              the 50 MB L2).
+  lm         last, with every index arena freed, per model (smollm-135m, then
+             starcoder2-3b; ``make_config()``, full width): a
+             ``TokenStore`` (bp128, block 65,536) of 16,777,216 Zipf(1.1)
+             token ids folded into the vocabulary, its ratio and host read
+             rate, read back equal; ``lm_batch_iter`` (batch 8, seq 2,048)
+             gives the prompts.  Weights from ``init`` with a seeded
+             ``torch.Generator`` on the card.  ``prefill`` of 8 x 2,048
+             (one warm-up, then timed), the cache grown by 32, 32 greedy
+             ``decode_step``s timed one by one, one more under
+             ``torch.profiler`` (kernel time, the dtype casts' share).
+             Checks: every parameter, cache and logit tensor on the card;
+             every logit finite; the cache written in place (``data_ptr``
+             unchanged); with fp32 activations on the same weights, cut to
+             the first 2 layers, the decode step at position 256 equals
+             ``trunk`` on 257 tokens (2 prompts) within 1e-3 of max
+             |logit|; the bf16 prefill of the first layer on the card
+             equals the same code's on the host CPU (2 x 64) within 2e-2
+             of max |logit|.  Printed beside them, not checked: the same
+             two comparisons at all layers (decode vs forward; the served
+             batch's bf16 prefill against an fp32 one, with the top-1
+             agreement), where the reference's random-weight models
+             amplify round-off to the size of the logits
+             (``tools/lm_roundoff_depth.py``).  Prefill and decode
+             tokens/s, seconds a step, peak memory.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed phase raises and the script exits nonzero without that
@@ -194,6 +239,7 @@ import gc
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import time
@@ -212,7 +258,7 @@ MUT_UPSERTS = 1024              # base docs re-inserted (delta epoch)
 MUT_OR_QUERIES = 32             # the delta epoch's disarmed `or` batch
 TABLE_STEP = 10                 # decode table: every tenth list by df
 TABLE_RUNS = 5                  # decode table: timed passes (after one)
-SCALAR_QUADS = 4096             # decode table: the scalar decode's input
+SCALAR_QUADS = 1024             # decode table: the scalar decode's input
 ENCODE_WORKERS = 6              # processes encoding the decode table's lists
 ORACLE_WORKERS = 4              # processes computing the ranked `or` oracles
 SHARDS = 4                      # doc-range shards of the sharded phase
@@ -220,6 +266,30 @@ SERVE_AND = 256                 # serve phase: `and` requests of the stream
 SERVE_OR = 64                   # serve phase: `or` (k=10) requests
 SERVE_RATE = 20.0               # serve phase: Poisson arrivals per second
 SERVE_DEADLINE_MS = 60_000.0    # serve phase: every request's budget
+SHIM_QUERIES = 8                # examples phase: fresh queries per shim
+LM_ARCHS = ("smollm-135m", "starcoder2-3b")   # lm phase: full-width models
+LM_STORE_TOKENS = 16_777_216    # lm phase: token ids in the TokenStore
+LM_STORE_BLOCK = 65_536         # lm phase: the store's block
+LM_ZIPF = 1.1                   # lm phase: the token ids' Zipf exponent
+LM_BATCH = 8                    # lm phase: prompts (prefill_32k's 32, cut)
+LM_PREFILL = 2048               # lm phase: prompt tokens (32,768, cut)
+LM_DECODE = 32                  # lm phase: greedy decode steps
+LM_CHECK = (2, 256)             # lm phase: the fp32 decode-vs-forward batch
+LM_CHECK_LAYERS = 2             # lm phase: ... over the first 2 layers
+LM_DECODE_TOL = 1e-3            # of max |logit|: fp32 decode vs forward
+LM_BF16_CHECK = (2, 64)         # lm phase: the bf16 card-vs-host batch
+LM_BF16_LAYERS = 1              # lm phase: ... over the first layer
+LM_BF16_TOL = 2e-2              # of max |logit|: bf16 card vs host
+# examples phase: (name, command, a line its output must hold)
+EXAMPLES = (
+    ("quickstart", ["examples/quickstart_torch.py"],
+     r"ranked top-k: .*exact parity"),
+    ("serve_quickstart", ["examples/serve_quickstart_torch.py"],
+     r"parity: batch \d+ .* bitwise identical"),
+    ("launch.serve", ["-m", "repro_torch.launch.serve", "--arch",
+                      "smollm-135m", "--tokens", "8"],
+     r"(?m)^decoded 8 steps x batch 2 in [0-9.]+ ms$"),
+)
 
 
 def log(msg: str) -> None:
@@ -356,6 +426,10 @@ def _oracle_init(src: str, seed: int, n_docs: int) -> None:
     from repro_torch.index.scores import bm25_scores
     doclen, postings = synth.make_corpus("gov2", seed=seed, n_docs=n_docs)
     avdl = float(np.asarray(doclen).mean())
+    top = sorted(postings)[:QUERY_TERMS]
+    _ORACLE_STATE["doclen"] = np.asarray(doclen, np.int64)
+    _ORACLE_STATE["postings"] = {t: postings[t] for t in top}
+    _ORACLE_STATE["epoch"] = None
     _ORACLE_STATE["sc"] = {
         t: (postings[t][0], bm25_scores(postings[t][1],
                                         doclen[postings[t][0]],
@@ -366,12 +440,74 @@ def _oracle_init(src: str, seed: int, n_docs: int) -> None:
                             np.zeros(len(doclen), bool))
 
 
+def _pfd_build_task(src: str, seed: int, n_docs: int):
+    """Group-PFD build worker: the same corpus as the main process (made
+    from the seed), built with ``codec="group_pfd"``; returns the index
+    and the build's seconds (the codecs phase serves it)."""
+    sys.path.insert(0, src)
+    from repro_torch.data import synth
+    from repro_torch.index.invindex import InvertedIndex
+    doclen, postings = synth.make_corpus("gov2", seed=seed, n_docs=n_docs)
+    t0 = time.perf_counter()
+    idx = InvertedIndex.build(doclen, postings, codec="group_pfd")
+    return idx, time.perf_counter() - t0
+
+
 def _oracle_or_task(queries: list) -> list:
     """`or` oracle worker task: :func:`oracle_or` of each query."""
     import numpy as np
     from repro_torch.index.scores import topk_select
     return [oracle_or(_ORACLE_STATE["sc"], q, RANKED_K, _ORACLE_STATE["buf"],
                       np, topk_select) for q in queries]
+
+
+def _live_or_task(epoch: tuple, queries: list) -> list:
+    """`or` oracle worker task under a mutation epoch: ``epoch`` is (key,
+    the dead base docs as packed bits, the delta docs {term: {doc: tf}},
+    the appended doclen column, {doc: doclen} of the upserts); the live
+    impacts are :func:`live_impacts`' on the worker's own corpus, made
+    once an epoch."""
+    import numpy as np
+    from repro_torch.index.scores import bm25_scores, topk_select
+    st = _ORACLE_STATE
+    key, dead_bits, delta, appended, upserted = epoch
+    if st["epoch"] != key:
+        base = st["doclen"]
+        dead = np.unpackbits(dead_bits, count=len(base)).astype(bool)
+        dl = np.concatenate([base, appended])
+        dl[list(upserted)] = list(upserted.values())
+        _, sc = live_impacts(st["postings"], list(st["postings"]), dead,
+                             delta, dl, np, bm25_scores)
+        st["epoch"], st["live_sc"] = key, sc
+        st["live_buf"] = (np.zeros(len(dl)), np.zeros(len(dl), bool))
+    sc = st["live_sc"]
+    return [oracle_or(sc, [t for t in q if t in sc], RANKED_K,
+                      st["live_buf"], np, topk_select) for q in queries]
+
+
+def live_impacts(postings: dict, terms: list, dead, delta: dict, dl, np,
+                 bm25_scores) -> tuple:
+    """The terms' live postings and BM25 impacts under a mutation epoch:
+    base postings without the ``dead`` docs, the ``delta`` docs merged in
+    by docid, scored with the live df, the doc space ``len(dl)`` and the
+    mean of the live doclen column ``dl``."""
+    space, avdl = len(dl), float(dl.mean())
+    live, sc = {}, {}
+    for t in terms:
+        ids, tfs = postings[t]
+        keep = ~dead[ids]
+        ids, tfs = ids[keep], tfs[keep]
+        d = delta.get(t)
+        if d:
+            ids = np.concatenate([ids, np.fromiter(d, np.uint32, len(d))])
+            tfs = np.concatenate([tfs, np.fromiter(d.values(), np.uint32,
+                                                   len(d))])
+            order = np.argsort(ids, kind="stable")
+            ids, tfs = ids[order], tfs[order]
+        if len(ids):
+            live[t] = (ids, tfs)
+            sc[t] = (ids, bm25_scores(tfs, dl[ids], len(ids), space, avdl))
+    return live, sc
 
 
 def bit_share(words) -> float:
@@ -513,14 +649,16 @@ def timed_calls(fn, total: list):
     return wrap
 
 
-def mutation_phase(idx, doclen, postings, terms, seed, np, torch) -> dict:
+def mutation_phase(idx, doclen, postings, terms, seed, oracle_pool, np,
+                   torch) -> dict:
     """The mutation phase (module docstring) on ``idx``, which the ranked
     phase left unmutated with its arenas built: a tombstone-only epoch, a
     delta-bearing one, then ``compact()`` under a pinned plan.  Every batch
     equals a numpy oracle over the live postings (BM25 with live df, the
-    doc space and the mean of the live doclen column); raises on any
-    failed check.  Returns the figures and the tombstone ``or`` batch's
-    captured B1, B2-add (masked) and B4 (gated) calls."""
+    doc space and the mean of the live doclen column; the `or` oracles by
+    ``oracle_pool``'s workers); raises on any failed check.  Returns the
+    figures and the tombstone ``or`` batch's captured B1, B2-add (masked)
+    and B4 (gated) calls."""
     from repro_torch import kernels as K
     from repro_torch.index.engine import QueryBatch, QueryEngine
     from repro_torch.index.scores import bm25_scores, topk_select
@@ -545,37 +683,29 @@ def mutation_phase(idx, doclen, postings, terms, seed, np, torch) -> dict:
     delta: dict = {}                     # term -> {docid: tf} of delta docs
     dl = np.asarray(doclen, np.int64).copy()
 
+    upserted: dict = {}                  # base doc -> its upserted doclen
+    epochs = [0]
+
     def live_view():
         """The query terms' live postings and BM25 impacts under the live
-        statistics, and a zeroed accumulator pair over the doc space."""
-        space, avdl = len(dl), float(dl.mean())
-        live, sc = {}, {}
-        for t in top:
-            ids, tfs = postings[t]
-            keep = ~dead[ids]
-            ids, tfs = ids[keep], tfs[keep]
-            d = delta.get(t)
-            if d:
-                ids = np.concatenate([ids, np.fromiter(d, np.uint32, len(d))])
-                tfs = np.concatenate([tfs, np.fromiter(d.values(), np.uint32,
-                                                       len(d))])
-                order = np.argsort(ids, kind="stable")
-                ids, tfs = ids[order], tfs[order]
-            if len(ids):
-                live[t] = (ids, tfs)
-                sc[t] = (ids, bm25_scores(tfs, dl[ids], len(ids), space,
-                                          avdl))
-        return live, sc, (np.zeros(space), np.zeros(space, bool))
+        statistics, and the epoch as the `or` oracle workers take it."""
+        live, sc = live_impacts(postings, top, dead, delta, dl, np,
+                                bm25_scores)
+        epochs[0] += 1
+        epoch = (epochs[0], np.packbits(dead[:base_n]), delta,
+                 dl[base_n:].copy(), dict(upserted))
+        return live, sc, epoch
 
     def draw(n, mode, view):
-        live, sc, buf = view
+        live, sc, epoch = view
         qs = [rng.choice(top, size=rng.integers(2, 4), replace=False).tolist()
               for _ in range(n)]
         if mode == "and":
             want = [oracle_and(live, q, np) for q in qs]
         elif mode == "or":
-            want = [oracle_or(sc, [t for t in q if t in sc], RANKED_K, buf,
-                              np, topk_select) for q in qs]
+            jobs = [oracle_pool.submit(_live_or_task, epoch, qs[i:i + 8])
+                    for i in range(0, n, 8)]
+            want = [r for f in jobs for r in f.result()]
         else:
             want = [oracle_and_scored(live, sc, [t for t in q if t in sc],
                                       RANKED_K, np, topk_select) for q in qs]
@@ -746,6 +876,7 @@ def mutation_phase(idx, doclen, postings, terms, seed, np, torch) -> dict:
     dead[upserts] = True
     dl = np.concatenate([dl, np.full(MUT_INSERTS, mean_dl, np.int64)])
     dl[upserts] = mean_dl
+    upserted.update((d, mean_dl) for d in upserts)
     step(f"insert {MUT_INSERTS} docs and upsert {MUT_UPSERTS}")
     view = live_view()
     dq = {"and": draw(QUERIES, "and", view),
@@ -798,17 +929,17 @@ def mutation_phase(idx, doclen, postings, terms, seed, np, torch) -> dict:
     return out
 
 
-def codecs_phase(doclen, postings, fresh, src, smi, np, torch) -> dict:
-    """The codecs phase (module docstring): the Group-PFD index served on
-    the ``device`` placement (and ``fused`` ``and``) against the main
-    path's oracles, then the decode table of every codec that declares
-    ``Codec.torch``.  Raises on any failed check; returns the figures."""
+def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> dict:
+    """The codecs phase (module docstring): the Group-PFD index (built by
+    ``pfd_job``, a worker process's future) served on the ``device``
+    placement (and ``fused`` ``and``) against the main path's oracles,
+    then the decode table of every codec that declares ``Codec.torch``.
+    Raises on any failed check; returns the figures."""
     from repro_torch import kernels as K
     from repro_torch.core import codec as codec_lib
     from repro_torch.core.bits import ebw_np, from_np, to_np
     from repro_torch.core.dgap import dgap_encode_np
     from repro_torch.index.engine import QueryBatch, QueryEngine
-    from repro_torch.index.invindex import InvertedIndex
     from repro_torch.kernels import ops
     from repro_torch.obs.trace import enable_tracing
 
@@ -819,9 +950,8 @@ def codecs_phase(doclen, postings, fresh, src, smi, np, torch) -> dict:
     gaps = [dgap_encode_np(postings[t][0]) for t in table_terms]
     n_table = sum(len(g) for g in gaps)
     names = [n for n in codec_lib.names() if codec_lib.get(n).torch]
-    # the decode table's host encodes run in worker processes beside the
-    # Group-PFD build (longest lists first); the serving below starts once
-    # the build is done, so they take no host time from the batches
+    # the decode table's host encodes run in worker processes while the
+    # arenas build (longest lists first); the table waits for them
     pool = concurrent.futures.ProcessPoolExecutor(
         ENCODE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
         initializer=_encode_init, initargs=(src, gaps))
@@ -832,8 +962,8 @@ def codecs_phase(doclen, postings, fresh, src, smi, np, torch) -> dict:
 
         log("== codecs: the Group-PFD index on the device placement")
         t0 = time.perf_counter()
-        idx = InvertedIndex.build(doclen, postings, codec="group_pfd")
-        out["build_s"] = time.perf_counter() - t0
+        idx, out["build_s"] = pfd_job.result()
+        out["build_wait_s"] = time.perf_counter() - t0
         encs = [e for tp in idx.terms.values() for _, e, _ in tp.blocks]
         pfd = [e for e in encs if e.codec == "group_pfd"]
         n_exc = sum(1 for e in pfd if len(e.exceptions))
@@ -844,7 +974,8 @@ def codecs_phase(doclen, postings, fresh, src, smi, np, torch) -> dict:
         log(f"InvertedIndex.build(codec='group_pfd'): {len(encs)} docid "
             f"blocks ({len(pfd)} group_pfd, {n_exc} of them with "
             f"exceptions, the rest {out['blocks']['codecs']}) in "
-            f"{out['build_s']:.2f} s")
+            f"{out['build_s']:.2f} s in a worker process beside the earlier "
+            f"phases; waited {out['build_wait_s']:.2f} s for it")
         if n_exc <= 0:
             raise AssertionError("the Group-PFD index holds no exceptions")
         del encs, pfd
@@ -1204,9 +1335,9 @@ def serve_phase(gen, fresh, root, seed, smi, np, torch) -> dict:
                       ).to_device(fused=True)
     torch.cuda.synchronize()
     out = {"to_device_s": time.perf_counter() - t0}
-    log(f"unsharded arenas rebuilt: to_device(fused=True) "
-        f"{out['to_device_s']:.2f} s (the score arena follows in the "
-        f"server's warm-up)")
+    log(f"engine over the main path's generation: to_device(fused=True) "
+        f"{out['to_device_s']:.2f} s (its arenas and score arena cached on "
+        f"the generation)")
     cfg = ServeConfig(max_batch=16, max_wait_ms=4.0, placement="fused",
                       default_deadline_ms=SERVE_DEADLINE_MS,
                       queue_cap=max(1024, len(reqs)),
@@ -1286,6 +1417,307 @@ def serve_phase(gen, fresh, root, seed, smi, np, torch) -> dict:
                              f"--smoke exited {proc.returncode}")
     log(f"python -m repro_torch.launch.serve --index --smoke: exit 0 in "
         f"{out['launch_serve_s']:.2f} s")
+    return out
+
+
+def start_examples(root) -> dict:
+    """Start the examples phase's subprocesses (``EXAMPLES``) on the card,
+    all at once; {name: Popen}."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    return {name: subprocess.Popen([sys.executable, *cmd], cwd=root, env=env,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+            for name, cmd, _ in EXAMPLES}
+
+
+def examples_phase(procs, gen, fresh, smi, np) -> dict:
+    """The examples phase (module docstring): the one-shot query shims on
+    the main path's generation, each result held against the main path's;
+    then the example subprocesses (``procs``, from :func:`start_examples`)
+    collected: each exits 0 and prints its line, and the quickstart's
+    launch counts show its kernels.  Raises on any failed check; returns
+    the figures."""
+    from repro_torch.index import query as Q
+    from repro_torch.index.invindex import InvertedIndex
+
+    log(f"== examples: the one-shot shims on {SHIM_QUERIES} of the fresh "
+        f"queries; the {len(EXAMPLES)} subprocesses started with the "
+        f"sharded phase")
+    out = {"shims_s": {}, "subprocess_s": {}}
+    # the shims serve on the host placement: no launch, no device state
+    idx = InvertedIndex(gen=gen)
+    (and_q, and_want), _ = fresh["and"]
+    (or_q, or_want), _ = fresh["or"]
+    for mode, shim, qs, want in (
+            ("and", Q.and_query, and_q, and_want),
+            ("or", lambda i, q: Q.or_query(i, q, k=RANKED_K), or_q, or_want)):
+        t0 = time.perf_counter()
+        for q, w in zip(qs[:SHIM_QUERIES], want[:SHIM_QUERIES]):
+            got = shim(idx, q)
+            if not (np.array_equal(got, w) if mode == "and" else got == w):
+                raise AssertionError(f"examples: the {mode} shim on {q} "
+                                     f"differs from the main path's result")
+        out["shims_s"][mode] = time.perf_counter() - t0
+    log(f"shims and_query, or_query (k={RANKED_K}) on {SHIM_QUERIES} "
+        f"queries each, every result equal to the main path's: "
+        f"{out['shims_s']['and']:.2f} s, {out['shims_s']['or']:.2f} s "
+        f"(host placement)")
+    for name, cmd, expect in EXAMPLES:
+        t0 = time.perf_counter()
+        stdout, stderr = procs[name].communicate(timeout=600)
+        out["subprocess_s"][name] = time.perf_counter() - t0
+        for line in stdout.strip().splitlines():
+            log(f"  {name} | {line}")
+        if procs[name].returncode != 0:
+            for line in stderr.strip().splitlines()[-20:]:
+                log(f"  {name} ! {line}")
+            raise AssertionError(f"examples: {' '.join(cmd)} exited "
+                                 f"{procs[name].returncode}")
+        if not re.search(expect, stdout):
+            raise AssertionError(f"examples: {' '.join(cmd)} did not "
+                                 f"print /{expect}/")
+        if name == "quickstart":
+            line = [x for x in stdout.splitlines()
+                    if x.startswith("kernel launches: ")][-1]
+            launches = json.loads(line.split(": ", 1)[1])
+            missing = [k for k in ("B2", "B3", "B6", "B7a")
+                       if launches.get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"examples: the quickstart did not "
+                                     f"launch {missing}: {launches}")
+            out["quickstart_launches"] = launches
+    log(f"examples exit 0 (waited "
+        f"{json.dumps({k: round(v, 2) for k, v in out['subprocess_s'].items()})} "
+        f"s here); quickstart launches {out['quickstart_launches']} (B4 "
+        f"{'launched' if out['quickstart_launches']['B4'] else 'not launched'}); "
+        f"{smi}")
+    return out
+
+
+def decode_breakdown(step, torch) -> dict:
+    """One call of ``step`` (a decode step, after the timed ones) under
+    ``torch.profiler``: the wall seconds (profiler on), the device's kernel
+    time, and the kernel time under ``aten::_to_copy`` (the dtype casts:
+    every weight cast to bf16 on use, and the cache to fp32 for the
+    scores).  ``None`` for a figure the trace does not hold."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = casts = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += getattr(e, "self_device_time_total", 0.0)
+        elif e.key == "aten::_to_copy":
+            casts += getattr(e, "device_time_total", 0.0)
+    if not kernels:
+        return {"wall_s": wall, "kernel_s": None, "cast_s": None}
+    return {"wall_s": wall, "kernel_s": kernels / 1e6, "cast_s": casts / 1e6,
+            "busy_share": kernels / 1e6 / wall,
+            "cast_share_of_kernels": casts / kernels}
+
+
+def lm_phase(dev, seed, smi, np, torch) -> dict:
+    """The lm phase (module docstring): dense-LM serving at full width on
+    ``dev``, prompts from a compressed token store.  Raises on any failed
+    check; returns the figures per model."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStore, lm_batch_iter
+    from repro_torch.models import transformer as T
+    from repro_torch.models.specs import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    log(f"== lm: {', '.join(LM_ARCHS)} at full width; prefill "
+        f"{LM_BATCH} x {LM_PREFILL}, {LM_DECODE} greedy decode steps; "
+        f"memory_allocated {torch.cuda.memory_allocated()} bytes at the start")
+    out = {}
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for arch in LM_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        cfg = configs.get(arch).make_config()
+        r = {}
+        rng = np.random.default_rng(seed + 17)
+        toks = ((rng.zipf(LM_ZIPF, LM_STORE_TOKENS) - 1) % cfg.vocab
+                ).astype(np.uint32)
+        t0 = time.perf_counter()
+        store = TokenStore.build(toks, codec="bp128", block=LM_STORE_BLOCK)
+        r["store_build_s"] = time.perf_counter() - t0
+        r["store_ratio"] = store.compressed_bytes() / store.raw_bytes
+        t0 = time.perf_counter()
+        back = store.read(0, store.n)
+        r["store_read_tokens_per_s"] = store.n / (time.perf_counter() - t0)
+        if not np.array_equal(back, toks):
+            raise AssertionError(f"lm {arch}: the token store reads back wrong")
+        batch, nxt = lm_batch_iter(store, LM_BATCH, LM_PREFILL)(0)
+        flat = toks[:LM_BATCH * (LM_PREFILL + 1)].reshape(LM_BATCH, -1)
+        if nxt != 1 or not np.array_equal(batch["tokens"], flat[:, :-1]):
+            raise AssertionError(f"lm {arch}: lm_batch_iter's first batch")
+        del toks, back
+        log(f"{arch}: TokenStore bp128 of {store.n} Zipf({LM_ZIPF}) ids "
+            f"(block {LM_STORE_BLOCK}) built in {r['store_build_s']:.2f} s, "
+            f"ratio {r['store_ratio']:.4f} of raw, host read "
+            f"{r['store_read_tokens_per_s']:.4e} tokens/s")
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        t0 = time.perf_counter()
+        model = T.init(cfg, gen)
+        r["init_s"] = sync_s(t0)
+        params = list(model.parameters())
+        r["params"] = sum(p.numel() for p in params)
+        if not all(p.device == dev for p in params):
+            raise AssertionError(f"lm {arch}: a parameter is not on the card")
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+
+        # bf16 serving: prefill (one warm-up), then greedy decode
+        T.prefill(model, tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(model, tokens)
+        r["prefill_s"] = sync_s(t0)
+        r["prefill_tokens_per_s"] = LM_BATCH * LM_PREFILL / r["prefill_s"]
+        last_bf16 = logits.float()
+        cache = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (LM_DECODE,) + v.shape[3:])], dim=2)
+                 for k, v in cache.items()}
+        ptrs = {k: v.data_ptr() for k, v in cache.items()}
+        finite = torch.isfinite(logits).all()
+        on_card = [t.device == dev for t in (logits, *cache.values())]
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        step_s = []
+        for i in range(LM_DECODE):
+            t0 = time.perf_counter()
+            logits, cache2 = T.decode_step(model, cache, tok, LM_PREFILL + i)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            step_s.append(sync_s(t0))
+            on_card.append(logits.device == dev)
+            finite &= torch.isfinite(logits).all()
+            if cache2 is not cache or {k: v.data_ptr() for k, v in cache.items()} != ptrs:
+                raise AssertionError(f"lm {arch}: decode step {i} did not "
+                                     f"write the cache in place")
+        if not all(on_card) or not bool(finite):
+            raise AssertionError(f"lm {arch}: logits or cache off the card "
+                                 f"or not finite")
+        r["decode_trace"] = decode_breakdown(
+            lambda: T.decode_step(model, cache, tok, LM_PREFILL + LM_DECODE - 1),
+            torch)
+        r["decode_s"] = sum(step_s)
+        r["decode_tokens_per_s"] = LM_BATCH * LM_DECODE / r["decode_s"]
+        r["decode_step_s"] = {"median": sorted(step_s)[len(step_s) // 2],
+                              "first": step_s[0], "min": min(step_s)}
+        r["cache_gib"] = sum(v.numel() * v.element_size()
+                             for v in cache.values()) / 2**30
+        del cache, cache2, logits
+        r["peak_gib_bf16"] = torch.cuda.max_memory_allocated() / 2**30
+
+        # The checks.  The reference's init draws every stacked leaf at
+        # 1/sqrt(shape[-2]): wq and wk at 1/sqrt(H) and 1/sqrt(KH), so the
+        # attention scores reach the hundreds and round-off grows layer by
+        # layer (the reference's own fp32 decode differs from its forward by
+        # 0.70 of max |logit| at smollm-135m's 30 layers, its bf16 prefill
+        # from its fp32 one by 0.22 at starcoder2-3b's first layer:
+        # tools/lm_roundoff_depth.py).  On the card the decode step's
+        # products (B rows) and the forward's (B x S rows) also sum in
+        # other orders.  So each check runs on the first layers of the
+        # same weights, where round-off has not grown (two layers: the
+        # cache's layer index is exercised), and the full depth's figures
+        # are printed beside them.
+        tree = model.tree()
+
+        def cut(n, dtype, device=dev):
+            n = min(n, cfg.n_layers)
+            t = dict(tree, dense_layers=tree_map(lambda a: a[:n],
+                                                 tree["dense_layers"]))
+            t = tree_map(lambda a: a.to(device), t)
+            return T.LM(dataclasses.replace(cfg, n_layers=n, dtype=dtype), t)
+
+        def decode_vs_forward(m):
+            """fp32: the decode step at position S against ``trunk`` on
+            S+1 tokens, (max |diff|, max |logit|)."""
+            b, s = LM_CHECK
+            toks2 = tokens[:b, :s]
+            lg, c32 = T.prefill(m, toks2)
+            c32 = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (1,) + v.shape[3:])], dim=2)
+                   for k, v in c32.items()}
+            nxt_tok = torch.argmax(lg, -1).to(torch.int32)
+            lg_d, _ = T.decode_step(m, c32, nxt_tok, s)
+            x, _, _ = T.trunk(m, torch.cat([toks2, nxt_tok[:, None]], 1))
+            full = torch.einsum("bd,vd->bv", x[:, -1], m.embed)
+            return {"max_abs_err": float((lg_d - full).abs().max()),
+                    "max_abs_logit": float(full.abs().max())}
+
+        r["decode_vs_forward"] = dvf = decode_vs_forward(
+            cut(LM_CHECK_LAYERS, torch.float32))
+        if not dvf["max_abs_err"] <= LM_DECODE_TOL * dvf["max_abs_logit"]:
+            raise AssertionError(f"lm {arch}: fp32 decode differs from the "
+                                 f"full forward over {LM_CHECK_LAYERS} "
+                                 f"layers: {dvf}")
+        r["decode_vs_forward_all_layers"] = decode_vs_forward(
+            cut(cfg.n_layers, torch.float32))
+        # bf16 on the card against the same code's bf16 on the host CPU
+        b, s = LM_BF16_CHECK
+        card = T.prefill(cut(LM_BF16_LAYERS, torch.bfloat16),
+                         tokens[:b, :s])[0].float().cpu()
+        host = T.prefill(cut(LM_BF16_LAYERS, torch.bfloat16, torch.device("cpu")),
+                         tokens[:b, :s].cpu())[0].float()
+        r["bf16_card_vs_host"] = bvh = {
+            "max_abs_err": float((card - host).abs().max()),
+            "max_abs_logit": float(host.abs().max()),
+            "top1_agree": float((card.argmax(-1) == host.argmax(-1)).float().mean())}
+        if not bvh["max_abs_err"] <= LM_BF16_TOL * bvh["max_abs_logit"]:
+            raise AssertionError(f"lm {arch}: bf16 prefill on the card differs "
+                                 f"from the host CPU's over {LM_BF16_LAYERS} "
+                                 f"layer(s): {bvh}")
+        # the served batch's bf16 prefill against an fp32 prefill of the
+        # same weights, all layers (printed, not a check: see above)
+        t0 = time.perf_counter()
+        lg32, c32 = T.prefill(cut(cfg.n_layers, torch.float32), tokens)
+        r["prefill_fp32_s"] = sync_s(t0)
+        del c32
+        r["bf16_vs_fp32"] = {
+            "max_abs_err": float((last_bf16 - lg32).abs().max()),
+            "max_abs_logit": float(lg32.abs().max()),
+            "top1_agree": float((last_bf16.argmax(-1) == lg32.argmax(-1))
+                                .float().mean())}
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{arch}: {r['params']} params, init {r['init_s']:.2f} s; prefill "
+            f"{LM_BATCH} x {LM_PREFILL} in {r['prefill_s']:.4f} s = "
+            f"{r['prefill_tokens_per_s']:.1f} tokens/s (fp32 "
+            f"{r['prefill_fp32_s']:.4f} s); decode {LM_DECODE} steps x batch "
+            f"{LM_BATCH} in {r['decode_s']:.4f} s = "
+            f"{r['decode_tokens_per_s']:.1f} tokens/s, step median "
+            f"{r['decode_step_s']['median']:.5f} s (first "
+            f"{r['decode_step_s']['first']:.5f}); traced step "
+            f"{json.dumps(r['decode_trace'])}; cache {r['cache_gib']:.3f} "
+            f"GiB in place; fp32 decode vs forward "
+            f"{r['decode_vs_forward']['max_abs_err']:.3e} of max |logit| "
+            f"{r['decode_vs_forward']['max_abs_logit']:.4f} over "
+            f"{LM_CHECK_LAYERS} layers ({cfg.n_layers} layers: "
+            f"{r['decode_vs_forward_all_layers']['max_abs_err']:.3e} of "
+            f"{r['decode_vs_forward_all_layers']['max_abs_logit']:.4f}); "
+            f"bf16 card vs host {bvh['max_abs_err']:.3e} of "
+            f"{bvh['max_abs_logit']:.4f} over {LM_BF16_LAYERS} layer(s), "
+            f"top-1 agree {bvh['top1_agree']:.4f}; bf16 vs fp32 prefill, "
+            f"{cfg.n_layers} layers, {r['bf16_vs_fp32']['max_abs_err']:.4e} of "
+            f"{r['bf16_vs_fp32']['max_abs_logit']:.4f}, top-1 agree "
+            f"{r['bf16_vs_fp32']['top1_agree']:.4f}; peak "
+            f"{r['peak_gib_bf16']:.2f} GiB bf16 serving, {r['peak_gib']:.2f} "
+            f"GiB with the fp32 checks; {smi}")
+        out[arch] = r
+        del model, tree, params, tokens, lg32, last_bf16, store, card, host
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1371,6 +1803,11 @@ def main() -> int:
     oracle_pool = concurrent.futures.ProcessPoolExecutor(
         ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
         initializer=_oracle_init, initargs=(src, args.seed, args.n_docs))
+    # the codecs phase's Group-PFD index builds in a worker process of its
+    # own meanwhile (host work only, as long as the main path's build)
+    pfd_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    pfd_job = pfd_pool.submit(_pfd_build_task, src, args.seed, args.n_docs)
     t0 = time.perf_counter()
     doclen, postings = synth.make_corpus("gov2", seed=args.seed,
                                          n_docs=args.n_docs)
@@ -1429,7 +1866,6 @@ def main() -> int:
     t0 = time.perf_counter()
     for jobs in or_jobs:
         concurrent.futures.wait(jobs)
-    oracle_pool.shutdown()
     log(f"the ranked path's `or` oracles ({ORACLE_WORKERS} worker processes, "
         f"beside the build) done; waited {time.perf_counter() - t0:.2f} s")
     # each AND batch's largest B1 call per bit width and largest B2 bits
@@ -1692,13 +2128,22 @@ def main() -> int:
 
     # ---- mutation epochs -------------------------------------------------- #
     phase_done("ranked path")
-    # the unmutated generation's host tables, kept for the shard and serve
-    # phases; a fresh handle, so its device arenas stay with idx and go
-    # when the mutation phase compacts it away
+    # ---- serving loop, on the main path's arenas -------------------------- #
+    serve = serve_phase(idx.gen, fresh, root, args.seed, smi, np, torch)
+
+    # ---- mutation epochs -------------------------------------------------- #
+    phase_done("serve")
+    # the unmutated generation's host tables, kept for the sharded and
+    # examples phases; a fresh handle, so its device arenas stay with idx
+    # and go when the mutation phase compacts it away
     g = idx.gen
     gen0 = Generation(g.codec, g.terms, g.n_docs, g.doclen, g.gid)
     del g
-    mut = mutation_phase(idx, doclen, postings, terms, args.seed, np, torch)
+    try:
+        mut = mutation_phase(idx, doclen, postings, terms, args.seed,
+                             oracle_pool, np, torch)
+    finally:
+        oracle_pool.shutdown()
     mcaps = mut.pop("captured")
     del idx
     gc.collect()        # free the arenas before the kernel phase
@@ -1798,892 +2243,915 @@ def main() -> int:
 
     # ---- codecs ----------------------------------------------------------- #
     phase_done("stream path")
-    codecs = codecs_phase(doclen, postings, fresh, src, smi, np, torch)
-    del postings
+    codecs = codecs_phase(pfd_job, postings, fresh, src, smi, np, torch)
+    pfd_pool.shutdown()
+    del postings, pfd_job
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---- doc-range shards ------------------------------------------------- #
     phase_done("codecs")
-    sharded = sharded_phase(gen0, fresh, smi, np, torch)
+    # the examples phase's subprocesses start here: the shard build ahead
+    # is host work of this process alone, about twice their run time
+    ex_procs = start_examples(root)
+    try:
+        sharded = sharded_phase(gen0, fresh, smi, np, torch)
 
-    # ---- serving loop ----------------------------------------------------- #
-    phase_done("sharded")
-    serve = serve_phase(gen0, fresh, root, args.seed, smi, np, torch)
+        # ---- examples and the one-shot shims ------------------------------ #
+        phase_done("sharded")
+        examples = examples_phase(ex_procs, gen0, fresh, smi, np)
+    finally:
+        for p in ex_procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     del fresh, gen0
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---- kernels ---------------------------------------------------------- #
-    phase_done("serve")
-    log("== kernels vs plain versions (bitwise)")
-    log(f"memory_allocated {torch.cuda.memory_allocated()} bytes at the start")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
+    phase_done("examples")
+    def kernel_phase() -> list:
+        """The kernel phase (module docstring); returns its report.  A
+        function of its own, so that every device tensor it makes is
+        freed when it returns, before the lm phase."""
+        log("== kernels vs plain versions (bitwise)")
+        log(f"memory_allocated {torch.cuda.memory_allocated()} bytes at the start")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
 
-    def rand_words(shape):
-        return torch.randint(-2**31, 2**31, shape, generator=gen, device=dev,
-                             dtype=torch.int64).to(torch.int32)
+        def rand_words(shape):
+            return torch.randint(-2**31, 2**31, shape, generator=gen, device=dev,
+                                 dtype=torch.int64).to(torch.int32)
 
-    def rand_int(hi, n):
-        return torch.randint(0, hi, (n,), generator=gen, device=dev,
-                             dtype=torch.int64).to(torch.int32)
+        def rand_int(hi, n):
+            return torch.randint(0, hi, (n,), generator=gen, device=dev,
+                                 dtype=torch.int64).to(torch.int32)
 
-    report = []
+        report = []
 
-    def decode_case(bw, w, n_tiles, q, crows, with_q):
-        rpb = rows_per_block(bw)
-        tiles = rand_words((n_tiles * rpb, 128))
-        slots = rand_int(n_tiles, w)
-        qslots = torch.sort(rand_int(q, w)).values if with_q else None
-        firsts = rand_int(n_docs, w)
-        ns = torch.where(rand_int(8, w) == 0, rand_int(513, w),
-                         torch.full((w,), 512, dtype=torch.int32, device=dev))
-        cand = rand_words((q * crows, 128))
-        return tiles, slots, qslots, firsts, ns, cand
+        def decode_case(bw, w, n_tiles, q, crows, with_q):
+            rpb = rows_per_block(bw)
+            tiles = rand_words((n_tiles * rpb, 128))
+            slots = rand_int(n_tiles, w)
+            qslots = torch.sort(rand_int(q, w)).values if with_q else None
+            firsts = rand_int(n_docs, w)
+            ns = torch.where(rand_int(8, w) == 0, rand_int(513, w),
+                             torch.full((w,), 512, dtype=torch.int32, device=dev))
+            cand = rand_words((q * crows, 128))
+            return tiles, slots, qslots, firsts, ns, cand
 
-    # B1, every bw bucket, at the largest call any main path gave it, probed
-    # against a random bitmap (as the AND rounds) and against all ones (the
-    # `or` rounds' gate, where only lane validity masks a hit)
-    per_bw, seen, b1_paths = {}, {}, {}
-    for path, c in calls["B1"]:
-        b1_paths.setdefault(c["bw"], set()).add(path)
-        if c["bw"] not in seen or c["W"] > seen[c["bw"]][0]:
-            seen[c["bw"]] = (c["W"], c["tiles"], c["Q"], c["crows"])
-    w_max = max(v[0] for v in seen.values())
-    _, _, q_main, crows_main = next(iter(seen.values()))
-    for bw in BW_BUCKETS:
-        w, n_tiles, q, crows = seen.get(bw, (w_max, w_max, q_main, crows_main))
-        tiles, slots, qslots, firsts, ns, cand = decode_case(bw, w, n_tiles, q,
-                                                             crows, True)
-        args_ = (tiles, slots, qslots, firsts, ns, cand)
-        err = 0
-        for gate in (cand, torch.full_like(cand, -1)):
-            a = (tiles, slots, qslots, firsts, ns, gate)
-            got = intersect_rounds.segmented_decode_and(*a, bw=bw, crows=crows)
-            ref = intersect_rounds.segmented_decode_and_plain(*a, bw=bw,
-                                                              crows=crows)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(got, ref, torch))
-        # against all ones every valid lane hits and no other does
-        n_hits = int(torch.count_nonzero(got[1]))
-        if n_hits != int(ns.long().sum()):
-            raise AssertionError(f"B1 bw={bw} all-ones gate: {n_hits} hits "
-                                 f"for {int(ns.long().sum())} valid lanes")
-        # bound: distinct tile rows, indices, probed words, outputs; sector
-        # floor: 32 B a probed sector in place of 4 B a word
-        counts = forms.b1_counts(slots, qslots, ns, ref[0].reshape(w, -1),
-                                 bw, crows)
-        nbytes = counts["bytes"]
-        ms = cuda_ms(lambda: intersect_rounds.segmented_decode_and(
-            *args_, bw=bw, crows=crows), torch)
-        pms = cuda_ms(lambda: intersect_rounds.segmented_decode_and_plain(
-            *args_, bw=bw, crows=crows), torch)
-        per_bw[bw] = {"W": w, "queries": q, "crows": crows,
-                      "on_main_path": bw in seen,
-                      "paths": sorted(b1_paths.get(bw, ())), "max_abs_err": err,
-                      "ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
-                      "sector_floor_ms": bound_ms(counts["floor_bytes"]),
-                      "bytes": nbytes, "counts": counts}
-        log(f"B1 bw={bw:2d} W={w} Q={q} crows={crows}: err {err} (random and "
-            f"all-ones gates) kernel {ms:.4f} ms plain {pms:.4f} ms bound "
-            f"{bound_ms(nbytes):.4f} ms sector floor "
-            f"{bound_ms(counts['floor_bytes']):.4f} ms; {counts}; paths "
-            f"{', '.join(sorted(b1_paths.get(bw, ()))) or 'none'}")
-        if err:
-            raise AssertionError(f"B1 bw={bw} disagrees with its plain version")
-        del tiles, cand, got, ref
-    main_bw = max(seen, key=lambda b: seen[b][0])
-    b1 = per_bw[main_bw]
-
-    # B1 on each AND batch's captured calls (the largest of each bit width,
-    # the real tiles, docids and candidate bitmap): against its plain
-    # version and its earlier form (tools/and_round_forms.cu, a block an
-    # entry), bitwise, then the two timed in turn
-    b1_captured = {}
-    for mode, caps in and_caps.items():
-        for bw, cap in sorted(caps["B1"].items()):
-            crows = cap["crows"]
-            a = [None if cap[k] is None else cap[k].to(dev) for k in
-                 ("tiles", "slots", "qslots", "firsts", "ns", "cand")]
-            got = intersect_rounds.segmented_decode_and(*a, bw=bw,
-                                                        crows=crows)
-            ref = intersect_rounds.segmented_decode_and_plain(*a, bw=bw,
-                                                              crows=crows)
-            old = forms.b1_block(forms_lib, 0, *a, bw, crows)
-            torch.cuda.synchronize()
-            err = max(max_abs_err(got, ref, torch),
-                      max_abs_err(old, ref, torch))
-            if err:
-                raise AssertionError(f"B1 bw={bw} on {mode}'s captured call "
-                                     f"disagrees with its plain version or "
-                                     f"its earlier form")
-            counts = forms.b1_counts(a[1], a[2], a[4], ref[0].view(-1, 512),
+        # B1, every bw bucket, at the largest call any main path gave it, probed
+        # against a random bitmap (as the AND rounds) and against all ones (the
+        # `or` rounds' gate, where only lane validity masks a hit)
+        per_bw, seen, b1_paths = {}, {}, {}
+        for path, c in calls["B1"]:
+            b1_paths.setdefault(c["bw"], set()).add(path)
+            if c["bw"] not in seen or c["W"] > seen[c["bw"]][0]:
+                seen[c["bw"]] = (c["W"], c["tiles"], c["Q"], c["crows"])
+        w_max = max(v[0] for v in seen.values())
+        _, _, q_main, crows_main = next(iter(seen.values()))
+        for bw in BW_BUCKETS:
+            w, n_tiles, q, crows = seen.get(bw, (w_max, w_max, q_main, crows_main))
+            tiles, slots, qslots, firsts, ns, cand = decode_case(bw, w, n_tiles, q,
+                                                                 crows, True)
+            args_ = (tiles, slots, qslots, firsts, ns, cand)
+            err = 0
+            for gate in (cand, torch.full_like(cand, -1)):
+                a = (tiles, slots, qslots, firsts, ns, gate)
+                got = intersect_rounds.segmented_decode_and(*a, bw=bw, crows=crows)
+                ref = intersect_rounds.segmented_decode_and_plain(*a, bw=bw,
+                                                                  crows=crows)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got, ref, torch))
+            # against all ones every valid lane hits and no other does
+            n_hits = int(torch.count_nonzero(got[1]))
+            if n_hits != int(ns.long().sum()):
+                raise AssertionError(f"B1 bw={bw} all-ones gate: {n_hits} hits "
+                                     f"for {int(ns.long().sum())} valid lanes")
+            # bound: distinct tile rows, indices, probed words, outputs; sector
+            # floor: 32 B a probed sector in place of 4 B a word
+            counts = forms.b1_counts(slots, qslots, ns, ref[0].reshape(w, -1),
                                      bw, crows)
-            del got, ref, old
-            t = in_turns({
-                "port": lambda: intersect_rounds.segmented_decode_and(
-                    *a, bw=bw, crows=crows),
-                "earlier": lambda: forms.b1_block(forms_lib, 0, *a, bw,
-                                                  crows)}, torch)
-            r = b1_captured.setdefault(mode, {})[bw] = {
-                "max_abs_err": err, "ms": min(t["port"]),
-                "earlier_ms": min(t["earlier"]), "ms_in_turns": t,
-                "bound_ms": bound_ms(counts["bytes"]),
-                "sector_floor_ms": bound_ms(counts["floor_bytes"]),
-                "counts": counts}
-            log(f"B1 bw={bw:2d} ({mode}'s captured call): err {err} kernel "
-                f"{t['port']} ms, earlier form {t['earlier']} ms in turns; "
-                f"bound {r['bound_ms']:.4f} ms sector floor "
-                f"{r['sector_floor_ms']:.4f} ms; {counts}")
-            del a
-            torch.cuda.empty_cache()
-    # B1 on the tombstone `or` batch's largest call: it probes the epoch's
-    # live row (1 % of the bits cleared) where the unmutated `or` rounds
-    # probe all ones
-    cap = mcaps["B1"]
-    bw, crows = cap["bw"], cap["crows"]
-    a = [cap[k].to(dev) for k in ("tiles", "slots", "qslots", "firsts", "ns",
-                                  "cand")]
-    got = intersect_rounds.segmented_decode_and(*a, bw=bw, crows=crows)
-    ref = intersect_rounds.segmented_decode_and_plain(*a, bw=bw, crows=crows)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, ref, torch)
-    if err:
-        raise AssertionError("B1 on the tombstone or batch's captured call "
-                             "disagrees with its plain version")
-    counts = forms.b1_counts(a[1], a[2], a[4], ref[0].view(-1, 512), bw, crows)
-    del got, ref
-    b1_tomb = {"bw": bw, "W": int(a[1].shape[0]), "max_abs_err": err,
-               "ms": cuda_ms(lambda: intersect_rounds.segmented_decode_and(
-                   *a, bw=bw, crows=crows), torch),
-               "plain_ms": cuda_ms(
-                   lambda: intersect_rounds.segmented_decode_and_plain(
-                       *a, bw=bw, crows=crows), torch),
-               "bound_ms": bound_ms(counts["bytes"]),
-               "sector_floor_ms": bound_ms(counts["floor_bytes"]),
-               "probe_bits_set": bit_share(a[5]),
-               "counts": counts}
-    log(f"B1 bw={bw} (tombstone or batch's captured call, live-row probe, "
-        f"{b1_tomb['probe_bits_set']:.4f} of its bits set): err {err} kernel "
-        f"{b1_tomb['ms']:.4f} ms plain {b1_tomb['plain_ms']:.4f} ms bound "
-        f"{b1_tomb['bound_ms']:.4f} ms sector floor "
-        f"{b1_tomb['sector_floor_ms']:.4f} ms; {counts}")
-    del a
-    torch.cuda.empty_cache()
-    report.append({
-        "name": "segmented_decode_and (B1)", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_and.cu",
-        "replaces": "src/repro/kernels/intersect_rounds.py:233",
-        "launches": main_launches["B1"],
-        "max_abs_err": max([v["max_abs_err"] for v in per_bw.values()]
-                           + [b1_tomb["max_abs_err"]]),
-        "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
-        "bound_by": "bytes", "library_ms": None, "shape_bw": main_bw,
-        "ranked_launches": ranked_launches["B1"], "per_bw": per_bw,
-        "sector_floor_ms": b1["sector_floor_ms"], "captured": b1_captured,
-        "captured_tombstone_or": b1_tomb,
-        "mutation_launches": {w: r["launches"]["B1"]
-                              for w, r in mut["batches"].items()},
-        "ok": True})
-
-    # B5 at the legacy path's largest call
-    c = max((sh for _, sh in calls["B5"]), key=lambda c: c["W"])
-    bw, w, crows = c["bw"], c["W"], c["R"]
-    tiles, slots, _, firsts, ns, cand = decode_case(bw, w, c["tiles"], 1,
-                                                    crows, False)
-    args_ = (tiles, slots, firsts, ns, cand)
-    got = decode_fused.fused_decode_and(*args_, bw=bw)
-    ref = decode_fused.fused_decode_and_plain(*args_, bw=bw)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, ref, torch)
-    counts = forms.b1_counts(slots, None, ns, ref[0].reshape(w, -1), bw,
-                             crows)
-    nbytes = counts["bytes"]
-    ms = cuda_ms(lambda: decode_fused.fused_decode_and(*args_, bw=bw), torch)
-    pms = cuda_ms(lambda: decode_fused.fused_decode_and_plain(*args_, bw=bw), torch)
-    old_ms = cuda_ms(lambda: forms.b1_block(forms_lib, 0, tiles, slots, None,
-                                            firsts, ns, cand, bw, crows),
-                     torch)
-    log(f"B5 bw={bw} W={w} R={crows}: err {err} kernel {ms:.4f} ms (earlier "
-        f"form {old_ms:.4f} ms) plain {pms:.4f} ms bound "
-        f"{bound_ms(nbytes):.4f} ms sector floor "
-        f"{bound_ms(counts['floor_bytes']):.4f} ms")
-    if err:
-        raise AssertionError("B5 disagrees with its plain version")
-    report.append({
-        "name": "fused_decode_and (B5)", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_and.cu",
-        "replaces": "src/repro/kernels/decode_fused.py:111",
-        "launches": legacy_launches, "path": "legacy and_many",
-        "max_abs_err": err, "ms": ms, "plain_ms": pms,
-        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "library_ms": None,
-        "sector_floor_ms": bound_ms(counts["floor_bytes"]),
-        "earlier_ms": old_ms, "counts": counts,
-        "shape": {"bw": bw, "W": w, "R": crows}, "ok": True})
-    del tiles, cand, got, ref
-
-    def distinct_ids(q, p, lanes, width):
-        """(qslot, ids) of p entries over q queries, sorted by query, with
-        docids distinct within a query (the round contract): the k-th entry
-        of a query takes docids (k * lanes + l) * step + offset."""
-        qslot = torch.sort(rand_int(q, p)).values
-        first_of = torch.searchsorted(qslot, qslot)
-        rank = torch.arange(p, device=dev) - first_of
-        n_max = int(torch.bincount(qslot.long(), minlength=q).max())
-        step = max(1, width // (n_max * lanes))
-        lane = torch.arange(lanes, device=dev)
-        ids = ((rank[:, None] * lanes + lane[None, :]) * step
-               + (qslot.long()[:, None] * 7919) % step).to(torch.int32)
-        return qslot, ids
-
-    # B2 at the largest scatter of any main path
-    b2_path, c = max(calls["B2"], key=lambda pc: pc[1]["P"])
-    q, words, p, lanes = c["Q"], c["words"], c["P"], c["L"]
-    qslot, ids = distinct_ids(q, p, lanes, words * 32)
-    surv = torch.rand((p, lanes), generator=gen, device=dev) < 0.5
-    bm = torch.zeros((q, words), dtype=torch.int32, device=dev)
-    got = accumulate.scatter_bits(bm.clone(), ids, qslot, surv)
-    ref = accumulate.scatter_bits_plain(bm.clone(), ids, qslot, surv)
-    torch.cuda.synchronize()
-    err = max_abs_err([got], [ref], torch)
-    idl = ids.long()
-    flat = (qslot.long()[:, None] * words + (idl >> 5))[surv]
-    vals = torch.bitwise_left_shift(torch.ones_like(idl), idl & 31)[surv].to(torch.int32)
-    counts = forms.bits_counts(q, words, ids, qslot, surv, 1)
-    # a touched word is read and written: 8 B of read-modify-write; the
-    # sector floor: 64 B a touched 32-byte sector, beside the same inputs
-    inputs = p * lanes * 4 + p * lanes + p * 4
-    nbytes = inputs + counts["touched_words"] * 8
-    floor_ms = bound_ms(inputs + counts["touched_sectors"] * 64)
-    ms = cuda_ms(lambda: accumulate.scatter_bits(bm, ids, qslot, surv), torch)
-    pms = cuda_ms(lambda: accumulate.scatter_bits_plain(bm, ids, qslot, surv), torch)
-    lib_flat = bm.view(-1)
-    lms = cuda_ms(lambda: lib_flat.index_put_((flat,), vals, accumulate=True), torch)
-    old_ms = cuda_ms(lambda: forms.bits_form(forms_lib, "flat", bm, ids,
-                                             qslot, surv), torch)
-    log(f"B2 bits Q={q} words={words} P={p} L={lanes} ({b2_path} path): err "
-        f"{err} kernel "
-        f"{ms:.4f} ms (earlier form {old_ms:.4f} ms) plain {pms:.4f} ms "
-        f"index_put_ {lms:.4f} ms bound {bound_ms(nbytes):.4f} ms sector "
-        f"floor {floor_ms:.4f} ms; {counts}")
-    if err:
-        raise AssertionError("B2 bits form disagrees with its plain version")
-    del bm, got, ref, flat, vals
-    b2 = {"name": "scatter_bits (B2)", "route": "cuda",
-          "source": "src/repro_torch/kernels/csrc/accumulate.cu",
-          "replaces": "src/repro/kernels/accumulate.py:85",
-          "launches": main_launches["B2"], "max_abs_err": err, "ms": ms,
-          "plain_ms": pms, "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-          "library_ms": lms, "ranked_launches": ranked_launches["B2"],
-          "sector_floor_ms": floor_ms, "earlier_ms": old_ms,
-          "counts": counts,
-          "shape": {"Q": q, "words": words, "P": p, "L": lanes},
-          "shape_path": b2_path, "ok": True}
-
-    # B2 bits on each AND batch's captured calls, the largest of each round
-    # kind (seed: every posting of each query's rarest term; fused: B1's hit
-    # words as the mask; probed: a plain round, where one ran): against its
-    # plain version and its earlier form (tools/and_round_forms.cu, a thread
-    # a lane from a flat index, on a bool mask), bitwise, then timed in
-    # turn; in the fused round also the earlier round's scatter, the
-    # `hits != 0` pass and the earlier form
-    bits_captured = {}
-    for mode, caps in and_caps.items():
-        for kind, cap in sorted(caps["B2"].items()):
-            cids, cq, csurv = (cap[k].to(dev) for k in ("ids", "qslot",
-                                                          "surv"))
-            alive = csurv != 0
-            zero = torch.zeros((cap["Q"], cap["words"]), dtype=torch.int32,
-                               device=dev)
-            got = accumulate.scatter_bits(zero.clone(), cids, cq, csurv)
-            ref = accumulate.scatter_bits_plain(zero.clone(), cids, cq, csurv)
-            old = forms.bits_form(forms_lib, "flat", zero.clone(), cids, cq,
-                                  alive)
-            torch.cuda.synchronize()
-            err = max(max_abs_err([got], [ref], torch),
-                      max_abs_err([old], [ref], torch))
-            del got, ref, old
+            nbytes = counts["bytes"]
+            ms = cuda_ms(lambda: intersect_rounds.segmented_decode_and(
+                *args_, bw=bw, crows=crows), torch)
+            pms = cuda_ms(lambda: intersect_rounds.segmented_decode_and_plain(
+                *args_, bw=bw, crows=crows), torch)
+            per_bw[bw] = {"W": w, "queries": q, "crows": crows,
+                          "on_main_path": bw in seen,
+                          "paths": sorted(b1_paths.get(bw, ())), "max_abs_err": err,
+                          "ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
+                          "sector_floor_ms": bound_ms(counts["floor_bytes"]),
+                          "bytes": nbytes, "counts": counts}
+            log(f"B1 bw={bw:2d} W={w} Q={q} crows={crows}: err {err} (random and "
+                f"all-ones gates) kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+                f"{bound_ms(nbytes):.4f} ms sector floor "
+                f"{bound_ms(counts['floor_bytes']):.4f} ms; {counts}; paths "
+                f"{', '.join(sorted(b1_paths.get(bw, ()))) or 'none'}")
             if err:
-                raise AssertionError(f"B2 bits on {mode}'s captured {kind} "
-                                     f"call disagrees with its plain version "
-                                     f"or its earlier form")
-            counts = forms.bits_counts(cap["Q"], cap["words"], cids, cq,
-                                       csurv, csurv.element_size())
-            fns = {"port": lambda: accumulate.scatter_bits(zero, cids, cq,
-                                                           csurv),
-                   "earlier": lambda: forms.bits_form(forms_lib, "flat", zero,
-                                                      cids, cq, alive)}
-            if csurv.dtype != torch.bool:
-                fns["pass_and_earlier"] = lambda: forms.bits_form(
-                    forms_lib, "flat", zero, cids, cq, csurv != 0)
-            t = in_turns(fns, torch)
-            r = bits_captured.setdefault(mode, {})[kind] = {
-                "max_abs_err": err, "ms": min(t["port"]),
-                "earlier_ms": min(t["earlier"]), "ms_in_turns": t,
-                "mask": str(csurv.dtype).replace("torch.", ""),
-                "bound_ms": bound_ms(counts["bytes"]),
-                "sector_floor_ms": bound_ms(counts["floor_bytes"]),
-                "counts": counts}
-            if "pass_and_earlier" in t:
-                r["pass_and_earlier_ms"] = min(t["pass_and_earlier"])
-            log(f"B2 bits ({mode}'s captured {kind} call, {r['mask']} mask): "
-                f"err {err} in turns {t}; bound {r['bound_ms']:.4f} ms "
-                f"sector floor {r['sector_floor_ms']:.4f} ms; {counts}")
-            del cids, cq, csurv, alive, zero
-            torch.cuda.empty_cache()
-    b2["captured"] = bits_captured
-    b2["max_abs_err"] = max([b2["max_abs_err"]] + [
-        r["max_abs_err"] for m in bits_captured.values() for r in m.values()])
+                raise AssertionError(f"B1 bw={bw} disagrees with its plain version")
+            del tiles, cand, got, ref
+        main_bw = max(seen, key=lambda b: seen[b][0])
+        b1 = per_bw[main_bw]
 
-    def accumulate_case(what, q, width, run, run_plain, flat, vals,
-                        probes=None):
-        """Run a kernel that adds ``vals`` at flat indices ``flat`` of a
-        (q, width) accumulator, and its plain version, in turn on ONE
-        zeroed accumulator (at GOV2 scale it is 256 x 25.2 M words), and
-        compare them where they wrote; then time kernel, plain version,
-        one ``index_put_(accumulate=True)`` on the precomputed indices and
-        each of ``probes`` ({name: fn(acc)}) on the same accumulator.
-        Returns a dict with the error, the times, and the distinct words
-        and 32-byte sectors the targets touch."""
-        acc = torch.zeros((q, width), dtype=torch.int32, device=dev)
-        uniq = torch.unique(flat)
-        run(acc)
-        got = acc.view(-1)[uniq]
-        # a write outside the targets leaves a non-zero word there; counted
-        # per 8 rows, since a count over the whole accumulator widens it to
-        # int64 (twice its 25.8 GB)
-        nonzero = sum(int(torch.count_nonzero(acc[r:r + 8]))
-                      for r in range(0, q, 8))
-        if nonzero != int(torch.count_nonzero(got)):
-            raise AssertionError(f"{what} wrote outside its targets")
-        acc.zero_()
-        run_plain(acc)
-        ref = acc.view(-1)[uniq]
+        # B1 on each AND batch's captured calls (the largest of each bit width,
+        # the real tiles, docids and candidate bitmap): against its plain
+        # version and its earlier form (tools/and_round_forms.cu, a block an
+        # entry), bitwise, then the two timed in turn
+        b1_captured = {}
+        for mode, caps in and_caps.items():
+            for bw, cap in sorted(caps["B1"].items()):
+                crows = cap["crows"]
+                a = [None if cap[k] is None else cap[k].to(dev) for k in
+                     ("tiles", "slots", "qslots", "firsts", "ns", "cand")]
+                got = intersect_rounds.segmented_decode_and(*a, bw=bw,
+                                                            crows=crows)
+                ref = intersect_rounds.segmented_decode_and_plain(*a, bw=bw,
+                                                                  crows=crows)
+                old = forms.b1_block(forms_lib, 0, *a, bw, crows)
+                torch.cuda.synchronize()
+                err = max(max_abs_err(got, ref, torch),
+                          max_abs_err(old, ref, torch))
+                if err:
+                    raise AssertionError(f"B1 bw={bw} on {mode}'s captured call "
+                                         f"disagrees with its plain version or "
+                                         f"its earlier form")
+                counts = forms.b1_counts(a[1], a[2], a[4], ref[0].view(-1, 512),
+                                         bw, crows)
+                del got, ref, old
+                t = in_turns({
+                    "port": lambda: intersect_rounds.segmented_decode_and(
+                        *a, bw=bw, crows=crows),
+                    "earlier": lambda: forms.b1_block(forms_lib, 0, *a, bw,
+                                                      crows)}, torch)
+                r = b1_captured.setdefault(mode, {})[bw] = {
+                    "max_abs_err": err, "ms": min(t["port"]),
+                    "earlier_ms": min(t["earlier"]), "ms_in_turns": t,
+                    "bound_ms": bound_ms(counts["bytes"]),
+                    "sector_floor_ms": bound_ms(counts["floor_bytes"]),
+                    "counts": counts}
+                log(f"B1 bw={bw:2d} ({mode}'s captured call): err {err} kernel "
+                    f"{t['port']} ms, earlier form {t['earlier']} ms in turns; "
+                    f"bound {r['bound_ms']:.4f} ms sector floor "
+                    f"{r['sector_floor_ms']:.4f} ms; {counts}")
+                del a
+                torch.cuda.empty_cache()
+        # B1 on the tombstone `or` batch's largest call: it probes the epoch's
+        # live row (1 % of the bits cleared) where the unmutated `or` rounds
+        # probe all ones
+        cap = mcaps["B1"]
+        bw, crows = cap["bw"], cap["crows"]
+        a = [cap[k].to(dev) for k in ("tiles", "slots", "qslots", "firsts", "ns",
+                                      "cand")]
+        got = intersect_rounds.segmented_decode_and(*a, bw=bw, crows=crows)
+        ref = intersect_rounds.segmented_decode_and_plain(*a, bw=bw, crows=crows)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref, torch)
+        if err:
+            raise AssertionError("B1 on the tombstone or batch's captured call "
+                                 "disagrees with its plain version")
+        counts = forms.b1_counts(a[1], a[2], a[4], ref[0].view(-1, 512), bw, crows)
+        del got, ref
+        b1_tomb = {"bw": bw, "W": int(a[1].shape[0]), "max_abs_err": err,
+                   "ms": cuda_ms(lambda: intersect_rounds.segmented_decode_and(
+                       *a, bw=bw, crows=crows), torch),
+                   "plain_ms": cuda_ms(
+                       lambda: intersect_rounds.segmented_decode_and_plain(
+                           *a, bw=bw, crows=crows), torch),
+                   "bound_ms": bound_ms(counts["bytes"]),
+                   "sector_floor_ms": bound_ms(counts["floor_bytes"]),
+                   "probe_bits_set": bit_share(a[5]),
+                   "counts": counts}
+        log(f"B1 bw={bw} (tombstone or batch's captured call, live-row probe, "
+            f"{b1_tomb['probe_bits_set']:.4f} of its bits set): err {err} kernel "
+            f"{b1_tomb['ms']:.4f} ms plain {b1_tomb['plain_ms']:.4f} ms bound "
+            f"{b1_tomb['bound_ms']:.4f} ms sector floor "
+            f"{b1_tomb['sector_floor_ms']:.4f} ms; {counts}")
+        del a
+        torch.cuda.empty_cache()
+        report.append({
+            "name": "segmented_decode_and (B1)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_and.cu",
+            "replaces": "src/repro/kernels/intersect_rounds.py:233",
+            "launches": main_launches["B1"],
+            "max_abs_err": max([v["max_abs_err"] for v in per_bw.values()]
+                               + [b1_tomb["max_abs_err"]]),
+            "ms": b1["ms"], "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "shape_bw": main_bw,
+            "ranked_launches": ranked_launches["B1"], "per_bw": per_bw,
+            "sector_floor_ms": b1["sector_floor_ms"], "captured": b1_captured,
+            "captured_tombstone_or": b1_tomb,
+            "mutation_launches": {w: r["launches"]["B1"]
+                                  for w, r in mut["batches"].items()},
+            "ok": True})
+
+        # B5 at the legacy path's largest call
+        c = max((sh for _, sh in calls["B5"]), key=lambda c: c["W"])
+        bw, w, crows = c["bw"], c["W"], c["R"]
+        tiles, slots, _, firsts, ns, cand = decode_case(bw, w, c["tiles"], 1,
+                                                        crows, False)
+        args_ = (tiles, slots, firsts, ns, cand)
+        got = decode_fused.fused_decode_and(*args_, bw=bw)
+        ref = decode_fused.fused_decode_and_plain(*args_, bw=bw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref, torch)
+        counts = forms.b1_counts(slots, None, ns, ref[0].reshape(w, -1), bw,
+                                 crows)
+        nbytes = counts["bytes"]
+        ms = cuda_ms(lambda: decode_fused.fused_decode_and(*args_, bw=bw), torch)
+        pms = cuda_ms(lambda: decode_fused.fused_decode_and_plain(*args_, bw=bw), torch)
+        old_ms = cuda_ms(lambda: forms.b1_block(forms_lib, 0, tiles, slots, None,
+                                                firsts, ns, cand, bw, crows),
+                         torch)
+        log(f"B5 bw={bw} W={w} R={crows}: err {err} kernel {ms:.4f} ms (earlier "
+            f"form {old_ms:.4f} ms) plain {pms:.4f} ms bound "
+            f"{bound_ms(nbytes):.4f} ms sector floor "
+            f"{bound_ms(counts['floor_bytes']):.4f} ms")
+        if err:
+            raise AssertionError("B5 disagrees with its plain version")
+        report.append({
+            "name": "fused_decode_and (B5)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_and.cu",
+            "replaces": "src/repro/kernels/decode_fused.py:111",
+            "launches": legacy_launches, "path": "legacy and_many",
+            "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "library_ms": None,
+            "sector_floor_ms": bound_ms(counts["floor_bytes"]),
+            "earlier_ms": old_ms, "counts": counts,
+            "shape": {"bw": bw, "W": w, "R": crows}, "ok": True})
+        del tiles, cand, got, ref
+
+        def distinct_ids(q, p, lanes, width):
+            """(qslot, ids) of p entries over q queries, sorted by query, with
+            docids distinct within a query (the round contract): the k-th entry
+            of a query takes docids (k * lanes + l) * step + offset."""
+            qslot = torch.sort(rand_int(q, p)).values
+            first_of = torch.searchsorted(qslot, qslot)
+            rank = torch.arange(p, device=dev) - first_of
+            n_max = int(torch.bincount(qslot.long(), minlength=q).max())
+            step = max(1, width // (n_max * lanes))
+            lane = torch.arange(lanes, device=dev)
+            ids = ((rank[:, None] * lanes + lane[None, :]) * step
+                   + (qslot.long()[:, None] * 7919) % step).to(torch.int32)
+            return qslot, ids
+
+        # B2 at the largest scatter of any main path
+        b2_path, c = max(calls["B2"], key=lambda pc: pc[1]["P"])
+        q, words, p, lanes = c["Q"], c["words"], c["P"], c["L"]
+        qslot, ids = distinct_ids(q, p, lanes, words * 32)
+        surv = torch.rand((p, lanes), generator=gen, device=dev) < 0.5
+        bm = torch.zeros((q, words), dtype=torch.int32, device=dev)
+        got = accumulate.scatter_bits(bm.clone(), ids, qslot, surv)
+        ref = accumulate.scatter_bits_plain(bm.clone(), ids, qslot, surv)
         torch.cuda.synchronize()
         err = max_abs_err([got], [ref], torch)
-        del got, ref
+        idl = ids.long()
+        flat = (qslot.long()[:, None] * words + (idl >> 5))[surv]
+        vals = torch.bitwise_left_shift(torch.ones_like(idl), idl & 31)[surv].to(torch.int32)
+        counts = forms.bits_counts(q, words, ids, qslot, surv, 1)
+        # a touched word is read and written: 8 B of read-modify-write; the
+        # sector floor: 64 B a touched 32-byte sector, beside the same inputs
+        inputs = p * lanes * 4 + p * lanes + p * 4
+        nbytes = inputs + counts["touched_words"] * 8
+        floor_ms = bound_ms(inputs + counts["touched_sectors"] * 64)
+        ms = cuda_ms(lambda: accumulate.scatter_bits(bm, ids, qslot, surv), torch)
+        pms = cuda_ms(lambda: accumulate.scatter_bits_plain(bm, ids, qslot, surv), torch)
+        lib_flat = bm.view(-1)
+        lms = cuda_ms(lambda: lib_flat.index_put_((flat,), vals, accumulate=True), torch)
+        old_ms = cuda_ms(lambda: forms.bits_form(forms_lib, "flat", bm, ids,
+                                                 qslot, surv), torch)
+        log(f"B2 bits Q={q} words={words} P={p} L={lanes} ({b2_path} path): err "
+            f"{err} kernel "
+            f"{ms:.4f} ms (earlier form {old_ms:.4f} ms) plain {pms:.4f} ms "
+            f"index_put_ {lms:.4f} ms bound {bound_ms(nbytes):.4f} ms sector "
+            f"floor {floor_ms:.4f} ms; {counts}")
         if err:
-            raise AssertionError(f"{what} disagrees with its plain version")
-        out = {"max_abs_err": err, "ms": cuda_ms(lambda: run(acc), torch),
-               "plain_ms": cuda_ms(lambda: run_plain(acc), torch)}
-        acc_flat = acc.view(-1)
-        out["library_ms"] = cuda_ms(lambda: acc_flat.index_put_(
-            (flat,), vals, accumulate=True), torch)
-        out["probes_ms"] = {name: cuda_ms(lambda: fn(acc), torch)
-                            for name, fn in (probes or {}).items()}
-        # width is a multiple of 8, so flat >> 3 is (row, column >> 3)
-        out["touched"] = uniq.numel()
-        out["sectors"] = torch.unique_consecutive(uniq >> 3).numel()
-        del acc, acc_flat, uniq
+            raise AssertionError("B2 bits form disagrees with its plain version")
+        del bm, got, ref, flat, vals
+        b2 = {"name": "scatter_bits (B2)", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/accumulate.cu",
+              "replaces": "src/repro/kernels/accumulate.py:85",
+              "launches": main_launches["B2"], "max_abs_err": err, "ms": ms,
+              "plain_ms": pms, "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+              "library_ms": lms, "ranked_launches": ranked_launches["B2"],
+              "sector_floor_ms": floor_ms, "earlier_ms": old_ms,
+              "counts": counts,
+              "shape": {"Q": q, "words": words, "P": p, "L": lanes},
+              "shape_path": b2_path, "ok": True}
+
+        # B2 bits on each AND batch's captured calls, the largest of each round
+        # kind (seed: every posting of each query's rarest term; fused: B1's hit
+        # words as the mask; probed: a plain round, where one ran): against its
+        # plain version and its earlier form (tools/and_round_forms.cu, a thread
+        # a lane from a flat index, on a bool mask), bitwise, then timed in
+        # turn; in the fused round also the earlier round's scatter, the
+        # `hits != 0` pass and the earlier form
+        bits_captured = {}
+        for mode, caps in and_caps.items():
+            for kind, cap in sorted(caps["B2"].items()):
+                cids, cq, csurv = (cap[k].to(dev) for k in ("ids", "qslot",
+                                                              "surv"))
+                alive = csurv != 0
+                zero = torch.zeros((cap["Q"], cap["words"]), dtype=torch.int32,
+                                   device=dev)
+                got = accumulate.scatter_bits(zero.clone(), cids, cq, csurv)
+                ref = accumulate.scatter_bits_plain(zero.clone(), cids, cq, csurv)
+                old = forms.bits_form(forms_lib, "flat", zero.clone(), cids, cq,
+                                      alive)
+                torch.cuda.synchronize()
+                err = max(max_abs_err([got], [ref], torch),
+                          max_abs_err([old], [ref], torch))
+                del got, ref, old
+                if err:
+                    raise AssertionError(f"B2 bits on {mode}'s captured {kind} "
+                                         f"call disagrees with its plain version "
+                                         f"or its earlier form")
+                counts = forms.bits_counts(cap["Q"], cap["words"], cids, cq,
+                                           csurv, csurv.element_size())
+                fns = {"port": lambda: accumulate.scatter_bits(zero, cids, cq,
+                                                               csurv),
+                       "earlier": lambda: forms.bits_form(forms_lib, "flat", zero,
+                                                          cids, cq, alive)}
+                if csurv.dtype != torch.bool:
+                    fns["pass_and_earlier"] = lambda: forms.bits_form(
+                        forms_lib, "flat", zero, cids, cq, csurv != 0)
+                t = in_turns(fns, torch)
+                r = bits_captured.setdefault(mode, {})[kind] = {
+                    "max_abs_err": err, "ms": min(t["port"]),
+                    "earlier_ms": min(t["earlier"]), "ms_in_turns": t,
+                    "mask": str(csurv.dtype).replace("torch.", ""),
+                    "bound_ms": bound_ms(counts["bytes"]),
+                    "sector_floor_ms": bound_ms(counts["floor_bytes"]),
+                    "counts": counts}
+                if "pass_and_earlier" in t:
+                    r["pass_and_earlier_ms"] = min(t["pass_and_earlier"])
+                log(f"B2 bits ({mode}'s captured {kind} call, {r['mask']} mask): "
+                    f"err {err} in turns {t}; bound {r['bound_ms']:.4f} ms "
+                    f"sector floor {r['sector_floor_ms']:.4f} ms; {counts}")
+                del cids, cq, csurv, alive, zero
+                torch.cuda.empty_cache()
+        b2["captured"] = bits_captured
+        b2["max_abs_err"] = max([b2["max_abs_err"]] + [
+            r["max_abs_err"] for m in bits_captured.values() for r in m.values()])
+
+        def accumulate_case(what, q, width, run, run_plain, flat, vals,
+                            probes=None):
+            """Run a kernel that adds ``vals`` at flat indices ``flat`` of a
+            (q, width) accumulator, and its plain version, in turn on ONE
+            zeroed accumulator (at GOV2 scale it is 256 x 25.2 M words), and
+            compare them where they wrote; then time kernel, plain version,
+            one ``index_put_(accumulate=True)`` on the precomputed indices and
+            each of ``probes`` ({name: fn(acc)}) on the same accumulator.
+            Returns a dict with the error, the times, and the distinct words
+            and 32-byte sectors the targets touch."""
+            acc = torch.zeros((q, width), dtype=torch.int32, device=dev)
+            uniq = torch.unique(flat)
+            run(acc)
+            got = acc.view(-1)[uniq]
+            # a write outside the targets leaves a non-zero word there; counted
+            # per 8 rows, since a count over the whole accumulator widens it to
+            # int64 (twice its 25.8 GB)
+            nonzero = sum(int(torch.count_nonzero(acc[r:r + 8]))
+                          for r in range(0, q, 8))
+            if nonzero != int(torch.count_nonzero(got)):
+                raise AssertionError(f"{what} wrote outside its targets")
+            acc.zero_()
+            run_plain(acc)
+            ref = acc.view(-1)[uniq]
+            torch.cuda.synchronize()
+            err = max_abs_err([got], [ref], torch)
+            del got, ref
+            if err:
+                raise AssertionError(f"{what} disagrees with its plain version")
+            out = {"max_abs_err": err, "ms": cuda_ms(lambda: run(acc), torch),
+                   "plain_ms": cuda_ms(lambda: run_plain(acc), torch)}
+            acc_flat = acc.view(-1)
+            out["library_ms"] = cuda_ms(lambda: acc_flat.index_put_(
+                (flat,), vals, accumulate=True), torch)
+            out["probes_ms"] = {name: cuda_ms(lambda: fn(acc), torch)
+                                for name, fn in (probes or {}).items()}
+            # width is a multiple of 8, so flat >> 3 is (row, column >> 3)
+            out["touched"] = uniq.numel()
+            out["sectors"] = torch.unique_consecutive(uniq >> 3).numel()
+            del acc, acc_flat, uniq
+            torch.cuda.empty_cache()
+            return out
+
+        # B2, add form, at the AND path's largest scatter shape, as first
+        # recorded: entries into a (Q, docs) accumulator, full-range
+        # contributions
+        del ids, qslot, surv
+        c = max((sh for path, sh in calls["B2"] if path == "and"),
+                key=lambda c: c["P"])
+        q, words, p, lanes = c["Q"], c["words"], c["P"], c["L"]
+        width = words * 32
+        qslot, ids = distinct_ids(q, p, lanes, width)
+        contrib = rand_words((p, lanes))
+        r = accumulate_case(
+            "B2 add form", q, width,
+            lambda a: accumulate.scatter_add(a, ids, qslot, contrib),
+            lambda a: accumulate.scatter_add_plain(a, ids, qslot, contrib),
+            (qslot.long()[:, None] * width + ids.long()).reshape(-1),
+            contrib.reshape(-1))
+        nbytes = 2 * p * lanes * 4 + p * 4 + r["touched"] * 8
+        log(f"B2 add Q={q} width={width} P={p} L={lanes}: err {r['max_abs_err']} "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms index_put_ "
+            f"{r['library_ms']:.4f} ms bound {bound_ms(nbytes):.4f} ms")
+        b2["add_form"] = {"launches_on_and_path": main_launches["B2add"],
+                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                          "plain_ms": r["plain_ms"], "bound_ms": bound_ms(nbytes),
+                          "library_ms": r["library_ms"],
+                          "shape": {"Q": q, "width": width, "P": p, "L": lanes}}
+        report.append(b2)
+        del contrib, ids, qslot
+
+        def scatter_add_case(what, q, width, ids, qslot, codes, surv=None,
+                             probes=None):
+            """B2's add form on one input, ``scatter_add(codes)`` or, given
+            ``surv``, ``scatter_add_masked(codes, surv)``, against its plain
+            version, timed.  Its bytes bound counts what the data needs: the
+            mask (1 B a lane) or the codes (4 B a lane), the code of each live
+            lane, the id of each non-zero contribution, 4 B of qslot an entry
+            and 8 B of read-modify-write per distinct touched word; its sector
+            floor the same inputs and 64 B per distinct touched 32-byte
+            sector (a sector read and written back)."""
+            p, lanes = ids.shape
+            live = ((ids.long() & 0xFFFFFFFF) < width) & (codes != 0)
+            if surv is None:
+                run = (lambda a: accumulate.scatter_add(a, ids, qslot, codes))
+                run_plain = (lambda a: accumulate.scatter_add_plain(
+                    a, ids, qslot, codes))
+                inputs = p * lanes * 4
+            else:
+                run = (lambda a: accumulate.scatter_add_masked(
+                    a, ids, qslot, codes, surv))
+                run_plain = (lambda a: accumulate.scatter_add_masked_plain(
+                    a, ids, qslot, codes, surv))
+                inputs = p * lanes + int(surv.sum()) * 4
+                live &= surv
+            n_live = int(live.sum())
+            flat = (qslot.long()[:, None] * width + ids.long())[live]
+            r = accumulate_case(what, q, width, run, run_plain, flat, codes[live],
+                                probes)
+            inputs += n_live * 4 + p * 4
+            r.update(bound_ms=bound_ms(inputs + r["touched"] * 8),
+                     sector_floor_ms=bound_ms(inputs + r["sectors"] * 64),
+                     zero_share=1.0 - n_live / (p * lanes),
+                     shape={"Q": q, "width": width, "P": p, "L": lanes,
+                            "masked": surv is not None})
+            log(f"{what} Q={q} width={width} P={p} L={lanes}: err "
+                f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+                f"{r['plain_ms']:.4f} ms index_put_ {r['library_ms']:.4f} ms "
+                f"bound {r['bound_ms']:.4f} ms sector floor "
+                f"{r['sector_floor_ms']:.4f} ms ({r['sectors']} sectors, "
+                f"{r['touched']} words, zero share {r['zero_share']:.4f})")
+            return r
+
+        # B2, add form, at the ranked path's largest scatter: u8 codes
+        c = max(rcalls["B2add"], key=lambda c: c["P"])
+        q, width, p, lanes = c["Q"], c["width"], c["P"], c["L"]
+        qslot, ids = distinct_ids(q, p, lanes, width)
+        codes = rand_int(256, p * lanes).reshape(p, lanes)
+        b2add = scatter_add_case("B2 add (ranked shape)", q, width, ids, qslot,
+                                 codes)
+        del codes, ids, qslot
         torch.cuda.empty_cache()
-        return out
 
-    # B2, add form, at the AND path's largest scatter shape, as first
-    # recorded: entries into a (Q, docs) accumulator, full-range
-    # contributions
-    del ids, qslot, surv
-    c = max((sh for path, sh in calls["B2"] if path == "and"),
-            key=lambda c: c["P"])
-    q, words, p, lanes = c["Q"], c["words"], c["P"], c["L"]
-    width = words * 32
-    qslot, ids = distinct_ids(q, p, lanes, width)
-    contrib = rand_words((p, lanes))
-    r = accumulate_case(
-        "B2 add form", q, width,
-        lambda a: accumulate.scatter_add(a, ids, qslot, contrib),
-        lambda a: accumulate.scatter_add_plain(a, ids, qslot, contrib),
-        (qslot.long()[:, None] * width + ids.long()).reshape(-1),
-        contrib.reshape(-1))
-    nbytes = 2 * p * lanes * 4 + p * 4 + r["touched"] * 8
-    log(f"B2 add Q={q} width={width} P={p} L={lanes}: err {r['max_abs_err']} "
-        f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms index_put_ "
-        f"{r['library_ms']:.4f} ms bound {bound_ms(nbytes):.4f} ms")
-    b2["add_form"] = {"launches_on_and_path": main_launches["B2add"],
-                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                      "plain_ms": r["plain_ms"], "bound_ms": bound_ms(nbytes),
-                      "library_ms": r["library_ms"],
-                      "shape": {"Q": q, "width": width, "P": p, "L": lanes}}
-    report.append(b2)
-    del contrib, ids, qslot
+        # the masked form, as the ranked rounds call it, on each mode's own
+        # largest scatter (captured from its warm-up batch: the path's docid
+        # spread and dead lanes), with probes of where the time goes, all
+        # through scatter_add on where(surv, codes, 0): (a) as it is; (b) every
+        # contribution 0 (reads and integer work, no atomic); (c) each query's
+        # ids made contiguous (the atomics without the scatter: 8 lanes a
+        # sector); and the where pass alone, which the mask saves
+        # (tools/b2_add_order.py times other thread mappings and spreads)
+        real = {}
+        captured["B2add"]["or under tombstones"] = mcaps["B2add"]
+        for mode, cap in captured["B2add"].items():
+            if not cap:
+                raise AssertionError(f"{mode}: no B2-add call captured")
+            ids, qslot, codes, surv = (cap[k].to(dev) for k in
+                                       ("ids", "qslot", "codes", "surv"))
+            contrib = torch.where(surv, codes, 0)
+            p, lanes = ids.shape
+            order = torch.argsort(qslot, stable=True)
+            sq = qslot[order]
+            rank = torch.empty_like(order)
+            rank[order] = (torch.arange(p, device=dev)
+                           - torch.searchsorted(sq, sq, right=False))
+            contiguous = (rank[:, None] * lanes
+                          + torch.arange(lanes, device=dev)).to(torch.int32)
+            zeros = torch.zeros_like(contrib)
+            probes = {"a_unmasked": lambda a: accumulate.scatter_add(
+                          a, ids, qslot, contrib),
+                      "b_zero_contributions": lambda a: accumulate.scatter_add(
+                          a, ids, qslot, zeros),
+                      "c_contiguous_ids": lambda a: accumulate.scatter_add(
+                          a, contiguous, qslot, contrib),
+                      "where_pass": lambda a: torch.where(surv, codes, 0)}
+            r = real[mode] = scatter_add_case(
+                f"B2 add masked (captured, {mode})", cap["Q"], cap["width"], ids,
+                qslot, codes, surv, probes)
+            pr = r["probes_ms"]
+            log(f"B2 add probes ({mode}): masked {r['ms']:.4f} ms; (a) "
+                f"{pr['a_unmasked']:.4f} ms; (b) every contribution 0 "
+                f"{pr['b_zero_contributions']:.4f} ms; (c) ids contiguous per "
+                f"query {pr['c_contiguous_ids']:.4f} ms; (d) sector floor "
+                f"{r['sector_floor_ms']:.4f} ms; where pass "
+                f"{pr['where_pass']:.4f} ms; a-b "
+                f"{pr['a_unmasked'] - pr['b_zero_contributions']:.4f} ms, b-c "
+                f"{pr['b_zero_contributions'] - pr['c_contiguous_ids']:.4f} ms")
+            del ids, qslot, codes, surv, contrib, contiguous, zeros, rank
+            del order, sq
+            torch.cuda.empty_cache()
+        report.append({
+            "name": "scatter_add (B2, add form)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/accumulate.cu",
+            "replaces": "src/repro/kernels/accumulate.py:85",
+            "launches": sum(ranked_launches["B2add"].values()),
+            "path": "ranked", "ranked_launches": ranked_launches["B2add"],
+            "max_abs_err": max([b2add["max_abs_err"]]
+                               + [r["max_abs_err"] for r in real.values()]),
+            "ms": b2add["ms"], "plain_ms": b2add["plain_ms"],
+            "bound_ms": b2add["bound_ms"], "bound_by": "bytes",
+            "library_ms": b2add["library_ms"],
+            "sector_floor_ms": b2add["sector_floor_ms"],
+            "zero_share": b2add["zero_share"], "sectors": b2add["sectors"],
+            "shape": b2add["shape"], "captured": real, "ok": True})
 
-    def scatter_add_case(what, q, width, ids, qslot, codes, surv=None,
-                         probes=None):
-        """B2's add form on one input, ``scatter_add(codes)`` or, given
-        ``surv``, ``scatter_add_masked(codes, surv)``, against its plain
-        version, timed.  Its bytes bound counts what the data needs: the
-        mask (1 B a lane) or the codes (4 B a lane), the code of each live
-        lane, the id of each non-zero contribution, 4 B of qslot an entry
-        and 8 B of read-modify-write per distinct touched word; its sector
-        floor the same inputs and 64 B per distinct touched 32-byte
-        sector (a sector read and written back)."""
-        p, lanes = ids.shape
-        live = ((ids.long() & 0xFFFFFFFF) < width) & (codes != 0)
-        if surv is None:
-            run = (lambda a: accumulate.scatter_add(a, ids, qslot, codes))
-            run_plain = (lambda a: accumulate.scatter_add_plain(
-                a, ids, qslot, codes))
-            inputs = p * lanes * 4
-        else:
-            run = (lambda a: accumulate.scatter_add_masked(
-                a, ids, qslot, codes, surv))
-            run_plain = (lambda a: accumulate.scatter_add_masked_plain(
-                a, ids, qslot, codes, surv))
-            inputs = p * lanes + int(surv.sum()) * 4
-            live &= surv
-        n_live = int(live.sum())
-        flat = (qslot.long()[:, None] * width + ids.long())[live]
-        r = accumulate_case(what, q, width, run, run_plain, flat, codes[live],
-                            probes)
-        inputs += n_live * 4 + p * 4
-        r.update(bound_ms=bound_ms(inputs + r["touched"] * 8),
-                 sector_floor_ms=bound_ms(inputs + r["sectors"] * 64),
-                 zero_share=1.0 - n_live / (p * lanes),
-                 shape={"Q": q, "width": width, "P": p, "L": lanes,
-                        "masked": surv is not None})
-        log(f"{what} Q={q} width={width} P={p} L={lanes}: err "
-            f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
-            f"{r['plain_ms']:.4f} ms index_put_ {r['library_ms']:.4f} ms "
-            f"bound {r['bound_ms']:.4f} ms sector floor "
-            f"{r['sector_floor_ms']:.4f} ms ({r['sectors']} sectors, "
-            f"{r['touched']} words, zero share {r['zero_share']:.4f})")
-        return r
+        # B3 at the ranked path's largest unpack (random slots into an arena of
+        # the real row count)
+        c = max(rcalls["B3"], key=lambda c: c["W"])
+        w, n_tiles = c["W"], c["tiles"]
+        tiles = rand_words((n_tiles, 128))
+        slots = rand_int(n_tiles, w)
+        got = topk.unpack_codes(tiles, slots)
+        ref = topk.unpack_codes_plain(tiles, slots)
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [ref], torch)
+        # distinct rows read, the slot indices, 2 KB of codes written per entry
+        nbytes = torch.unique(slots).numel() * 512 + w * 4 + w * 2048
+        ms = cuda_ms(lambda: topk.unpack_codes(tiles, slots), torch)
+        pms = cuda_ms(lambda: topk.unpack_codes_plain(tiles, slots), torch)
+        log(f"B3 W={w} tiles={n_tiles}: err {err} kernel {ms:.4f} ms plain "
+            f"{pms:.4f} ms bound {bound_ms(nbytes):.4f} ms")
+        if err:
+            raise AssertionError("B3 disagrees with its plain version")
+        report.append({
+            "name": "unpack_codes (B3)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topk.cu",
+            "replaces": "src/repro/kernels/topk.py:295",
+            "launches": sum(ranked_launches["B3"].values()), "path": "ranked",
+            "ranked_launches": ranked_launches["B3"], "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes", "library_ms": None,
+            "shape": {"W": w, "tiles": n_tiles}, "ok": True})
+        del tiles, slots, got, ref
 
-    # B2, add form, at the ranked path's largest scatter: u8 codes
-    c = max(rcalls["B2add"], key=lambda c: c["P"])
-    q, width, p, lanes = c["Q"], c["width"], c["P"], c["L"]
-    qslot, ids = distinct_ids(q, p, lanes, width)
-    codes = rand_int(256, p * lanes).reshape(p, lanes)
-    b2add = scatter_add_case("B2 add (ranked shape)", q, width, ids, qslot,
-                             codes)
-    del codes, ids, qslot
-    torch.cuda.empty_cache()
+        win = accumulate.DENSE_WINDOW
 
-    # the masked form, as the ranked rounds call it, on each mode's own
-    # largest scatter (captured from its warm-up batch: the path's docid
-    # spread and dead lanes), with probes of where the time goes, all
-    # through scatter_add on where(surv, codes, 0): (a) as it is; (b) every
-    # contribution 0 (reads and integer work, no atomic); (c) each query's
-    # ids made contiguous (the atomics without the scatter: 8 lanes a
-    # sector); and the where pass alone, which the mask saves
-    # (tools/b2_add_order.py times other thread mappings and spreads)
-    real = {}
-    captured["B2add"]["or under tombstones"] = mcaps["B2add"]
-    for mode, cap in captured["B2add"].items():
-        if not cap:
-            raise AssertionError(f"{mode}: no B2-add call captured")
-        ids, qslot, codes, surv = (cap[k].to(dev) for k in
-                                   ("ids", "qslot", "codes", "surv"))
-        contrib = torch.where(surv, codes, 0)
-        p, lanes = ids.shape
-        order = torch.argsort(qslot, stable=True)
-        sq = qslot[order]
-        rank = torch.empty_like(order)
-        rank[order] = (torch.arange(p, device=dev)
-                       - torch.searchsorted(sq, sq, right=False))
-        contiguous = (rank[:, None] * lanes
-                      + torch.arange(lanes, device=dev)).to(torch.int32)
-        zeros = torch.zeros_like(contrib)
-        probes = {"a_unmasked": lambda a: accumulate.scatter_add(
-                      a, ids, qslot, contrib),
-                  "b_zero_contributions": lambda a: accumulate.scatter_add(
-                      a, ids, qslot, zeros),
-                  "c_contiguous_ids": lambda a: accumulate.scatter_add(
-                      a, contiguous, qslot, contrib),
-                  "where_pass": lambda a: torch.where(surv, codes, 0)}
-        r = real[mode] = scatter_add_case(
-            f"B2 add masked (captured, {mode})", cap["Q"], cap["width"], ids,
-            qslot, codes, surv, probes)
-        pr = r["probes_ms"]
-        log(f"B2 add probes ({mode}): masked {r['ms']:.4f} ms; (a) "
-            f"{pr['a_unmasked']:.4f} ms; (b) every contribution 0 "
-            f"{pr['b_zero_contributions']:.4f} ms; (c) ids contiguous per "
-            f"query {pr['c_contiguous_ids']:.4f} ms; (d) sector floor "
-            f"{r['sector_floor_ms']:.4f} ms; where pass "
-            f"{pr['where_pass']:.4f} ms; a-b "
-            f"{pr['a_unmasked'] - pr['b_zero_contributions']:.4f} ms, b-c "
-            f"{pr['b_zero_contributions'] - pr['c_contiguous_ids']:.4f} ms")
-        del ids, qslot, codes, surv, contrib, contiguous, zeros, rank
-        del order, sq
+        def dense_case(what, q, width, codes, tiles, wbits, qslot, col0, act,
+                       gated, probes=None):
+            """B4's packed form (``tiles``; or, with ``tiles`` None, the
+            unpacked form on ``codes``) against its plain version on one input,
+            timed; ``codes`` are the (P, 4096) codes it adds (gated and masked
+            by ``act``).  Its bytes bound: an act byte per entry; per active
+            entry 8 B of indices and the codes it needs (16 KB unpacked, 4 KB
+            packed; gated, the window's 512 B and the 32-byte sector of codes
+            under each non-zero window word); 8 B of read-modify-write per
+            distinct touched word.  Its sector floor: the same inputs and 64 B
+            per distinct touched sector."""
+            p = codes.shape[0]
+            n_act = int(act.sum())
+            if tiles is None:
+                run = (lambda a: accumulate.dense_add(a, codes, qslot, col0,
+                                                      act))
+                run_plain = (lambda a: accumulate.dense_add_plain(
+                    a, codes, qslot, col0, act))
+                code_bytes = n_act * win * 4
+            else:
+                run = (lambda a: accumulate.dense_add_packed(
+                    a, tiles, wbits, qslot, col0, act, gated=gated))
+                run_plain = (lambda a: accumulate.dense_add_packed_plain(
+                    a, tiles, wbits, qslot, col0, act, gated=gated))
+                code_bytes = n_act * win
+                if gated:
+                    live_words = int(((wbits != 0) & act[:, None]).sum())
+                    code_bytes = n_act * win // 8 + live_words * 32
+            nz = (codes != 0) & act[:, None]
+            e, pos = nz.nonzero(as_tuple=True)
+            flat = qslot.long()[e] * width + col0.long()[e] + pos
+            r = accumulate_case(what, q, width, run, run_plain, flat, codes[nz],
+                                probes)
+            del e, pos, flat
+            inputs = p + n_act * 8 + code_bytes
+            r.update(bound_ms=bound_ms(inputs + r["touched"] * 8),
+                     sector_floor_ms=bound_ms(inputs + r["sectors"] * 64),
+                     zero_share=1.0 - int(nz.sum()) / (p * win),
+                     code_bytes=code_bytes,
+                     shape={"Q": q, "width": width, "P": p,
+                            "active": n_act, "gated": gated})
+            log(f"{what} Q={q} width={width} P={p} gated={gated}: err "
+                f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
+                f"{r['plain_ms']:.4f} ms index_put_ {r['library_ms']:.4f} ms "
+                f"bound {r['bound_ms']:.4f} ms sector floor "
+                f"{r['sector_floor_ms']:.4f} ms ({r['sectors']} sectors, "
+                f"{r['touched']} words, {code_bytes} code bytes needed, zero "
+                f"share {r['zero_share']:.4f})")
+            return r
+
+        def unpacked_round(acc, tiles, wbits, qslot, col0, act, gated):
+            """The dense round's add with the codes unpacked first: plain torch
+            unpacks (and gates) them, CHUNK_ELEMS at a time, for B4's unpacked
+            form (the ranked rounds' add before the packed form)."""
+            step = accumulate.CHUNK_ELEMS // win
+            for s in range(0, tiles.shape[0], step):
+                part = slice(s, s + step)
+                codes = accumulate._window_codes(tiles[part])
+                if gated:
+                    codes = codes * accumulate._window_bits(wbits[part])
+                accumulate.dense_add(acc, codes, qslot[part], col0[part],
+                                     act[part])
+
+        # B4 on 65,536 windows (one chunk of the plain packed form; fewer if
+        # the path's largest call had fewer) at random 128-aligned columns of
+        # the ranked accumulator, half the codes zero:
+        # the unpacked form on the codes, the packed form on the same codes
+        # packed, ungated and gated by random window bits
+        b4_calls = rcalls["B4"] or [{"P": 1, "Q": q, "width": width}]
+        log(f"B4 launches on the ranked path, entries: "
+            f"{[c['P'] for c in b4_calls]}")
+        c = max(b4_calls, key=lambda c: c["P"])
+        p, q, width = (min(c["P"], accumulate.CHUNK_ELEMS // win), c["Q"],
+                       c["width"])
+        qslot = torch.sort(rand_int(q, p)).values
+        col0 = rand_int((width - win) // 128 + 1, p) * 128
+        codes = torch.where(rand_int(2, p * win).reshape(p, win) == 0, 0,
+                            rand_int(256, p * win).reshape(p, win))
+        tiles = codes.to(torch.uint8).view(torch.int32)     # byte p: position p
+        wbits = rand_words((p, accumulate.WINDOW_WORDS))
+        act = torch.ones(p, dtype=torch.bool, device=dev)
+        b4u = dense_case("B4 unpacked", q, width, codes, None, None, qslot, col0,
+                         act, False)
+        b4 = dense_case("B4 packed", q, width, codes, tiles, wbits, qslot, col0,
+                        act, False)
+        b4g = dense_case("B4 packed", q, width,
+                         codes * accumulate._window_bits(wbits), tiles, wbits,
+                         qslot, col0, act, True)
+        if not rcalls["B4"]:
+            log("(no dense block on the ranked path)")
+        del codes, tiles, wbits, qslot, col0, act
         torch.cuda.empty_cache()
-    report.append({
-        "name": "scatter_add (B2, add form)", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/accumulate.cu",
-        "replaces": "src/repro/kernels/accumulate.py:85",
-        "launches": sum(ranked_launches["B2add"].values()),
-        "path": "ranked", "ranked_launches": ranked_launches["B2add"],
-        "max_abs_err": max([b2add["max_abs_err"]]
-                           + [r["max_abs_err"] for r in real.values()]),
-        "ms": b2add["ms"], "plain_ms": b2add["plain_ms"],
-        "bound_ms": b2add["bound_ms"], "bound_by": "bytes",
-        "library_ms": b2add["library_ms"],
-        "sector_floor_ms": b2add["sector_floor_ms"],
-        "zero_share": b2add["zero_share"], "sectors": b2add["sectors"],
-        "shape": b2add["shape"], "captured": real, "ok": True})
 
-    # B3 at the ranked path's largest unpack (random slots into an arena of
-    # the real row count)
-    c = max(rcalls["B3"], key=lambda c: c["W"])
-    w, n_tiles = c["W"], c["tiles"]
-    tiles = rand_words((n_tiles, 128))
-    slots = rand_int(n_tiles, w)
-    got = topk.unpack_codes(tiles, slots)
-    ref = topk.unpack_codes_plain(tiles, slots)
-    torch.cuda.synchronize()
-    err = max_abs_err([got], [ref], torch)
-    # distinct rows read, the slot indices, 2 KB of codes written per entry
-    nbytes = torch.unique(slots).numel() * 512 + w * 4 + w * 2048
-    ms = cuda_ms(lambda: topk.unpack_codes(tiles, slots), torch)
-    pms = cuda_ms(lambda: topk.unpack_codes_plain(tiles, slots), torch)
-    log(f"B3 W={w} tiles={n_tiles}: err {err} kernel {ms:.4f} ms plain "
-        f"{pms:.4f} ms bound {bound_ms(nbytes):.4f} ms")
-    if err:
-        raise AssertionError("B3 disagrees with its plain version")
-    report.append({
-        "name": "unpack_codes (B3)", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/topk.cu",
-        "replaces": "src/repro/kernels/topk.py:295",
-        "launches": sum(ranked_launches["B3"].values()), "path": "ranked",
-        "ranked_launches": ranked_launches["B3"], "max_abs_err": err,
-        "ms": ms, "plain_ms": pms, "bound_ms": bound_ms(nbytes),
-        "bound_by": "bytes", "library_ms": None,
-        "shape": {"W": w, "tiles": n_tiles}, "ok": True})
-    del tiles, slots, got, ref
-
-    win = accumulate.DENSE_WINDOW
-
-    def dense_case(what, q, width, codes, tiles, wbits, qslot, col0, act,
-                   gated, probes=None):
-        """B4's packed form (``tiles``; or, with ``tiles`` None, the
-        unpacked form on ``codes``) against its plain version on one input,
-        timed; ``codes`` are the (P, 4096) codes it adds (gated and masked
-        by ``act``).  Its bytes bound: an act byte per entry; per active
-        entry 8 B of indices and the codes it needs (16 KB unpacked, 4 KB
-        packed; gated, the window's 512 B and the 32-byte sector of codes
-        under each non-zero window word); 8 B of read-modify-write per
-        distinct touched word.  Its sector floor: the same inputs and 64 B
-        per distinct touched sector."""
-        p = codes.shape[0]
-        n_act = int(act.sum())
-        if tiles is None:
-            run = (lambda a: accumulate.dense_add(a, codes, qslot, col0,
-                                                  act))
-            run_plain = (lambda a: accumulate.dense_add_plain(
-                a, codes, qslot, col0, act))
-            code_bytes = n_act * win * 4
-        else:
-            run = (lambda a: accumulate.dense_add_packed(
-                a, tiles, wbits, qslot, col0, act, gated=gated))
-            run_plain = (lambda a: accumulate.dense_add_packed_plain(
-                a, tiles, wbits, qslot, col0, act, gated=gated))
-            code_bytes = n_act * win
+        # the packed form on each mode's own largest dense round (captured from
+        # its warm-up batch: the real windows, overlaps and dead positions), and
+        # the unpacked round (unpack and gate in plain torch, then the unpacked
+        # form) against it on the same inputs, gated and ungated
+        b4_real = {}
+        for mode, cap in captured["B4"].items():
+            if not cap:
+                if warm_dense[mode] > 0:
+                    raise AssertionError(f"{mode}: no dense round captured")
+                continue
+            tiles, wbits, qslot, col0, act = (cap[k].to(dev) for k in (
+                "tiles", "win", "qslot", "col0", "act"))
+            gated = cap["gated"]
+            codes = accumulate._window_codes(tiles)
             if gated:
-                live_words = int(((wbits != 0) & act[:, None]).sum())
-                code_bytes = n_act * win // 8 + live_words * 32
-        nz = (codes != 0) & act[:, None]
-        e, pos = nz.nonzero(as_tuple=True)
-        flat = qslot.long()[e] * width + col0.long()[e] + pos
-        r = accumulate_case(what, q, width, run, run_plain, flat, codes[nz],
-                            probes)
-        del e, pos, flat
-        inputs = p + n_act * 8 + code_bytes
-        r.update(bound_ms=bound_ms(inputs + r["touched"] * 8),
-                 sector_floor_ms=bound_ms(inputs + r["sectors"] * 64),
-                 zero_share=1.0 - int(nz.sum()) / (p * win),
-                 code_bytes=code_bytes,
-                 shape={"Q": q, "width": width, "P": p,
-                        "active": n_act, "gated": gated})
-        log(f"{what} Q={q} width={width} P={p} gated={gated}: err "
-            f"{r['max_abs_err']} kernel {r['ms']:.4f} ms plain "
-            f"{r['plain_ms']:.4f} ms index_put_ {r['library_ms']:.4f} ms "
-            f"bound {r['bound_ms']:.4f} ms sector floor "
-            f"{r['sector_floor_ms']:.4f} ms ({r['sectors']} sectors, "
-            f"{r['touched']} words, {code_bytes} code bytes needed, zero "
-            f"share {r['zero_share']:.4f})")
-        return r
-
-    def unpacked_round(acc, tiles, wbits, qslot, col0, act, gated):
-        """The dense round's add with the codes unpacked first: plain torch
-        unpacks (and gates) them, CHUNK_ELEMS at a time, for B4's unpacked
-        form (the ranked rounds' add before the packed form)."""
-        step = accumulate.CHUNK_ELEMS // win
-        for s in range(0, tiles.shape[0], step):
-            part = slice(s, s + step)
-            codes = accumulate._window_codes(tiles[part])
-            if gated:
-                codes = codes * accumulate._window_bits(wbits[part])
-            accumulate.dense_add(acc, codes, qslot[part], col0[part],
-                                 act[part])
-
-    # B4 on 65,536 windows (one chunk of the plain packed form; fewer if
-    # the path's largest call had fewer) at random 128-aligned columns of
-    # the ranked accumulator, half the codes zero:
-    # the unpacked form on the codes, the packed form on the same codes
-    # packed, ungated and gated by random window bits
-    b4_calls = rcalls["B4"] or [{"P": 1, "Q": q, "width": width}]
-    log(f"B4 launches on the ranked path, entries: "
-        f"{[c['P'] for c in b4_calls]}")
-    c = max(b4_calls, key=lambda c: c["P"])
-    p, q, width = (min(c["P"], accumulate.CHUNK_ELEMS // win), c["Q"],
-                   c["width"])
-    qslot = torch.sort(rand_int(q, p)).values
-    col0 = rand_int((width - win) // 128 + 1, p) * 128
-    codes = torch.where(rand_int(2, p * win).reshape(p, win) == 0, 0,
-                        rand_int(256, p * win).reshape(p, win))
-    tiles = codes.to(torch.uint8).view(torch.int32)     # byte p: position p
-    wbits = rand_words((p, accumulate.WINDOW_WORDS))
-    act = torch.ones(p, dtype=torch.bool, device=dev)
-    b4u = dense_case("B4 unpacked", q, width, codes, None, None, qslot, col0,
-                     act, False)
-    b4 = dense_case("B4 packed", q, width, codes, tiles, wbits, qslot, col0,
-                    act, False)
-    b4g = dense_case("B4 packed", q, width,
-                     codes * accumulate._window_bits(wbits), tiles, wbits,
-                     qslot, col0, act, True)
-    if not rcalls["B4"]:
-        log("(no dense block on the ranked path)")
-    del codes, tiles, wbits, qslot, col0, act
-    torch.cuda.empty_cache()
-
-    # the packed form on each mode's own largest dense round (captured from
-    # its warm-up batch: the real windows, overlaps and dead positions), and
-    # the unpacked round (unpack and gate in plain torch, then the unpacked
-    # form) against it on the same inputs, gated and ungated
-    b4_real = {}
-    for mode, cap in captured["B4"].items():
-        if not cap:
-            if warm_dense[mode] > 0:
-                raise AssertionError(f"{mode}: no dense round captured")
-            continue
+                codes = codes * accumulate._window_bits(wbits)
+            probes = {}
+            for g in (False, True):
+                probes[f"unpacked_round_gated_{g}"] = (
+                    lambda a, g=g: unpacked_round(a, tiles, wbits, qslot, col0,
+                                                  act, g))
+                probes[f"packed_gated_{g}"] = (
+                    lambda a, g=g: accumulate.dense_add_packed(
+                        a, tiles, wbits, qslot, col0, act, gated=g))
+            r = b4_real[mode] = dense_case(
+                f"B4 packed (captured, {mode})", cap["Q"], cap["width"], codes,
+                tiles, wbits, qslot, col0, act, gated, probes)
+            pr = r["probes_ms"]
+            for g in (False, True):
+                unp, pk = (pr[f"unpacked_round_gated_{g}"],
+                           pr[f"packed_gated_{g}"])
+                log(f"B4 dense round ({mode}'s captured inputs, gated={g}): "
+                    f"unpack{' and gate' if g else ''} + unpacked kernel "
+                    f"{unp:.4f} ms, packed kernel {pk:.4f} ms: {unp / pk:.2f}x")
+            del tiles, wbits, qslot, col0, act, codes
+            torch.cuda.empty_cache()
+        # the gated packed form on the tombstone `or` batch's largest dense
+        # round, gated by the epoch's live row (nearly every window bit set):
+        # against its plain version, then timed in turns beside the ungated
+        # packed form on the same inputs
+        cap = mcaps["B4"]
         tiles, wbits, qslot, col0, act = (cap[k].to(dev) for k in (
             "tiles", "win", "qslot", "col0", "act"))
-        gated = cap["gated"]
-        codes = accumulate._window_codes(tiles)
-        if gated:
-            codes = codes * accumulate._window_bits(wbits)
-        probes = {}
-        for g in (False, True):
-            probes[f"unpacked_round_gated_{g}"] = (
-                lambda a, g=g: unpacked_round(a, tiles, wbits, qslot, col0,
-                                              act, g))
-            probes[f"packed_gated_{g}"] = (
-                lambda a, g=g: accumulate.dense_add_packed(
-                    a, tiles, wbits, qslot, col0, act, gated=g))
-        r = b4_real[mode] = dense_case(
-            f"B4 packed (captured, {mode})", cap["Q"], cap["width"], codes,
-            tiles, wbits, qslot, col0, act, gated, probes)
-        pr = r["probes_ms"]
-        for g in (False, True):
-            unp, pk = (pr[f"unpacked_round_gated_{g}"],
-                       pr[f"packed_gated_{g}"])
-            log(f"B4 dense round ({mode}'s captured inputs, gated={g}): "
-                f"unpack{' and gate' if g else ''} + unpacked kernel "
-                f"{unp:.4f} ms, packed kernel {pk:.4f} ms: {unp / pk:.2f}x")
-        del tiles, wbits, qslot, col0, act, codes
+        b4_tomb = dense_case(
+            "B4 packed gated (captured, or under tombstones)", cap["Q"],
+            cap["width"], accumulate._window_codes(tiles)
+            * accumulate._window_bits(wbits), tiles, wbits, qslot, col0, act,
+            True)
+        acc = torch.zeros((cap["Q"], cap["width"]), dtype=torch.int32,
+                          device=dev)
+        b4_tomb["ms_in_turns"] = in_turns({
+            f"gated_{g}": (lambda g=g: accumulate.dense_add_packed(
+                acc, tiles, wbits, qslot, col0, act, gated=g))
+            for g in (True, False)}, torch)
+        b4_tomb["window_bits_set"] = bit_share(wbits)
+        log(f"B4 packed on the tombstone or batch's captured round (window bits "
+            f"set {b4_tomb['window_bits_set']:.4f}), in turns: "
+            f"{b4_tomb['ms_in_turns']}")
+        del tiles, wbits, qslot, col0, act, acc
         torch.cuda.empty_cache()
-    # the gated packed form on the tombstone `or` batch's largest dense
-    # round, gated by the epoch's live row (nearly every window bit set):
-    # against its plain version, then timed in turns beside the ungated
-    # packed form on the same inputs
-    cap = mcaps["B4"]
-    tiles, wbits, qslot, col0, act = (cap[k].to(dev) for k in (
-        "tiles", "win", "qslot", "col0", "act"))
-    b4_tomb = dense_case(
-        "B4 packed gated (captured, or under tombstones)", cap["Q"],
-        cap["width"], accumulate._window_codes(tiles)
-        * accumulate._window_bits(wbits), tiles, wbits, qslot, col0, act,
-        True)
-    acc = torch.zeros((cap["Q"], cap["width"]), dtype=torch.int32,
-                      device=dev)
-    b4_tomb["ms_in_turns"] = in_turns({
-        f"gated_{g}": (lambda g=g: accumulate.dense_add_packed(
-            acc, tiles, wbits, qslot, col0, act, gated=g))
-        for g in (True, False)}, torch)
-    b4_tomb["window_bits_set"] = bit_share(wbits)
-    log(f"B4 packed on the tombstone or batch's captured round (window bits "
-        f"set {b4_tomb['window_bits_set']:.4f}), in turns: "
-        f"{b4_tomb['ms_in_turns']}")
-    del tiles, wbits, qslot, col0, act, acc
-    torch.cuda.empty_cache()
-    # the entry's own numbers: the ranked path's largest captured round
-    main = max(b4_real.values(), key=lambda r: r["shape"]["P"], default=b4)
-    report.append({
-        "name": "dense_add (B4)", "route": "cuda",
-        "form": "ms, bound_ms and library_ms: the packed form "
-                "(dense_add_packed, the ranked path's form) on the ranked "
-                "path's largest captured round; synthetic.unpacked: the "
-                "unpacked form on synthetic windows",
-        "source": "src/repro_torch/kernels/csrc/accumulate.cu",
-        "replaces": "src/repro/kernels/accumulate.py:137",
-        "launches": sum(ranked_launches["B4"].values()), "path": "ranked",
-        "ranked_launches": ranked_launches["B4"],
-        "max_abs_err": max(r["max_abs_err"] for r in
-                           (b4, b4g, b4u, b4_tomb, *b4_real.values())),
-        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                "sector_floor_ms", "zero_share", "sectors",
-                                "shape")},
-        "bound_by": "bytes", "captured": b4_real,
-        "captured_tombstone_or": b4_tomb,
-        "synthetic": {"packed": b4, "packed_gated": b4g, "unpacked": b4u},
-        "ok": True})
+        # the entry's own numbers: the ranked path's largest captured round
+        main = max(b4_real.values(), key=lambda r: r["shape"]["P"], default=b4)
+        report.append({
+            "name": "dense_add (B4)", "route": "cuda",
+            "form": "ms, bound_ms and library_ms: the packed form "
+                    "(dense_add_packed, the ranked path's form) on the ranked "
+                    "path's largest captured round; synthetic.unpacked: the "
+                    "unpacked form on synthetic windows",
+            "source": "src/repro_torch/kernels/csrc/accumulate.cu",
+            "replaces": "src/repro/kernels/accumulate.py:137",
+            "launches": sum(ranked_launches["B4"].values()), "path": "ranked",
+            "ranked_launches": ranked_launches["B4"],
+            "max_abs_err": max(r["max_abs_err"] for r in
+                               (b4, b4g, b4u, b4_tomb, *b4_real.values())),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                    "sector_floor_ms", "zero_share", "sectors",
+                                    "shape")},
+            "bound_by": "bytes", "captured": b4_real,
+            "captured_tombstone_or": b4_tomb,
+            "synthetic": {"packed": b4, "packed_gated": b4g, "unpacked": b4u},
+            "ok": True})
 
-    # B6, B7a and B7b at every bit width 1..32, three frames each (the
-    # corpus reaches only the widths its lists need); B8 on sums that wrap
-    # past 2**32, on row counts that are no multiple of its tile (one of
-    # them 1,001 tiles, more than the card holds resident at once), and
-    # twice queued back to back on inputs of one shape (the second call's
-    # scratch reuses the first's memory: no stale tile status)
-    sweep = {"B7a": 0, "B7b": 0, "B6": 0, "B8": 0}
-    for bw in range(1, 33):
-        x = rand_words((3 * 32, 128))
-        packed = bitpack.pack_frames(x, bw)
-        sweep["B7a"] = max(sweep["B7a"], max_abs_err(
-            [packed], [bitpack.pack_frames_plain(x, bw)], torch))
-        sweep["B7b"] = max(sweep["B7b"], max_abs_err(
-            [bitpack.unpack_frames(packed, bw)],
-            [bitpack.unpack_frames_plain(packed, bw)], torch))
-        sweep["B6"] = max(sweep["B6"], max_abs_err(
-            [unpack_delta.unpack_delta_frames(packed, bw)],
-            [unpack_delta.unpack_delta_frames_plain(packed, bw)], torch))
-    wrap = torch.where(rand_int(2, 64 * 32 * 128).reshape(-1, 128) == 0,
-                       -(1 << 31), rand_words((64 * 32, 128)))
-    many = rand_words((32 * 2000 + 7, 128))
-    for x in (wrap, rand_words((37, 128)), many):
+        # B6, B7a and B7b at every bit width 1..32, three frames each (the
+        # corpus reaches only the widths its lists need); B8 on sums that wrap
+        # past 2**32, on row counts that are no multiple of its tile (one of
+        # them 1,001 tiles, more than the card holds resident at once), and
+        # twice queued back to back on inputs of one shape (the second call's
+        # scratch reuses the first's memory: no stale tile status)
+        sweep = {"B7a": 0, "B7b": 0, "B6": 0, "B8": 0}
+        for bw in range(1, 33):
+            x = rand_words((3 * 32, 128))
+            packed = bitpack.pack_frames(x, bw)
+            sweep["B7a"] = max(sweep["B7a"], max_abs_err(
+                [packed], [bitpack.pack_frames_plain(x, bw)], torch))
+            sweep["B7b"] = max(sweep["B7b"], max_abs_err(
+                [bitpack.unpack_frames(packed, bw)],
+                [bitpack.unpack_frames_plain(packed, bw)], torch))
+            sweep["B6"] = max(sweep["B6"], max_abs_err(
+                [unpack_delta.unpack_delta_frames(packed, bw)],
+                [unpack_delta.unpack_delta_frames_plain(packed, bw)], torch))
+        wrap = torch.where(rand_int(2, 64 * 32 * 128).reshape(-1, 128) == 0,
+                           -(1 << 31), rand_words((64 * 32, 128)))
+        many = rand_words((32 * 2000 + 7, 128))
+        for x in (wrap, rand_words((37, 128)), many):
+            sweep["B8"] = max(sweep["B8"], max_abs_err(
+                [scan_add.prefix_sum_blocks(x)],
+                [scan_add.prefix_sum_blocks_plain(x)], torch))
+        again = rand_words(many.shape)
+        both = [scan_add.prefix_sum_blocks(many), scan_add.prefix_sum_blocks(again)]
         sweep["B8"] = max(sweep["B8"], max_abs_err(
-            [scan_add.prefix_sum_blocks(x)],
-            [scan_add.prefix_sum_blocks_plain(x)], torch))
-    again = rand_words(many.shape)
-    both = [scan_add.prefix_sum_blocks(many), scan_add.prefix_sum_blocks(again)]
-    sweep["B8"] = max(sweep["B8"], max_abs_err(
-        both, [scan_add.prefix_sum_blocks_plain(y) for y in (many, again)],
-        torch))
-    torch.cuda.synchronize()
-    log(f"B6/B7a/B7b at bw 1..32 and B8 on wrapping, ragged and many-tile "
-        f"inputs and back to back: max_abs_err {sweep}")
-    if any(sweep.values()):
-        raise AssertionError(f"stream kernel sweep disagrees: {sweep}")
-    del wrap, x, packed, many, again, both
-
-    def largest(k, key):
-        return max(scalls[k], key=lambda c: c[key])
-
-    def stream_case(key, name, source, replaces, run, run_plain, nbytes,
-                    shape, library=None, library_name=None, per_call=False):
-        """A stream kernel at the stream phase's largest call: bitwise
-        against its plain version, then timed (primed and from an idle
-        queue), its plain version and its library call timed; whether the
-        library call gives the same bit patterns; ``per_call``: the grid
-        launches and memsets of one call."""
-        got = run()
-        want = run_plain()
+            both, [scan_add.prefix_sum_blocks_plain(y) for y in (many, again)],
+            torch))
         torch.cuda.synchronize()
-        err = max_abs_err([got], [want], torch)
-        if err:
-            raise AssertionError(f"{key} disagrees with its plain version")
-        entry = {"name": name, "route": "cuda",
-                 "source": f"src/repro_torch/kernels/csrc/{source}",
-                 "replaces": replaces, "launches": stream_launches[key],
-                 "path": "stream", "max_abs_err": max(err, sweep.get(key, 0)),
-                 "ms": cuda_ms(run, torch), "plain_ms": cuda_ms(run_plain, torch),
-                 "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-                 "library_ms": cuda_ms(library, torch) if library else None,
-                 "call_ms": cuda_ms(run, torch, primed=False),
-                 "library": library_name, "shape": shape, "ok": True}
-        if library:
-            entry["library_equal"] = bool(torch.equal(library().view(-1),
-                                                      got.view(-1)))
-        if per_call:
-            entry["per_call"] = device_ops(run, torch)
-        lms = entry["library_ms"]
-        log(f"{key} {shape}: err {err} kernel {entry['ms']:.4f} ms (one call "
-            f"from an idle queue {entry['call_ms']:.4f} ms) plain "
-            f"{entry['plain_ms']:.4f} ms "
-            + (f"{library_name} {lms:.4f} ms " if library else "")
-            + f"bound {bound_ms(nbytes):.4f} ms"
-            + (f"; per call {entry['per_call']}" if per_call else ""))
-        report.append(entry)
+        log(f"B6/B7a/B7b at bw 1..32 and B8 on wrapping, ragged and many-tile "
+            f"inputs and back to back: max_abs_err {sweep}")
+        if any(sweep.values()):
+            raise AssertionError(f"stream kernel sweep disagrees: {sweep}")
+        del wrap, x, packed, many, again, both
 
-    c = largest("B7a", "frames")
-    f, bw = c["frames"], c["bw"]
-    x = rand_words((f * 32, 128))
-    stream_case("B7a", "pack_frames (B7a)", "stream.cu",
-                "src/repro/kernels/bitpack.py:78",
-                lambda: bitpack.pack_frames(x, bw),
-                lambda: bitpack.pack_frames_plain(x, bw),
-                f * FRAME_INTS * 4 + f * bw * 512, {"frames": f, "bw": bw})
-    for key, wrapper, plain, name, replaces in (
-            ("B7b", bitpack.unpack_frames, bitpack.unpack_frames_plain,
-             "unpack_frames (B7b)", "src/repro/kernels/bitpack.py:96"),
-            ("B6", unpack_delta.unpack_delta_frames,
-             unpack_delta.unpack_delta_frames_plain,
-             "unpack_delta_frames (B6)",
-             "src/repro/kernels/unpack_delta.py:46")):
-        c = largest(key, "frames")
+        def largest(k, key):
+            return max(scalls[k], key=lambda c: c[key])
+
+        def stream_case(key, name, source, replaces, run, run_plain, nbytes,
+                        shape, library=None, library_name=None, per_call=False):
+            """A stream kernel at the stream phase's largest call: bitwise
+            against its plain version, then timed (primed and from an idle
+            queue), its plain version and its library call timed; whether the
+            library call gives the same bit patterns; ``per_call``: the grid
+            launches and memsets of one call."""
+            got = run()
+            want = run_plain()
+            torch.cuda.synchronize()
+            err = max_abs_err([got], [want], torch)
+            if err:
+                raise AssertionError(f"{key} disagrees with its plain version")
+            entry = {"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{source}",
+                     "replaces": replaces, "launches": stream_launches[key],
+                     "path": "stream", "max_abs_err": max(err, sweep.get(key, 0)),
+                     "ms": cuda_ms(run, torch), "plain_ms": cuda_ms(run_plain, torch),
+                     "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                     "library_ms": cuda_ms(library, torch) if library else None,
+                     "call_ms": cuda_ms(run, torch, primed=False),
+                     "library": library_name, "shape": shape, "ok": True}
+            if library:
+                entry["library_equal"] = bool(torch.equal(library().view(-1),
+                                                          got.view(-1)))
+            if per_call:
+                entry["per_call"] = device_ops(run, torch)
+            lms = entry["library_ms"]
+            log(f"{key} {shape}: err {err} kernel {entry['ms']:.4f} ms (one call "
+                f"from an idle queue {entry['call_ms']:.4f} ms) plain "
+                f"{entry['plain_ms']:.4f} ms "
+                + (f"{library_name} {lms:.4f} ms " if library else "")
+                + f"bound {bound_ms(nbytes):.4f} ms"
+                + (f"; per call {entry['per_call']}" if per_call else ""))
+            report.append(entry)
+
+        c = largest("B7a", "frames")
         f, bw = c["frames"], c["bw"]
-        packed = rand_words((f * bw, 128))
-        stream_case(key, name, "stream.cu", replaces,
-                    lambda: wrapper(packed, bw), lambda: plain(packed, bw),
-                    f * bw * 512 + f * FRAME_INTS * 4,
-                    {"frames": f, "bw": bw})
-    c = largest("B8", "rows")
-    x = rand_words((c["rows"], 128))
-    flat = x.view(-1)
-    stream_case("B8", "prefix_sum_blocks (B8)", "stream.cu",
-                "src/repro/kernels/scan_add.py:38",
-                lambda: scan_add.prefix_sum_blocks(x),
-                lambda: scan_add.prefix_sum_blocks_plain(x),
-                2 * c["rows"] * 512, {"rows": c["rows"]},
-                lambda: torch.cumsum(flat, 0, dtype=torch.int32),
-                "torch.cumsum(dtype=torch.int32)", per_call=True)
-    c = largest("B9", "frames")
-    x = rand_words((c["frames"] * 32, 128))
-    stream_case("B9", "frame_or (B9)", "stream.cu",
-                "src/repro/kernels/quadmax.py:29",
-                lambda: quadmax.frame_or(x), lambda: quadmax.frame_or_plain(x),
-                c["frames"] * (FRAME_INTS * 4 + 512), {"frames": c["frames"]})
-    c = largest("B10", "rows")
-    a, b = rand_words((c["rows"], 128)), rand_words((c["rows"], 128))
-    stream_case("B10", "bitmap_and_tiles (B10)", "intersect.cu",
-                "src/repro/kernels/intersect.py:115",
-                lambda: intersect.bitmap_and_tiles(a, b),
-                lambda: intersect.bitmap_and_tiles_plain(a, b),
-                3 * c["rows"] * 512, {"rows": c["rows"]},
-                lambda: torch.bitwise_and(a, b), "torch.bitwise_and",
-                per_call=True)
-    # B10 above the 50 MB L2: 3 x 32 MiB, so repeats read from HBM
-    rows = 65536
-    a, b = rand_words((rows, 128)), rand_words((rows, 128))
-    err = max_abs_err([intersect.bitmap_and_tiles(a, b)],
-                      [intersect.bitmap_and_tiles_plain(a, b)], torch)
-    if err:
-        raise AssertionError("B10 disagrees with its plain version above L2")
-    big = {"rows": rows, "max_abs_err": err,
-           "ms": cuda_ms(lambda: intersect.bitmap_and_tiles(a, b), torch),
-           "library_ms": cuda_ms(lambda: torch.bitwise_and(a, b), torch),
-           "bound_ms": bound_ms(3 * rows * 512)}
-    report[-1]["above_l2"] = big
-    log(f"B10 above L2 {{'rows': {rows}}}: err {err} kernel {big['ms']:.4f} "
-        f"ms torch.bitwise_and {big['library_ms']:.4f} ms bound "
-        f"{big['bound_ms']:.4f} ms")
-    del x, flat, packed, a, b
+        x = rand_words((f * 32, 128))
+        stream_case("B7a", "pack_frames (B7a)", "stream.cu",
+                    "src/repro/kernels/bitpack.py:78",
+                    lambda: bitpack.pack_frames(x, bw),
+                    lambda: bitpack.pack_frames_plain(x, bw),
+                    f * FRAME_INTS * 4 + f * bw * 512, {"frames": f, "bw": bw})
+        for key, wrapper, plain, name, replaces in (
+                ("B7b", bitpack.unpack_frames, bitpack.unpack_frames_plain,
+                 "unpack_frames (B7b)", "src/repro/kernels/bitpack.py:96"),
+                ("B6", unpack_delta.unpack_delta_frames,
+                 unpack_delta.unpack_delta_frames_plain,
+                 "unpack_delta_frames (B6)",
+                 "src/repro/kernels/unpack_delta.py:46")):
+            c = largest(key, "frames")
+            f, bw = c["frames"], c["bw"]
+            packed = rand_words((f * bw, 128))
+            stream_case(key, name, "stream.cu", replaces,
+                        lambda: wrapper(packed, bw), lambda: plain(packed, bw),
+                        f * bw * 512 + f * FRAME_INTS * 4,
+                        {"frames": f, "bw": bw})
+        c = largest("B8", "rows")
+        x = rand_words((c["rows"], 128))
+        flat = x.view(-1)
+        stream_case("B8", "prefix_sum_blocks (B8)", "stream.cu",
+                    "src/repro/kernels/scan_add.py:38",
+                    lambda: scan_add.prefix_sum_blocks(x),
+                    lambda: scan_add.prefix_sum_blocks_plain(x),
+                    2 * c["rows"] * 512, {"rows": c["rows"]},
+                    lambda: torch.cumsum(flat, 0, dtype=torch.int32),
+                    "torch.cumsum(dtype=torch.int32)", per_call=True)
+        c = largest("B9", "frames")
+        x = rand_words((c["frames"] * 32, 128))
+        stream_case("B9", "frame_or (B9)", "stream.cu",
+                    "src/repro/kernels/quadmax.py:29",
+                    lambda: quadmax.frame_or(x), lambda: quadmax.frame_or_plain(x),
+                    c["frames"] * (FRAME_INTS * 4 + 512), {"frames": c["frames"]})
+        c = largest("B10", "rows")
+        a, b = rand_words((c["rows"], 128)), rand_words((c["rows"], 128))
+        stream_case("B10", "bitmap_and_tiles (B10)", "intersect.cu",
+                    "src/repro/kernels/intersect.py:115",
+                    lambda: intersect.bitmap_and_tiles(a, b),
+                    lambda: intersect.bitmap_and_tiles_plain(a, b),
+                    3 * c["rows"] * 512, {"rows": c["rows"]},
+                    lambda: torch.bitwise_and(a, b), "torch.bitwise_and",
+                    per_call=True)
+        # B10 above the 50 MB L2: 3 x 32 MiB, so repeats read from HBM
+        rows = 65536
+        a, b = rand_words((rows, 128)), rand_words((rows, 128))
+        err = max_abs_err([intersect.bitmap_and_tiles(a, b)],
+                          [intersect.bitmap_and_tiles_plain(a, b)], torch)
+        if err:
+            raise AssertionError("B10 disagrees with its plain version above L2")
+        big = {"rows": rows, "max_abs_err": err,
+               "ms": cuda_ms(lambda: intersect.bitmap_and_tiles(a, b), torch),
+               "library_ms": cuda_ms(lambda: torch.bitwise_and(a, b), torch),
+               "bound_ms": bound_ms(3 * rows * 512)}
+        report[-1]["above_l2"] = big
+        log(f"B10 above L2 {{'rows': {rows}}}: err {err} kernel {big['ms']:.4f} "
+            f"ms torch.bitwise_and {big['library_ms']:.4f} ms bound "
+            f"{big['bound_ms']:.4f} ms")
+        del x, flat, packed, a, b
 
-    # the kernels the shard and serve phases launched, counted there
-    for entry in report:
-        key = {"segmented_decode_and (B1)": "B1", "scatter_bits (B2)": "B2",
-               "scatter_add (B2, add form)": "B2add",
-               "unpack_codes (B3)": "B3", "dense_add (B4)": "B4"
-               }.get(entry["name"])
-        if key is not None:
-            entry["sharded_launches"] = sharded["launches"].get(key, 0)
-            entry["serve_launches"] = serve["launches"].get(key, 0)
+        # the kernels the shard and serve phases launched, counted there
+        for entry in report:
+            key = {"segmented_decode_and (B1)": "B1", "scatter_bits (B2)": "B2",
+                   "scatter_add (B2, add form)": "B2add",
+                   "unpack_codes (B3)": "B3", "dense_add (B4)": "B4"
+                   }.get(entry["name"])
+            if key is not None:
+                entry["sharded_launches"] = sharded["launches"].get(key, 0)
+                entry["serve_launches"] = serve["launches"].get(key, 0)
+        return report
 
+    report = kernel_phase()
+
+    # ---- dense LM serving, after every index phase ------------------------ #
     phase_done("kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = lm_phase(dev, args.seed, smi, np, torch)
+    phase_done("lm")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"phases_s": phase_s, "ranked": {
         m: {k: v for k, v in r.items() if k != "recent"}
         for m, r in ranked.items()}, "mutation": mut, "stream": stream,
-        "codecs": codecs, "sharded": sharded, "serve": serve}),
+        "codecs": codecs, "sharded": sharded, "serve": serve,
+        "examples": examples, "lm": lm}),
         flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,36 @@
+"""Architecture registry of the port (``--arch <id>``): the three dense GQA
+LMs.  The reference's other architectures are named in ``PENDING`` with the
+ROADMAP.md step that ports each; :func:`get` raises ``KeyError`` naming it."""
+
+from . import smollm_135m, starcoder2_3b, starcoder2_7b
+
+ARCHS = {
+    m.ARCH.arch_id: m.ARCH
+    for m in (starcoder2_3b, starcoder2_7b, smollm_135m)
+}
+
+PENDING = {
+    "deepseek-v2-lite-16b": "MoE and the MLA configs (ROADMAP.md, step A.13.2)",
+    "mixtral-8x22b": "MoE and the MLA configs (ROADMAP.md, step A.13.2)",
+    "egnn": "EGNN serving (ROADMAP.md, step A.13.3)",
+    "din": "recsys serving (ROADMAP.md, step A.13.3)",
+    "dien": "recsys serving (ROADMAP.md, step A.13.3)",
+    "wide-deep": "recsys serving (ROADMAP.md, step A.13.3)",
+    "dlrm-rm2": "recsys serving (ROADMAP.md, step A.13.3)",
+}
+
+
+def get(arch_id: str):
+    if arch_id in PENDING:
+        raise KeyError(f"{arch_id}: not ported yet, waits for "
+                       f"{PENDING[arch_id]}")
+    return ARCHS[arch_id]
+
+
+def all_cells(include_skipped: bool = True):
+    """Yield (arch_id, shape_name, cell) for the ported architectures."""
+    for aid, spec in ARCHS.items():
+        for sname, cell in spec.shapes.items():
+            if not include_skipped and cell.skip_reason:
+                continue
+            yield aid, sname, cell

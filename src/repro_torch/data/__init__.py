@@ -1,1 +1,4 @@
-"""Synthetic corpora with paper-matched statistics."""
+"""Synthetic corpora with paper-matched statistics (``synth``) and the
+compressed data stores (``pipeline``)."""
+
+from . import pipeline, synth  # noqa: F401

@@ -57,6 +57,10 @@ def make_dataset(name: str, seed: int = 0, n_lists: int = 200,
     return lists
 
 
+def concat_gaps(lists) -> np.ndarray:
+    return np.concatenate([pl.dgaps for pl in lists]).astype(np.uint32)
+
+
 def make_corpus(name: str, seed: int = 0, n_docs: int | None = None):
     """Token-level corpus for the query-processing path: returns
     (doc_lengths, postings dict term -> (docids, tfs))."""

@@ -1,20 +1,26 @@
-"""Serving launcher of the port: the latency-governed index serving loop
-(``--index``: async admission + dynamic batching over the ``QueryEngine``,
-see ``repro_torch.index.serve``), on the card unless asked for the CPU.
+"""Serving launcher of the port, on the card unless asked for the CPU:
+LM prefill + batched greedy decode (``--arch``), or the latency-governed
+index serving loop (``--index``: async admission + dynamic batching over
+the ``QueryEngine``, see ``repro_torch.index.serve``).
 
+  python -m repro_torch.launch.serve --arch smollm-135m --smoke --tokens 8
+  python -m repro_torch.launch.serve --arch smollm-135m --smoke --torch-device cpu
   python -m repro_torch.launch.serve --index --smoke
-  python -m repro_torch.launch.serve --index --smoke --torch-device cpu
   python -m repro_torch.launch.serve --index --rate 300 --requests 512 --placement device
 
-Counterpart of the index half of the JAX package's ``launch/serve.py``
-(``serve_index``).  Its model half (``--arch``: LM prefill and decode,
-recsys scoring) is not ported yet (``ROADMAP.md`` step A.13) and raises.
+Counterpart of the JAX package's ``launch/serve.py``.  ``--arch`` serves
+the ported dense LMs (``repro_torch.configs.ARCHS``); the reference's other
+architectures raise, naming the ROADMAP.md step that ports them (recsys
+scoring: A.13.3).  The reference's ``--shape`` and ``--multi-pod`` pick a
+sharding plan and mesh, and wait for the sharding slice (A.13.5): the LM
+runs the first serving cell's config on one device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 
@@ -92,14 +98,56 @@ def serve_index(args) -> None:
         print("index serve smoke ok")
 
 
+def serve_lm(args) -> None:
+    """Prefill a batch of seeded prompts, then batched greedy decode against
+    the KV cache, as the reference's LM branch does; prints its line."""
+    import torch
+
+    from .. import configs
+    from ..index.device import resolve_device
+    from ..models import transformer
+
+    spec = configs.get(args.arch)
+    serve_cells = [c for c in spec.shapes.values()
+                   if c.kind in ("prefill", "decode", "serve", "retrieval")]
+    cfg = spec.config_for_cell(
+        spec.make_smoke_config() if args.smoke else spec.make_config(),
+        serve_cells[0])
+    dev = resolve_device(args.torch_device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = transformer.init(cfg, gen)
+    b, s = 2, 32
+    prompts = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (b, s)),
+        dtype=torch.int32, device=dev)
+    logits, cache = transformer.prefill(model, prompts)
+    if not cfg.window:
+        cache = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (args.tokens,) + v.shape[3:])], dim=2)
+                 for k, v in cache.items()}
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    t0 = time.perf_counter()
+    for i in range(args.tokens):
+        logits, cache = transformer.decode_step(model, cache, tok, s + i)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    print(f"decoded {args.tokens} steps x batch {b} in {(time.perf_counter()-t0)*1e3:.1f} ms")
+
+
 def main(argv=None) -> None:
+    from .. import configs
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="model serving: not ported yet (ROADMAP.md A.13)")
+                    choices=sorted(set(configs.ARCHS) | set(configs.PENDING)),
+                    help="serve a model arch (the dense LMs are ported; the "
+                         "others raise, naming their ROADMAP.md step)")
     ap.add_argument("--index", action="store_true",
                     help="serve the inverted index (async admission + "
                          "dynamic batching)")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--tokens", type=int, default=8)
     ap.add_argument("--dataset", default="gov2")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=256)
@@ -112,8 +160,8 @@ def main(argv=None) -> None:
                     help="pin every batch's placement (default: engine "
                          "auto-placement)")
     ap.add_argument("--torch-device", default="cuda",
-                    help="torch device of the engine (default: the card; "
-                         "'cpu' runs the kernels' plain versions)")
+                    help="torch device of the model or the engine (default: "
+                         "the card; 'cpu' runs the kernels' plain versions)")
     ap.add_argument("--trace-out", default=None,
                     help="write a Perfetto-loadable Chrome trace-event JSON "
                          "of the run (also enables the deep engine/kernel "
@@ -126,13 +174,12 @@ def main(argv=None) -> None:
                          "round spans so durations attribute device time to "
                          "the producing kernel")
     args = ap.parse_args(argv)
-    if args.arch is not None:
-        raise NotImplementedError(
-            f"--arch {args.arch}: model serving is not ported yet "
-            "(ROADMAP.md, step A.13); use --index")
-    if not args.index:
-        ap.error("--index is required (model serving waits for A.13)")
-    serve_index(args)
+    if args.index:
+        serve_index(args)
+        return
+    if args.arch is None:
+        ap.error("either --arch or --index is required")
+    serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,397 @@
+"""Decoder-only LM, the dense architectures (counterpart of the JAX
+package's ``models/transformer.py``):
+
+  * GQA dense (starcoder2-3b/7b, smollm-135m), optionally with a sliding
+    window (SWA ring cache);
+  * MLA attention (dense layers; the latent decode cache).
+
+Two entry points for serving: ``prefill`` (build KV caches for a full
+sequence) and ``decode_step`` (one token against a cache), over ``trunk``.
+The model is an ``nn.Module`` (:class:`LM`) holding the reference's
+parameter tree under the same names, layers stacked ``(L, ...)``, so the
+decode cache is ``(L, B, S, KH, D)`` as in the reference and its weights
+cross over by a copy (:func:`load_reference_params`).  ``prefill`` and
+``decode_step`` are plain functions of the module, as the reference's are
+of its parameter tree.
+
+As in the reference, fp32 parameters are cast to the activation dtype on
+every use (``c(w)``); no second copy of the weights is kept.  Unlike the
+reference (pure functions under ``jit``), ``decode_step`` writes the new
+token's keys and values into the caller's cache in place: a copy of the
+``(L, B, S, KH, D)`` cache per layer would multiply a step's memory
+traffic by the layer count.
+
+Mixture-of-experts layers (``n_experts > 0``) wait for ROADMAP.md step
+A.13.2, and ``loss_fn`` (training) for step A.13.4.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import attention as attn_lib
+from .common import apply_rope, rmsnorm
+from .specs import P, abstract_params, axes_tree, init_params, stack_layers, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    attn: str = "gqa"                 # "gqa" | "mla"
+    window: Optional[int] = None      # SWA window
+    expand_kv: bool = False           # replicate KV heads to full H
+    rope_theta: float = 10000.0
+    # MLA dims (deepseek-v2-lite)
+    kv_lora: int = 0
+    qk_nope: int = 0
+    qk_rope: int = 0
+    v_head: int = 0
+    # MoE (not ported yet: n_experts > 0 raises)
+    n_experts: int = 0
+    n_shared: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_dense_layers: int = 0
+    capacity_factor: float = 1.25
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    q_chunk: Optional[int] = 1024     # None -> one q chunk (kv-scan only)
+    kv_chunk: int = 1024
+    loss_chunk: int = 512
+    aux_weight: float = 0.01
+
+    def __post_init__(self):
+        if self.n_experts > 0:
+            raise NotImplementedError(
+                f"{self.name}: mixture-of-experts layers (n_experts="
+                f"{self.n_experts}) are not ported yet (ROADMAP.md, step "
+                "A.13.2)")
+
+
+# --------------------------------------------------------------------------- #
+# parameter specs
+# --------------------------------------------------------------------------- #
+
+
+def _attn_specs(cfg: LMConfig) -> dict:
+    d = cfg.d_model
+    if cfg.attn == "mla":
+        return {
+            "wq": P((d, cfg.n_heads, cfg.qk_nope + cfg.qk_rope), ("embed", "heads", None)),
+            "w_dkv": P((d, cfg.kv_lora + cfg.qk_rope), ("embed", None)),
+            "kv_norm": P((cfg.kv_lora,), (None,), "ones"),
+            "w_uk": P((cfg.n_heads, cfg.kv_lora, cfg.qk_nope), ("heads", None, None)),
+            "w_uv": P((cfg.n_heads, cfg.kv_lora, cfg.v_head), ("heads", None, None)),
+            "wo": P((cfg.n_heads, cfg.v_head, d), ("heads", None, "embed")),
+        }
+    return {
+        "wq": P((d, cfg.n_heads, cfg.head_dim), ("embed", "heads", None)),
+        "wk": P((d, cfg.n_kv, cfg.head_dim), ("embed", "kv_heads", None)),
+        "wv": P((d, cfg.n_kv, cfg.head_dim), ("embed", "kv_heads", None)),
+        "wo": P((cfg.n_heads, cfg.head_dim, d), ("heads", None, "embed")),
+    }
+
+
+def _dense_ffn_specs(cfg: LMConfig, d_ff: int) -> dict:
+    d = cfg.d_model
+    return {
+        "w1": P((d, d_ff), ("embed", "ffn")),
+        "w3": P((d, d_ff), ("embed", "ffn")),
+        "w2": P((d_ff, d), ("ffn", "embed")),
+    }
+
+
+def _layer_specs(cfg: LMConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "attn_norm": P((d,), (None,), "ones"),
+        "ffn_norm": P((d,), (None,), "ones"),
+        "attn": _attn_specs(cfg),
+        "ffn": _dense_ffn_specs(cfg, cfg.d_ff),
+    }
+
+
+def param_specs(cfg: LMConfig) -> dict:
+    specs = {
+        "embed": P((cfg.vocab, cfg.d_model), ("vocab", "embed"), "embed"),
+        "final_norm": P((cfg.d_model,), (None,), "ones"),
+        "dense_layers": stack_layers(_layer_specs(cfg), cfg.n_layers),
+    }
+    if cfg.param_dtype != torch.float32:
+        specs = tree_map(lambda s: dataclasses.replace(s, dtype=cfg.param_dtype),
+                         specs)
+    return specs
+
+
+class _Tree(nn.Module):
+    """A nested dict of tensors held as a module: each dict key names a
+    submodule or a parameter, so ``named_parameters()`` gives the
+    reference's tree paths joined by dots (``dense_layers.attn.wq``)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> dict:
+        """The parameters as the reference's nested dict (no copies)."""
+        out = {k: m.tree() for k, m in self.named_children()}
+        out.update(self.named_parameters(recurse=False))
+        return out
+
+
+class LM(_Tree):
+    """The LM's parameters (``embed``, ``final_norm``, ``dense_layers``)
+    and its config.  Build one with :func:`init`, or around an existing
+    parameter tree (``LM(cfg, model.tree())`` shares the tensors)."""
+
+    def __init__(self, cfg: LMConfig, params: dict):
+        super().__init__(params)
+        self.cfg = cfg
+
+
+def init(cfg: LMConfig, generator: torch.Generator) -> LM:
+    """Parameters drawn from ``generator`` on its device."""
+    return LM(cfg, init_params(param_specs(cfg), generator))
+
+
+def abstract(cfg: LMConfig) -> dict:
+    return abstract_params(param_specs(cfg))
+
+
+def axes(cfg: LMConfig) -> dict:
+    return axes_tree(param_specs(cfg))
+
+
+def load_reference_params(model: LM, tree: dict) -> None:
+    """Copy the reference's ``T.init(...)`` tree, given as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), into ``model`` on the model's
+    device.  Every leaf's path, shape and dtype must match; a missing or an
+    extra leaf raises."""
+    _load_tree(model.tree(), tree, "")
+
+
+def _load_tree(dst: dict, src, path: str) -> None:
+    if not isinstance(src, dict):
+        raise TypeError(f"{path or 'root'}: expected a dict, got {type(src)}")
+    missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
+    if missing or extra:
+        raise KeyError(f"{path or 'root'}: missing leaves {missing}, extra "
+                       f"leaves {extra}")
+    for k in sorted(dst):
+        d, name = dst[k], f"{path}{k}"
+        if isinstance(d, dict):
+            _load_tree(d, src[k], name + ".")
+            continue
+        a = np.array(src[k])
+        if tuple(a.shape) != tuple(d.shape):
+            raise ValueError(f"{name}: shape {a.shape}, model {tuple(d.shape)}")
+        want = str(d.dtype).removeprefix("torch.")
+        if a.dtype.name != want:
+            raise TypeError(f"{name}: dtype {a.dtype.name}, model {want}")
+        t = (torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+             if want == "bfloat16" else torch.from_numpy(a))
+        d.copy_(t)
+
+
+# --------------------------------------------------------------------------- #
+# blocks
+# --------------------------------------------------------------------------- #
+
+
+def _gqa_attention(p, h, pos, cfg: LMConfig):
+    c = lambda w: w.to(h.dtype)
+    q = torch.einsum("bsd,dhk->bshk", h, c(p["wq"]))
+    k = torch.einsum("bsd,dhk->bshk", h, c(p["wk"]))
+    v = torch.einsum("bsd,dhk->bshk", h, c(p["wv"]))
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    kv_out = (k, v)
+    if cfg.expand_kv and cfg.n_kv != cfg.n_heads:
+        rep = cfg.n_heads // cfg.n_kv
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    o = attn_lib.full_attention(q, k, v, causal=True, window=cfg.window,
+                                q_chunk=cfg.q_chunk or 1 << 30, kv_chunk=cfg.kv_chunk)
+    return torch.einsum("bshk,hkd->bsd", o, c(p["wo"])), kv_out
+
+
+def _mla_attention(p, h, pos, cfg: LMConfig):
+    c = lambda w: w.to(h.dtype)
+    b, s, _ = h.shape
+    q = torch.einsum("bsd,dhk->bshk", h, c(p["wq"]))
+    q_nope, q_rope = q[..., : cfg.qk_nope], q[..., cfg.qk_nope:]
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    lat_all = torch.einsum("bsd,dl->bsl", h, c(p["w_dkv"]))
+    lat = rmsnorm(lat_all[..., : cfg.kv_lora], p["kv_norm"])
+    k_rope = apply_rope(lat_all[..., None, cfg.kv_lora:], pos, cfg.rope_theta)  # (B,S,1,Dr)
+    k_nope = torch.einsum("bsl,hln->bshn", lat, c(p["w_uk"]))
+    v = torch.einsum("bsl,hlv->bshv", lat, c(p["w_uv"]))
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, cfg.n_heads, cfg.qk_rope)], dim=-1)
+    o = attn_lib.full_attention(q_full, k_full, v, causal=True, window=cfg.window,
+                                q_chunk=cfg.q_chunk or 1 << 30, kv_chunk=cfg.kv_chunk)
+    return torch.einsum("bshv,hvd->bsd", o, c(p["wo"])), (lat, k_rope[:, :, 0, :])
+
+
+def _dense_ffn(p, h):
+    c = lambda w: w.to(h.dtype)
+    gate = torch.nn.functional.silu(torch.einsum("bsd,df->bsf", h, c(p["w1"])))
+    up = torch.einsum("bsd,df->bsf", h, c(p["w3"]))
+    return torch.einsum("bsf,fd->bsd", gate * up, c(p["w2"]))
+
+
+def _layer(p, x, pos, cfg: LMConfig, collect_cache: bool):
+    h = rmsnorm(x, p["attn_norm"])
+    attn_fn = _mla_attention if cfg.attn == "mla" else _gqa_attention
+    a, kv = attn_fn(p["attn"], h, pos, cfg)
+    x = x + a
+    h = rmsnorm(x, p["ffn_norm"])
+    x = x + _dense_ffn(p["ffn"], h)
+    return x, (kv if collect_cache else None)
+
+
+def _layer_params(stack: dict, li: int) -> dict:
+    """Layer ``li`` of a stacked ``(L, ...)`` tree (views, no copies)."""
+    return tree_map(lambda a: a[li], stack)
+
+
+# --------------------------------------------------------------------------- #
+# trunk
+# --------------------------------------------------------------------------- #
+
+
+def trunk(model: LM, tokens: torch.Tensor, collect_cache: bool = False):
+    """tokens (B, S) -> (final-normed activations (B, S, D), aux loss (0.0
+    for dense layers), caches: {"dense": per-name stacks (L, B, S, ...)}
+    when ``collect_cache``)."""
+    cfg, params = model.cfg, model.tree()
+    s = tokens.shape[1]
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    pos = torch.arange(s, device=x.device)
+    stack = params["dense_layers"]
+    kvs = []
+    for li in range(cfg.n_layers):
+        x, kv = _layer(_layer_params(stack, li), x, pos, cfg, collect_cache)
+        if collect_cache:
+            kvs.append(kv)
+    caches = {}
+    if collect_cache:
+        caches["dense"] = tuple(torch.stack(c) for c in zip(*kvs))
+    x = rmsnorm(x, params["final_norm"])
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
+
+
+# --------------------------------------------------------------------------- #
+# serving: prefill + decode
+# --------------------------------------------------------------------------- #
+
+
+def _cache_names(cfg: LMConfig) -> tuple:
+    return ("lat", "rope") if cfg.attn == "mla" else ("k", "v")
+
+
+def cache_spec(cfg: LMConfig, batch: int, cache_len: int) -> dict:
+    """``device="meta"`` tensors of the decode cache (shapes and dtypes for
+    input specs and allocation; no memory)."""
+    eff = min(cache_len, cfg.window) if cfg.window else cache_len
+    l = cfg.n_layers
+    if cfg.attn == "mla":
+        shapes = {"lat": (l, batch, eff, cfg.kv_lora),
+                  "rope": (l, batch, eff, cfg.qk_rope)}
+    else:
+        shapes = {"k": (l, batch, eff, cfg.n_kv, cfg.head_dim),
+                  "v": (l, batch, eff, cfg.n_kv, cfg.head_dim)}
+    return {k: torch.empty(v, dtype=cfg.dtype, device="meta")
+            for k, v in shapes.items()}
+
+
+@torch.no_grad()
+def prefill(model: LM, tokens: torch.Tensor):
+    """Full-sequence forward; returns last-position logits + stacked caches."""
+    cfg = model.cfg
+    x, _, caches = trunk(model, tokens, collect_cache=True)
+    last = x[:, -1, :]
+    logits = torch.einsum("bd,vd->bv", last, model.embed.to(x.dtype))
+    stacked = dict(zip(_cache_names(cfg), caches["dense"]))
+    if cfg.window:  # keep only the trailing window (ring layout, slot = pos % W)
+        s = tokens.shape[1]
+        w = min(cfg.window, s)
+        slots = torch.arange(s - w, s, device=x.device) % w
+
+        def ring(c):
+            tail = c[:, :, -w:]
+            return torch.zeros_like(tail).index_copy_(2, slots, tail)
+
+        stacked = {k: ring(c) for k, c in stacked.items()}
+    return logits, stacked
+
+
+@torch.no_grad()
+def decode_step(model: LM, cache: dict, token: torch.Tensor, pos: int):
+    """One-token decode.  token (B,) int; pos: the count of cached positions.
+    Writes the token's cache entries in place (``cache``'s tensors) and
+    returns (logits (B, V), cache)."""
+    cfg, params = model.cfg, model.tree()
+    pos = int(pos)
+    b = token.shape[0]
+    x = params["embed"][token.long()].to(cfg.dtype)[:, None, :]
+    w = cache[_cache_names(cfg)[0]].shape[2]
+    slot = (pos % w) if cfg.window else pos
+    # the reference's dynamic_update_slice clamps its start into the cache
+    slot = min(slot, w - 1)
+    pos_arr = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    stack = params["dense_layers"]
+    for li in range(cfg.n_layers):
+        lp = _layer_params(stack, li)
+        h = rmsnorm(x, lp["attn_norm"])
+        c = lambda wgt: wgt.to(h.dtype)
+        ap = lp["attn"]
+        if cfg.attn == "mla":
+            q = torch.einsum("bsd,dhk->bshk", h, c(ap["wq"]))
+            q_nope, q_rope = q[..., : cfg.qk_nope], q[..., cfg.qk_nope:]
+            q_rope = apply_rope(q_rope, pos_arr, cfg.rope_theta)
+            lat_all = torch.einsum("bsd,dl->bsl", h, c(ap["w_dkv"]))
+            lat = rmsnorm(lat_all[..., : cfg.kv_lora], ap["kv_norm"])
+            k_rope = apply_rope(lat_all[..., None, cfg.kv_lora:], pos_arr,
+                                cfg.rope_theta)[:, :, 0]
+            cache["lat"][li, :, slot] = lat[:, 0].to(cfg.dtype)
+            cache["rope"][li, :, slot] = k_rope[:, 0].to(cfg.dtype)
+            o = attn_lib.mla_decode_attention(
+                q_nope[:, 0], q_rope[:, 0], cache["lat"][li], cache["rope"][li],
+                min(pos + 1, w), ap["w_uk"].to(cfg.dtype), ap["w_uv"].to(cfg.dtype))
+            a = torch.einsum("bshv,hvd->bsd", o, c(ap["wo"]))
+        else:
+            q = apply_rope(torch.einsum("bsd,dhk->bshk", h, c(ap["wq"])), pos_arr,
+                           cfg.rope_theta)
+            k = apply_rope(torch.einsum("bsd,dhk->bshk", h, c(ap["wk"])), pos_arr,
+                           cfg.rope_theta)
+            v = torch.einsum("bsd,dhk->bshk", h, c(ap["wv"]))
+            cache["k"][li, :, slot] = k[:, 0].to(cfg.dtype)
+            cache["v"][li, :, slot] = v[:, 0].to(cfg.dtype)
+            o = attn_lib.decode_attention(q, cache["k"][li], cache["v"][li],
+                                          min(pos + 1, w),
+                                          window=None)  # ring layout already bounds SWA
+            a = torch.einsum("bshk,hkd->bsd", o, c(ap["wo"]))
+        x = x + a
+        h2 = rmsnorm(x, lp["ffn_norm"])
+        x = x + _dense_ffn(lp["ffn"], h2)
+    x = rmsnorm(x, params["final_norm"])
+    logits = torch.einsum("bd,vd->bv", x[:, 0], params["embed"].to(x.dtype))
+    return logits, cache

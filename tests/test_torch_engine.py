@@ -148,6 +148,16 @@ def test_port_imports_without_jax():
         "import repro_torch.distributed.collectives\n"
         "import repro_torch.launch.mesh, repro_torch.launch.serve\n"
         "import repro_torch.obs.regress\n"
+        "import repro_torch.index.query, repro_torch.data.pipeline\n"
+        "import repro_torch.models.common, repro_torch.models.specs\n"
+        "import repro_torch.models.attention\n"
+        "import repro_torch.models.transformer\n"
+        "import repro_torch.configs, repro_torch.configs.base\n"
+        "import repro_torch.configs.smollm_135m\n"
+        "import repro_torch.configs.starcoder2_3b\n"
+        "import repro_torch.configs.starcoder2_7b\n"
+        "from repro_torch import configs\n"
+        "assert len(configs.ARCHS) == 3\n"
         "from repro_torch.obs import regress, run_gate\n"
         "from repro_torch.core import codec\n"
         "assert len(codec.names()) == 31\n"
