@@ -8,10 +8,11 @@ list), the paper's Group codecs (a Group-PFD index served on the
 ``device`` placement, and the decode table of every codec with a torch
 decoder), doc-range sharded serving and the ``IndexServer`` serving loop,
 through the entry points a user calls, at the real document count of the
-TREC GOV2 collection; the examples, the one-shot query shims and dense-LM
-serving (smollm-135m and starcoder2-3b at full width, prompts from the
-compressed token store); and holds every CUDA kernel of the paths against
-its plain torch version on the card:
+TREC GOV2 collection; the examples, the one-shot query shims and LM
+serving (smollm-135m and starcoder2-3b dense, deepseek-v2-lite-16b and
+mixtral-8x22b mixture-of-experts, at their published widths, prompts from
+the compressed token store); and holds every CUDA kernel of the paths
+against its plain torch version on the card:
 
   card       the card, its power limit, torch / CUDA / nvcc versions
   build      nvcc builds every kernels/csrc/*.cu and tools/and_round_forms.cu
@@ -195,8 +196,11 @@ its plain torch version on the card:
              counted from a ``torch.profiler`` trace; B10 and
              ``torch.bitwise_and`` also at 65,536 rows (3 x 32 MiB, above
              the 50 MB L2).
-  lm         last, with every index arena freed, per model (smollm-135m, then
-             starcoder2-3b; ``make_config()``, full width): a
+  lm         last, with every index arena freed, per model (smollm-135m,
+             starcoder2-3b, deepseek-v2-lite-16b at its 27 layers, then
+             mixtral-8x22b at 8 of its 56 layers: the whole, 281 GB in
+             bf16, does not fit one card; ``make_config()``, full
+             width): a
              ``TokenStore`` (bp128, block 65,536) of 16,777,216 Zipf(1.1)
              token ids folded into the vocabulary, its ratio and host read
              rate, read back equal; ``lm_batch_iter`` (batch 8, seq 2,048)
@@ -219,6 +223,24 @@ its plain torch version on the card:
              amplify round-off to the size of the logits
              (``tools/lm_roundoff_depth.py``).  Prefill and decode
              tokens/s, seconds a step, peak memory.
+             The MoE archs add: the warm-up prefill's routing recorded
+             (``route_spy``) and checked (no token takes an expert twice,
+             every slot a token in range or the sentinel, each expert
+             keeps min(load, capacity) tokens in token order), with the
+             share dropped by capacity and the largest expert load; one
+             more decode step's routing, which drops nothing; the decode
+             checks' forward at capacity factor E/k (a decode group
+             drops nothing, a forward at 1.25 does: that figure printed);
+             the cut across both stacks (deepseek's 2 layers are its
+             dense one and an MoE one; its bf16 card-vs-host check covers
+             both, mixtral's its first); mixtral's decode step at
+             position 4,160 (window + 64, batch 1, 2 layers: the
+             prefill's ring wrapped) against ``trunk`` on 4,161 tokens
+             within 1e-3 of max |logit|; the first MoE layer's fp32
+             routing of 2 x 256 tokens on the card against
+             ``route_group`` on the host CPU (``idx`` equal on the slots
+             of every expert no near-tied token may flip, ``wgt`` within
+             1e-6).
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed phase raises and the script exits nonzero without that
@@ -267,7 +289,9 @@ SERVE_OR = 64                   # serve phase: `or` (k=10) requests
 SERVE_RATE = 20.0               # serve phase: Poisson arrivals per second
 SERVE_DEADLINE_MS = 60_000.0    # serve phase: every request's budget
 SHIM_QUERIES = 8                # examples phase: fresh queries per shim
-LM_ARCHS = ("smollm-135m", "starcoder2-3b")   # lm phase: full-width models
+LM_ARCHS = ("smollm-135m", "starcoder2-3b",     # lm phase: full-width models
+            "deepseek-v2-lite-16b", "mixtral-8x22b")
+LM_DEPTH = {"mixtral-8x22b": 8}  # lm phase: layers served (mixtral: 8 of 56)
 LM_STORE_TOKENS = 16_777_216    # lm phase: token ids in the TokenStore
 LM_STORE_BLOCK = 65_536         # lm phase: the store's block
 LM_ZIPF = 1.1                   # lm phase: the token ids' Zipf exponent
@@ -280,6 +304,10 @@ LM_DECODE_TOL = 1e-3            # of max |logit|: fp32 decode vs forward
 LM_BF16_CHECK = (2, 64)         # lm phase: the bf16 card-vs-host batch
 LM_BF16_LAYERS = 1              # lm phase: ... over the first layer
 LM_BF16_TOL = 2e-2              # of max |logit|: bf16 card vs host
+LM_ROUTE_CHECK = (2, 256)       # lm phase: MoE routing, card vs host CPU
+LM_ROUTE_MARGIN = 1e-5          # ... compared where top-k margins exceed it
+LM_ROUTE_WGT_TOL = 1e-6         # ... the routing weights' tolerance
+LM_WINDOW_EXTRA = 64            # lm phase: SWA check prompt = window + 64
 # examples phase: (name, command, a line its output must hold)
 EXAMPLES = (
     ("quickstart", ["examples/quickstart_torch.py"],
@@ -1521,6 +1549,101 @@ def decode_breakdown(step, torch) -> dict:
             "cast_share_of_kernels": casts / kernels}
 
 
+@contextlib.contextmanager
+def route_spy(moe, torch):
+    """Record every ``moe.route_group`` call made inside the block (each
+    MoE layer's routing): its output, capacity and each group's expert
+    loads (the top-k recomputed from the same input), as device tensors,
+    with no sync; the first call's input too.  The spy runs only in
+    untimed calls."""
+    calls = []
+    route = moe.route_group
+
+    def spy(x, router_w, *, top_k, capacity):
+        out = route(x, router_w, top_k=top_k, capacity=capacity)
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        expert = torch.sort(probs, dim=-1, descending=True,
+                            stable=True)[1][..., :top_k]
+        g, s, e = probs.shape
+        load = torch.zeros(g, e, device=x.device).scatter_add_(
+            1, expert.reshape(g, -1), torch.ones(g, s * top_k, device=x.device))
+        first = not calls
+        calls.append({"x": x if first else None,
+                      "router": router_w if first else None, "top_k": top_k,
+                      "capacity": capacity, "idx": out[0], "wgt": out[1],
+                      "expert": expert, "load": load})
+        return out
+
+    moe.route_group = spy
+    try:
+        yield calls
+    finally:
+        moe.route_group = route
+
+
+def route_invariants(calls, what: str, torch) -> dict:
+    """Check the routing of every recorded layer (``route_spy``): no token
+    takes an expert twice; every slot holds a token in range or the
+    sentinel S, with weight 0 exactly at the sentinel; each expert keeps
+    min(load, capacity) tokens, in token order, so a token keeps at most
+    k.  Returns the share of assignments dropped by capacity and the
+    largest expert load over the mean, over all layers."""
+    assigned = kept = 0
+    top = 0.0
+    for li, c in enumerate(calls):
+        idx, wgt, load, cap, k = (c["idx"].long(), c["wgt"], c["load"],
+                                  c["capacity"], c["top_k"])
+        g, s = c["expert"].shape[:2]
+        e = load.shape[1]
+        ex = torch.sort(c["expert"], dim=-1)[0]
+        seg = idx.view(g, e, cap)
+        real = seg < s
+        ok = (bool((ex[..., 1:] != ex[..., :-1]).all())
+              and bool(((idx >= 0) & (idx <= s)).all())
+              and bool(((wgt == 0) == (idx == s)).all())
+              and torch.equal(real.sum(-1).float(), torch.clamp(load, max=cap))
+              and not bool((real[..., 1:] & ~real[..., :-1]).any())
+              and bool(((seg[..., 1:] > seg[..., :-1]) | ~real[..., 1:]).all()))
+        if not ok:
+            raise AssertionError(f"{what}: MoE layer {li}'s routing breaks an "
+                                 f"invariant (capacity {cap}, top-{k})")
+        assigned += g * s * k
+        kept += int(real.sum())
+        top = max(top, float(load.max()) / (s * k / e))
+    return {"layers": len(calls), "assignments": assigned,
+            "dropped_share": 1.0 - kept / assigned, "max_load_over_mean": top}
+
+
+def route_card_vs_host(call, moe, torch) -> dict:
+    """One recorded MoE layer's routing (fp32 input) on the card against
+    ``route_group`` on the host CPU: ``idx`` equal on every slot of the
+    experts that no near-tied token (k-th and (k+1)-th probabilities within
+    LM_ROUTE_MARGIN, host's) takes as its k-th or (k+1)-th choice, and
+    ``wgt`` there within LM_ROUTE_WGT_TOL."""
+    x, rw, k, cap = call["x"], call["router"], call["top_k"], call["capacity"]
+    card = moe.route_group(x, rw, top_k=k, capacity=cap)
+    host = moe.route_group(x.cpu(), rw.cpu(), top_k=k, capacity=cap)
+    probs = torch.softmax(x.cpu().float() @ rw.cpu().float(), dim=-1)
+    p, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    near = (p[..., k - 1] - p[..., k]) <= LM_ROUTE_MARGIN     # (G, S)
+    amb = torch.zeros(probs.shape[0], probs.shape[2], dtype=torch.bool)
+    gi, si = torch.nonzero(near, as_tuple=True)
+    for j in (k - 1, k):
+        amb[gi, order[gi, si, j]] = True
+    ok = (~amb).repeat_interleave(cap, dim=1)
+    idx_c, wgt_c = card[0].cpu(), card[1].cpu()
+    out = {"tokens": int(near.numel()),
+           "rows_compared_share": 1.0 - float(near.float().mean()),
+           "slots_compared_share": float(ok.float().mean()),
+           "idx_mismatches": int((idx_c != host[0])[ok].sum()),
+           "wgt_max_abs_err": float((wgt_c - host[1])[ok].abs().max()),
+           "aux_abs_err": float((card[2].cpu() - host[2]).abs().max())}
+    if out["idx_mismatches"] or out["wgt_max_abs_err"] > LM_ROUTE_WGT_TOL:
+        raise AssertionError(f"MoE routing on the card differs from the host "
+                             f"CPU's: {out}")
+    return out
+
+
 def lm_phase(dev, seed, smi, np, torch) -> dict:
     """The lm phase (module docstring): dense-LM serving at full width on
     ``dev``, prompts from a compressed token store.  Raises on any failed
@@ -1529,6 +1652,7 @@ def lm_phase(dev, seed, smi, np, torch) -> dict:
 
     from repro_torch import configs
     from repro_torch.data.pipeline import TokenStore, lm_batch_iter
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
     from repro_torch.models.specs import tree_map
 
@@ -1547,7 +1671,10 @@ def lm_phase(dev, seed, smi, np, torch) -> dict:
     for arch in LM_ARCHS:
         torch.cuda.reset_peak_memory_stats()
         cfg = configs.get(arch).make_config()
-        r = {}
+        r = {"published_layers": cfg.n_layers}
+        if arch in LM_DEPTH:        # the model does not fit one card whole
+            cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH[arch])
+        r["layers"] = cfg.n_layers
         rng = np.random.default_rng(seed + 17)
         toks = ((rng.zipf(LM_ZIPF, LM_STORE_TOKENS) - 1) % cfg.vocab
                 ).astype(np.uint32)
@@ -1575,14 +1702,24 @@ def lm_phase(dev, seed, smi, np, torch) -> dict:
         t0 = time.perf_counter()
         model = T.init(cfg, gen)
         r["init_s"] = sync_s(t0)
+        # init draws each leaf in fp32 first (a bf16 leaf's draw is a
+        # transient): its peak apart from serving's
+        r["peak_gib_init"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
         params = list(model.parameters())
         r["params"] = sum(p.numel() for p in params)
         if not all(p.device == dev for p in params):
             raise AssertionError(f"lm {arch}: a parameter is not on the card")
         tokens = torch.as_tensor(batch["tokens"], device=dev)
 
-        # bf16 serving: prefill (one warm-up), then greedy decode
-        T.prefill(model, tokens)
+        # bf16 serving: prefill (one warm-up, its MoE routing recorded and
+        # checked), then greedy decode
+        with route_spy(moe, torch) as calls:
+            T.prefill(model, tokens)
+        if cfg.moe:
+            r["prefill_routing"] = route_invariants(calls, f"lm {arch} prefill",
+                                                    torch)
+        del calls
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = T.prefill(model, tokens)
@@ -1612,6 +1749,15 @@ def lm_phase(dev, seed, smi, np, torch) -> dict:
         r["decode_trace"] = decode_breakdown(
             lambda: T.decode_step(model, cache, tok, LM_PREFILL + LM_DECODE - 1),
             torch)
+        if cfg.moe:     # one more step, recorded: a decode group drops nothing
+            with route_spy(moe, torch) as calls:
+                T.decode_step(model, cache, tok, LM_PREFILL + LM_DECODE - 1)
+            r["decode_routing"] = rd = route_invariants(
+                calls, f"lm {arch} decode", torch)
+            del calls
+            if rd["dropped_share"] != 0.0:
+                raise AssertionError(f"lm {arch}: a decode step dropped MoE "
+                                     f"assignments: {rd}")
         r["decode_s"] = sum(step_s)
         r["decode_tokens_per_s"] = LM_BATCH * LM_DECODE / r["decode_s"]
         r["decode_step_s"] = {"median": sorted(step_s)[len(step_s) // 2],
@@ -1634,50 +1780,93 @@ def lm_phase(dev, seed, smi, np, torch) -> dict:
         # cache's layer index is exercised), and the full depth's figures
         # are printed beside them.
         tree = model.tree()
+        n_dense = cfg.n_dense_layers if cfg.moe else cfg.n_layers
 
-        def cut(n, dtype, device=dev):
+        def cut(n, dtype, device=dev, **kw):
+            """The first ``n`` layers (across the dense and the MoE stack)
+            of the same weights, activations in ``dtype``, on ``device``."""
             n = min(n, cfg.n_layers)
-            t = dict(tree, dense_layers=tree_map(lambda a: a[:n],
-                                                 tree["dense_layers"]))
+            nd = min(n, n_dense)
+            t = {k: v for k, v in tree.items()
+                 if k not in ("dense_layers", "moe_layers")}
+            for name, m in (("dense_layers", nd), ("moe_layers", n - nd)):
+                if m:
+                    t[name] = tree_map(lambda a: a[:m], tree[name])
             t = tree_map(lambda a: a.to(device), t)
-            return T.LM(dataclasses.replace(cfg, n_layers=n, dtype=dtype), t)
+            if cfg.moe:
+                kw["n_dense_layers"] = nd
+            return T.LM(dataclasses.replace(cfg, n_layers=n, dtype=dtype, **kw), t)
 
-        def decode_vs_forward(m):
+        def decode_vs_forward(m, toks2):
             """fp32: the decode step at position S against ``trunk`` on
-            S+1 tokens, (max |diff|, max |logit|)."""
-            b, s = LM_CHECK
-            toks2 = tokens[:b, :s]
+            S+1 tokens, (max |diff|, max |logit|).  A prompt longer than
+            the window leaves the prefill's ring wrapped."""
+            s = toks2.shape[1]
             lg, c32 = T.prefill(m, toks2)
-            c32 = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (1,) + v.shape[3:])], dim=2)
-                   for k, v in c32.items()}
+            if not m.cfg.window or s < m.cfg.window:
+                c32 = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (1,) + v.shape[3:])], dim=2)
+                       for k, v in c32.items()}
             nxt_tok = torch.argmax(lg, -1).to(torch.int32)
             lg_d, _ = T.decode_step(m, c32, nxt_tok, s)
             x, _, _ = T.trunk(m, torch.cat([toks2, nxt_tok[:, None]], 1))
-            full = torch.einsum("bd,vd->bv", x[:, -1], m.embed)
+            full = torch.einsum("bd,vd->bv", x[:, -1], m.embed.to(x.dtype))
             return {"max_abs_err": float((lg_d - full).abs().max()),
                     "max_abs_logit": float(full.abs().max())}
 
+        # A decode group is one token (capacity 1, k distinct experts:
+        # nothing drops), while a forward at capacity factor 1.25 drops the
+        # assignments past an expert's capacity and so computes another
+        # function; the forward of the decode checks runs at capacity
+        # factor E/k (capacity S: nothing drops), which leaves the decode
+        # step's capacity at 1.  The served capacity's figure is printed.
+        nodrop = ({"capacity_factor": cfg.n_experts / cfg.top_k}
+                  if cfg.moe else {})
+        b, s = LM_CHECK
         r["decode_vs_forward"] = dvf = decode_vs_forward(
-            cut(LM_CHECK_LAYERS, torch.float32))
+            cut(LM_CHECK_LAYERS, torch.float32, **nodrop), tokens[:b, :s])
         if not dvf["max_abs_err"] <= LM_DECODE_TOL * dvf["max_abs_logit"]:
             raise AssertionError(f"lm {arch}: fp32 decode differs from the "
                                  f"full forward over {LM_CHECK_LAYERS} "
                                  f"layers: {dvf}")
+        if cfg.moe:
+            r["decode_vs_forward_served_capacity"] = decode_vs_forward(
+                cut(LM_CHECK_LAYERS, torch.float32), tokens[:b, :s])
         r["decode_vs_forward_all_layers"] = decode_vs_forward(
-            cut(cfg.n_layers, torch.float32))
-        # bf16 on the card against the same code's bf16 on the host CPU
+            cut(cfg.n_layers, torch.float32, **nodrop), tokens[:b, :s])
+        if cfg.window:  # the ring wrapped: the decode step at window + 64
+            n = cfg.window + LM_WINDOW_EXTRA
+            long = torch.as_tensor(store.read(0, n).astype(np.int32)[None],
+                                   device=dev)
+            r["window_decode_vs_forward"] = wdf = decode_vs_forward(
+                cut(LM_CHECK_LAYERS, torch.float32, **nodrop), long)
+            wdf["prompt"] = n
+            if not wdf["max_abs_err"] <= LM_DECODE_TOL * wdf["max_abs_logit"]:
+                raise AssertionError(f"lm {arch}: fp32 decode after the "
+                                     f"window's ring wrapped differs from the "
+                                     f"full forward: {wdf}")
+            del long
+        if cfg.moe:     # the first MoE layer's fp32 routing, card vs host
+            b, s = LM_ROUTE_CHECK
+            with route_spy(moe, torch) as calls:
+                T.trunk(cut(n_dense + 1, torch.float32), tokens[:b, :s])
+            r["route_card_vs_host"] = route_card_vs_host(calls[0], moe, torch)
+            del calls
+        # bf16 on the card against the same code's bf16 on the host CPU,
+        # over the first layer (and the leading dense ones of an MoE arch)
+        bf16_layers = LM_BF16_LAYERS + (cfg.n_dense_layers if cfg.moe else 0)
         b, s = LM_BF16_CHECK
-        card = T.prefill(cut(LM_BF16_LAYERS, torch.bfloat16),
+        card = T.prefill(cut(bf16_layers, torch.bfloat16),
                          tokens[:b, :s])[0].float().cpu()
-        host = T.prefill(cut(LM_BF16_LAYERS, torch.bfloat16, torch.device("cpu")),
+        host = T.prefill(cut(bf16_layers, torch.bfloat16, torch.device("cpu")),
                          tokens[:b, :s].cpu())[0].float()
         r["bf16_card_vs_host"] = bvh = {
             "max_abs_err": float((card - host).abs().max()),
             "max_abs_logit": float(host.abs().max()),
             "top1_agree": float((card.argmax(-1) == host.argmax(-1)).float().mean())}
+        bvh["layers"] = bf16_layers
         if not bvh["max_abs_err"] <= LM_BF16_TOL * bvh["max_abs_logit"]:
             raise AssertionError(f"lm {arch}: bf16 prefill on the card differs "
-                                 f"from the host CPU's over {LM_BF16_LAYERS} "
+                                 f"from the host CPU's over {bf16_layers} "
                                  f"layer(s): {bvh}")
         # the served batch's bf16 prefill against an fp32 prefill of the
         # same weights, all layers (printed, not a check: see above)
@@ -1691,7 +1880,8 @@ def lm_phase(dev, seed, smi, np, torch) -> dict:
             "top1_agree": float((last_bf16.argmax(-1) == lg32.argmax(-1))
                                 .float().mean())}
         r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        log(f"{arch}: {r['params']} params, init {r['init_s']:.2f} s; prefill "
+        log(f"{arch}: {r['params']} params ({cfg.n_layers} of "
+            f"{r['published_layers']} layers), init {r['init_s']:.2f} s; prefill "
             f"{LM_BATCH} x {LM_PREFILL} in {r['prefill_s']:.4f} s = "
             f"{r['prefill_tokens_per_s']:.1f} tokens/s (fp32 "
             f"{r['prefill_fp32_s']:.4f} s); decode {LM_DECODE} steps x batch "
@@ -1707,13 +1897,34 @@ def lm_phase(dev, seed, smi, np, torch) -> dict:
             f"{r['decode_vs_forward_all_layers']['max_abs_err']:.3e} of "
             f"{r['decode_vs_forward_all_layers']['max_abs_logit']:.4f}); "
             f"bf16 card vs host {bvh['max_abs_err']:.3e} of "
-            f"{bvh['max_abs_logit']:.4f} over {LM_BF16_LAYERS} layer(s), "
+            f"{bvh['max_abs_logit']:.4f} over {bf16_layers} layer(s), "
             f"top-1 agree {bvh['top1_agree']:.4f}; bf16 vs fp32 prefill, "
             f"{cfg.n_layers} layers, {r['bf16_vs_fp32']['max_abs_err']:.4e} of "
             f"{r['bf16_vs_fp32']['max_abs_logit']:.4f}, top-1 agree "
             f"{r['bf16_vs_fp32']['top1_agree']:.4f}; peak "
             f"{r['peak_gib_bf16']:.2f} GiB bf16 serving, {r['peak_gib']:.2f} "
-            f"GiB with the fp32 checks; {smi}")
+            f"GiB with the fp32 checks ({r['peak_gib_init']:.2f} in init); "
+            f"{smi}")
+        if cfg.moe:
+            pr, rc = r["prefill_routing"], r["route_card_vs_host"]
+            sc = r["decode_vs_forward_served_capacity"]
+            log(f"{arch} MoE: prefill routing over {pr['layers']} layers "
+                f"drops {pr['dropped_share']:.4f} of {pr['assignments']} "
+                f"assignments by capacity, largest expert load "
+                f"{pr['max_load_over_mean']:.3f} x the mean; decode drops "
+                f"{r['decode_routing']['dropped_share']}; routing card vs "
+                f"host (2 x 256, first MoE layer, fp32) compared "
+                f"{rc['rows_compared_share']:.4f} of the rows and "
+                f"{rc['slots_compared_share']:.4f} of the slots, idx equal, "
+                f"wgt err {rc['wgt_max_abs_err']:.3e}, aux err "
+                f"{rc['aux_abs_err']:.3e}; fp32 decode vs forward at the "
+                f"served capacity factor {sc['max_abs_err']:.3e} of "
+                f"{sc['max_abs_logit']:.4f} over {LM_CHECK_LAYERS} layers"
+                + (f"; window {cfg.window}: decode at position "
+                   f"{r['window_decode_vs_forward']['prompt']} vs forward "
+                   f"{r['window_decode_vs_forward']['max_abs_err']:.3e} of "
+                   f"{r['window_decode_vs_forward']['max_abs_logit']:.4f}"
+                   if cfg.window else ""))
         out[arch] = r
         del model, tree, params, tokens, lg32, last_bf16, store, card, host
         gc.collect()

@@ -1,17 +1,19 @@
-"""Architecture registry of the port (``--arch <id>``): the three dense GQA
-LMs.  The reference's other architectures are named in ``PENDING`` with the
+"""Architecture registry of the port (``--arch <id>``): the two
+mixture-of-experts LMs (deepseek-v2-lite-16b with MLA, mixtral-8x22b with
+a sliding window) and the three dense GQA LMs, in the reference's order.
+The reference's other architectures are named in ``PENDING`` with the
 ROADMAP.md step that ports each; :func:`get` raises ``KeyError`` naming it."""
 
-from . import smollm_135m, starcoder2_3b, starcoder2_7b
+from . import (deepseek_v2_lite_16b, mixtral_8x22b, smollm_135m,
+               starcoder2_3b, starcoder2_7b)
 
 ARCHS = {
     m.ARCH.arch_id: m.ARCH
-    for m in (starcoder2_3b, starcoder2_7b, smollm_135m)
+    for m in (deepseek_v2_lite_16b, mixtral_8x22b, starcoder2_3b,
+              starcoder2_7b, smollm_135m)
 }
 
 PENDING = {
-    "deepseek-v2-lite-16b": "MoE and the MLA configs (ROADMAP.md, step A.13.2)",
-    "mixtral-8x22b": "MoE and the MLA configs (ROADMAP.md, step A.13.2)",
     "egnn": "EGNN serving (ROADMAP.md, step A.13.3)",
     "din": "recsys serving (ROADMAP.md, step A.13.3)",
     "dien": "recsys serving (ROADMAP.md, step A.13.3)",

@@ -188,6 +188,13 @@ def word_index(ids: torch.Tensor, cand_words: int) -> torch.Tensor:
     return torch.clamp(u32(ids) >> 5, max=cand_words - 1)
 
 
+def ebw(x: torch.Tensor) -> torch.Tensor:
+    """Effective bit width of int32 bit-pattern words, ``32 - clz``, so
+    ``ebw(0) == 0``: the binary exponent of the word's unsigned value as a
+    float64, exact for every 32-bit word."""
+    return torch.frexp(u32(x).to(torch.float64)).exponent.to(torch.int32)
+
+
 def mask(bw: torch.Tensor) -> torch.Tensor:
     """All-ones masks of ``bw`` (0..32) bits, int64 (``bw == 32`` gives
     2**32 - 1)."""

@@ -11,8 +11,9 @@ each.  Pattern selection (Algorithm 1) runs on the quad max array.
 
 Counterpart of the JAX package's ``core/group_simple.py``: ``encode`` and
 ``decode_np`` are its numpy code; ``torch_args`` / ``decode_torch_vec`` /
-``decode_torch_scalar`` are the torch forms of its ``jax_args`` /
-``decode_jax_vec`` / ``decode_jax_scalar``, and ``decode_arena_block`` is the
+``decode_torch_vec_scatter`` / ``decode_torch_scalar`` are the torch forms
+of its ``jax_args`` / ``decode_jax_vec`` / ``decode_jax_vec_scatter`` /
+``decode_jax_scalar``, and ``decode_arena_block`` is the
 device-arena decode in torch, batched as explicit ``(P, width)`` tensors
 where the reference maps one block at a time under ``vmap``.
 """
@@ -160,6 +161,30 @@ def decode_torch_vec(sels: torch.Tensor, data: torch.Tensor,
     local = i - starts[p]
     word = u32(data.reshape(-1))[p * 4 + (local & 3)]
     return i32((word >> ((local >> 2) * bw_t[sel])) & mask_t[sel])
+
+
+def decode_torch_vec_scatter(sels: torch.Tensor, data: torch.Tensor,
+                             n: int) -> torch.Tensor:
+    """The original scatter formulation: every vector's 32 slots unpacked
+    at once, the valid ones scattered to their output positions."""
+    dev = data.device
+    num_t, bw_t, mask_t = _tables(dev)
+    sels = sels.to(torch.int64)
+    p = sels.shape[0]
+    num = num_t[sels]                                            # (P,)
+    offs = 4 * (torch.cumsum(num, 0) - num)                      # (P,)
+    slot = torch.arange(32, device=dev)
+    shifts = torch.clamp(slot[None, :] * bw_t[sels][:, None], max=31)  # (P, 32)
+    vals = (u32(data)[:, None, :] >> shifts[:, :, None]) \
+        & mask_t[sels][:, None, None]                            # (P, 32, 4)
+    idx = offs[:, None, None] + 4 * slot[None, :, None] \
+        + torch.arange(4, device=dev)[None, None, :]
+    valid = (slot[None, :] < num[:, None])[:, :, None].expand(p, 32, 4)
+    # invalid and out-of-range slots land in the spare slot n, cut below
+    idx = torch.where(valid & (idx < n), idx, n)
+    out = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    out.scatter_(0, idx.reshape(-1), vals.reshape(-1))
+    return i32(out[:n])
 
 
 def decode_torch_scalar(sels: torch.Tensor, data: torch.Tensor,

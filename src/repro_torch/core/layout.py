@@ -1,13 +1,15 @@
-"""k-way vertical layout + quad-max (paper §3.1, §4.2, §4.4), host side.
+"""k-way vertical layout + quad-max (paper §3.1, §4.2, §4.4).
 
 The paper distributes each quadruple of consecutive integers across the four
 32-bit components of a 128-bit vector; both helpers are pure index
-transforms.
+transforms.  ``quadmax`` is the torch form of the pseudo quad-max, on int32
+bit-pattern words.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def pad_to_multiple(x: np.ndarray, m: int, fill=0) -> np.ndarray:
@@ -37,3 +39,13 @@ def quadmax_np(x: np.ndarray, k: int = 4, pseudo: bool = True) -> np.ndarray:
             out = out | v[:, c]
         return out
     return v.max(axis=1)
+
+
+def quadmax(x: torch.Tensor, k: int = 4) -> torch.Tensor:
+    """Pseudo quad-max (the OR of each ``k`` consecutive words) of int32
+    bit-pattern words whose length is a multiple of ``k``."""
+    v = x.reshape(-1, k)
+    out = v[:, 0]
+    for c in range(1, k):
+        out = out | v[:, c]
+    return out

@@ -57,8 +57,23 @@ def make_dataset(name: str, seed: int = 0, n_lists: int = 200,
     return lists
 
 
+def dataset_stats(lists) -> dict:
+    gaps = np.concatenate([pl.dgaps for pl in lists])
+    tfs = np.concatenate([pl.tfs for pl in lists])
+    return {
+        "n_postings": int(sum(len(pl.docids) for pl in lists)),
+        "gap_fit8": float(np.mean(gaps < 256)),
+        "tf_fit8": float(np.mean(tfs < 256)),
+        "gap_mean": float(gaps.mean()),
+    }
+
+
 def concat_gaps(lists) -> np.ndarray:
     return np.concatenate([pl.dgaps for pl in lists]).astype(np.uint32)
+
+
+def concat_tfs(lists) -> np.ndarray:
+    return np.concatenate([pl.tfs for pl in lists]).astype(np.uint32)
 
 
 def make_corpus(name: str, seed: int = 0, n_docs: int | None = None):

@@ -90,7 +90,8 @@ class CrossoverTable:
     auto-placed on the host; None means no true crossing was measured and
     the static ``HOST_BATCH_MAX`` rule applies.  The port never reads the
     JAX package's baseline: :func:`get_crossover` is None until a caller
-    installs a table with :func:`set_crossover`."""
+    installs a table with :func:`set_crossover` (one derived from a
+    report's curves by :meth:`from_bench`, for example)."""
     host_batch_max: Optional[int]
     sizes: tuple = ()
     source: str = ""
@@ -101,6 +102,49 @@ class CrossoverTable:
             if m == mode:
                 return c
         return self.host_batch_max
+
+    @staticmethod
+    def _derive(host: Mapping, dev: Mapping):
+        """The conservative crossover rule over one pair of qps curves:
+        (cut, common sizes) -- cut None when there is no true crossing:
+        the largest size the host wins with the device winning every
+        larger one; 0 when the device wins everywhere."""
+        sizes = sorted(set(host) & set(dev))
+        if not sizes:
+            return None, ()
+        if all(dev[b] > host[b] for b in sizes):
+            return 0, tuple(sizes)
+        cut = None
+        for b in sizes:
+            larger = [s for s in sizes if s > b]
+            if (host[b] >= dev[b] and larger
+                    and all(dev[s] > host[s] for s in larger)):
+                cut = b
+        return cut, tuple(sizes)
+
+    @classmethod
+    def from_bench(cls, report: Mapping, source: str = "BENCH_query.json"
+                   ) -> "CrossoverTable":
+        """The table of a benchmark report's qps curves (``host_qps`` /
+        ``device_qps``: batch -> qps; ``mode_qps``: mode -> {"host"/
+        "device": curve}, one cell per measured mode).  A pure function of
+        ``report``: the port reads no baseline file itself."""
+        host = {int(b): float(q)
+                for b, q in (report.get("host_qps") or {}).items()}
+        dev = {int(b): float(q)
+               for b, q in (report.get("device_qps") or {}).items()}
+        cut, sizes = cls._derive(host, dev)
+        mode_cuts = []
+        for m in sorted(report.get("mode_qps") or {}):
+            curves = report["mode_qps"][m] or {}
+            mh = {int(b): float(q)
+                  for b, q in (curves.get("host") or {}).items()}
+            md = {int(b): float(q)
+                  for b, q in (curves.get("device") or {}).items()}
+            mc, msz = cls._derive(mh, md)
+            if msz:
+                mode_cuts.append((m, mc))
+        return cls(cut, sizes, source, tuple(mode_cuts))
 
 
 _crossover: Optional[CrossoverTable] = None

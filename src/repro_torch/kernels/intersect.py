@@ -4,7 +4,8 @@ Two strategies (Lemire/Boytsov/Kurz, "SIMD Compression and the Intersection
 of Sorted Integers"): galloping ``searchsorted`` probes when one list is much
 shorter, and a packed-bitmap AND when both are dense over a shared range.
 ``intersect_sorted`` dispatches between them and is what the engine's host
-placement calls per posting block.
+placement calls per posting block; ``gallop_contains`` is the probe in
+torch.
 
 Counterpart of the JAX package's ``kernels/intersect.py``.  Its Pallas tile
 AND is kernel B10 of the port, :func:`bitmap_and_tiles`
@@ -25,7 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..core.bits import from_np, to_np
+from ..core.bits import from_np, to_np, u32
 from . import count_launch, cuda_build
 from .bitpack import LANES, check_aligned, check_tiles
 
@@ -51,6 +52,19 @@ def gallop_intersect_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     if len(a) > len(b):
         a, b = b, a
     return a[gallop_contains_np(b, a)]
+
+
+def gallop_contains(haystack: torch.Tensor, needles: torch.Tensor) -> torch.Tensor:
+    """Torch analogue of ``gallop_contains_np`` on int32 bit-pattern words
+    (a bool mask over ``needles``).  The search runs on the unsigned values
+    in int64: the CPU has no ``searchsorted`` for ``uint32``."""
+    if haystack.shape[0] == 0 or needles.shape[0] == 0:
+        return torch.zeros(needles.shape[0], dtype=torch.bool,
+                           device=needles.device)
+    hay, ndl = u32(haystack), u32(needles)
+    pos = torch.searchsorted(hay, ndl)
+    safe = torch.clamp(pos, max=hay.shape[0] - 1)
+    return (pos < hay.shape[0]) & (hay[safe] == ndl)
 
 
 def bitmap_build_np(ids: np.ndarray, lo: int, hi: int) -> np.ndarray:

@@ -5,13 +5,15 @@ the ``QueryEngine``, see ``repro_torch.index.serve``).
 
   python -m repro_torch.launch.serve --arch smollm-135m --smoke --tokens 8
   python -m repro_torch.launch.serve --arch smollm-135m --smoke --torch-device cpu
+  python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --smoke --torch-device cpu
+  python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke
   python -m repro_torch.launch.serve --index --smoke
   python -m repro_torch.launch.serve --index --rate 300 --requests 512 --placement device
 
 Counterpart of the JAX package's ``launch/serve.py``.  ``--arch`` serves
-the ported dense LMs (``repro_torch.configs.ARCHS``); the reference's other
-architectures raise, naming the ROADMAP.md step that ports them (recsys
-scoring: A.13.3).  The reference's ``--shape`` and ``--multi-pod`` pick a
+the ported LMs, dense and mixture-of-experts (``repro_torch.configs.ARCHS``);
+the reference's other architectures raise, naming the ROADMAP.md step that
+ports them (recsys and EGNN: A.13.3).  The reference's ``--shape`` and ``--multi-pod`` pick a
 sharding plan and mesh, and wait for the sharding slice (A.13.5): the LM
 runs the first serving cell's config on one device.
 """
@@ -141,7 +143,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
                     choices=sorted(set(configs.ARCHS) | set(configs.PENDING)),
-                    help="serve a model arch (the dense LMs are ported; the "
+                    help="serve a model arch (the LMs are ported; the "
                          "others raise, naming their ROADMAP.md step)")
     ap.add_argument("--index", action="store_true",
                     help="serve the inverted index (async admission + "

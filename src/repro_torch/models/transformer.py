@@ -3,7 +3,8 @@ package's ``models/transformer.py``):
 
   * GQA dense (starcoder2-3b/7b, smollm-135m), optionally with a sliding
     window (SWA ring cache);
-  * MLA attention (dense layers; the latent decode cache).
+  * MLA attention (the latent decode cache);
+  * mixture-of-experts layers with shared experts.
 
 Two entry points for serving: ``prefill`` (build KV caches for a full
 sequence) and ``decode_step`` (one token against a cache), over ``trunk``.
@@ -21,8 +22,12 @@ token's keys and values into the caller's cache in place: a copy of the
 ``(L, B, S, KH, D)`` cache per layer would multiply a step's memory
 traffic by the layer count.
 
-Mixture-of-experts layers (``n_experts > 0``) wait for ROADMAP.md step
-A.13.2, and ``loss_fn`` (training) for step A.13.4.
+Mixture-of-experts layers (``n_experts > 0``: deepseek-v2-lite with MLA,
+mixtral with a sliding window) run ``models/moe.py`` with the shared
+experts added; as in the reference, the ``n_dense_layers`` leading dense
+layers form the stack ``dense_layers`` and the rest ``moe_layers``, the
+cache index of an MoE layer is its global one, and ``trunk`` sums the
+layers' ``aux``.  ``loss_fn`` (training) waits for ROADMAP.md step A.13.4.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 from torch import nn
 
 from . import attention as attn_lib
+from . import moe as moe_lib
 from .common import apply_rope, rmsnorm
 from .specs import P, abstract_params, axes_tree, init_params, stack_layers, tree_map
 
@@ -58,12 +64,12 @@ class LMConfig:
     qk_nope: int = 0
     qk_rope: int = 0
     v_head: int = 0
-    # MoE (not ported yet: n_experts > 0 raises)
+    # MoE
     n_experts: int = 0
     n_shared: int = 0
     top_k: int = 0
     d_ff_expert: int = 0
-    n_dense_layers: int = 0
+    n_dense_layers: int = 0           # leading dense layers (deepseek: 1)
     capacity_factor: float = 1.25
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
@@ -72,12 +78,17 @@ class LMConfig:
     loss_chunk: int = 512
     aux_weight: float = 0.01
 
-    def __post_init__(self):
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                f"{self.name}: mixture-of-experts layers (n_experts="
-                f"{self.n_experts}) are not ported yet (ROADMAP.md, step "
-                "A.13.2)")
+    @property
+    def moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.n_dense_layers if self.moe else 0
+
+    @property
+    def qk_dim(self) -> int:
+        return (self.qk_nope + self.qk_rope) if self.attn == "mla" else self.head_dim
 
 
 # --------------------------------------------------------------------------- #
@@ -113,22 +124,44 @@ def _dense_ffn_specs(cfg: LMConfig, d_ff: int) -> dict:
     }
 
 
-def _layer_specs(cfg: LMConfig) -> dict:
+def _moe_ffn_specs(cfg: LMConfig) -> dict:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    out = {
+        "router": P((d, e), ("embed", None)),
+        "w1": P((e, d, f), ("expert", "embed", "ffn_expert")),
+        "w3": P((e, d, f), ("expert", "embed", "ffn_expert")),
+        "w2": P((e, f, d), ("expert", "ffn_expert", "embed")),
+    }
+    if cfg.n_shared:
+        out["shared"] = _dense_ffn_specs(cfg, cfg.n_shared * f)
+    return out
+
+
+def _layer_specs(cfg: LMConfig, moe: bool) -> dict:
     d = cfg.d_model
     return {
         "attn_norm": P((d,), (None,), "ones"),
         "ffn_norm": P((d,), (None,), "ones"),
         "attn": _attn_specs(cfg),
-        "ffn": _dense_ffn_specs(cfg, cfg.d_ff),
+        "ffn": _moe_ffn_specs(cfg) if moe else _dense_ffn_specs(cfg, cfg.d_ff),
     }
+
+
+def _n_dense(cfg: LMConfig) -> int:
+    return cfg.n_dense_layers if cfg.moe else cfg.n_layers
 
 
 def param_specs(cfg: LMConfig) -> dict:
     specs = {
         "embed": P((cfg.vocab, cfg.d_model), ("vocab", "embed"), "embed"),
         "final_norm": P((cfg.d_model,), (None,), "ones"),
-        "dense_layers": stack_layers(_layer_specs(cfg), cfg.n_layers),
     }
+    if _n_dense(cfg):
+        specs["dense_layers"] = stack_layers(_layer_specs(cfg, moe=False),
+                                             _n_dense(cfg))
+    if cfg.n_moe_layers:
+        specs["moe_layers"] = stack_layers(_layer_specs(cfg, moe=True),
+                                           cfg.n_moe_layers)
     if cfg.param_dtype != torch.float32:
         specs = tree_map(lambda s: dataclasses.replace(s, dtype=cfg.param_dtype),
                          specs)
@@ -157,9 +190,10 @@ class _Tree(nn.Module):
 
 
 class LM(_Tree):
-    """The LM's parameters (``embed``, ``final_norm``, ``dense_layers``)
-    and its config.  Build one with :func:`init`, or around an existing
-    parameter tree (``LM(cfg, model.tree())`` shares the tensors)."""
+    """The LM's parameters (``embed``, ``final_norm``, ``dense_layers``
+    and, with experts, ``moe_layers``) and its config.  Build one with
+    :func:`init`, or around an existing parameter tree
+    (``LM(cfg, model.tree())`` shares the tensors)."""
 
     def __init__(self, cfg: LMConfig, params: dict):
         super().__init__(params)
@@ -257,14 +291,27 @@ def _dense_ffn(p, h):
     return torch.einsum("bsf,fd->bsd", gate * up, c(p["w2"]))
 
 
-def _layer(p, x, pos, cfg: LMConfig, collect_cache: bool):
+def _moe_ffn(p, h, cfg: LMConfig):
+    out, aux = moe_lib.moe_ffn(
+        h, p["router"], p["w1"], p["w3"], p["w2"],
+        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    if cfg.n_shared:
+        out = out + _dense_ffn(p["shared"], h)
+    return out, aux
+
+
+def _layer(p, x, pos, cfg: LMConfig, moe: bool, collect_cache: bool):
+    """(x, the MoE layer's aux loss or None for a dense layer, kv)."""
     h = rmsnorm(x, p["attn_norm"])
     attn_fn = _mla_attention if cfg.attn == "mla" else _gqa_attention
     a, kv = attn_fn(p["attn"], h, pos, cfg)
     x = x + a
     h = rmsnorm(x, p["ffn_norm"])
-    x = x + _dense_ffn(p["ffn"], h)
-    return x, (kv if collect_cache else None)
+    if moe:
+        f, aux = _moe_ffn(p["ffn"], h, cfg)
+    else:
+        f, aux = _dense_ffn(p["ffn"], h), None
+    return x + f, aux, (kv if collect_cache else None)
 
 
 def _layer_params(stack: dict, li: int) -> dict:
@@ -277,25 +324,46 @@ def _layer_params(stack: dict, li: int) -> dict:
 # --------------------------------------------------------------------------- #
 
 
+def _stacks(cfg: LMConfig) -> list:
+    """(stack name, layer count, moe) of the layer stacks, in order."""
+    out = [("dense_layers", _n_dense(cfg), False),
+           ("moe_layers", cfg.n_moe_layers, True)]
+    return [t for t in out if t[1]]
+
+
+def _run_stack(stack: dict, n: int, x, pos, cfg: LMConfig, moe: bool,
+               collect_cache: bool):
+    """x through the stack's ``n`` layers -> (x, the MoE layers' aux
+    losses, the per-name caches (n, B, S, ...) when ``collect_cache``)."""
+    auxes, kvs = [], []
+    for li in range(n):
+        x, aux, kv = _layer(_layer_params(stack, li), x, pos, cfg, moe,
+                            collect_cache)
+        if aux is not None:
+            auxes.append(aux)
+        kvs.append(kv)
+    caches = tuple(torch.stack(c) for c in zip(*kvs)) if collect_cache else None
+    return x, auxes, caches
+
+
 def trunk(model: LM, tokens: torch.Tensor, collect_cache: bool = False):
-    """tokens (B, S) -> (final-normed activations (B, S, D), aux loss (0.0
-    for dense layers), caches: {"dense": per-name stacks (L, B, S, ...)}
-    when ``collect_cache``)."""
+    """tokens (B, S) -> (final-normed activations (B, S, D), the layers'
+    summed aux loss, caches: {"dense": ..., "moe": ...}, each the stack's
+    per-name caches (L, B, S, ...), when ``collect_cache``)."""
     cfg, params = model.cfg, model.tree()
     s = tokens.shape[1]
     x = params["embed"][tokens.long()].to(cfg.dtype)
     pos = torch.arange(s, device=x.device)
-    stack = params["dense_layers"]
-    kvs = []
-    for li in range(cfg.n_layers):
-        x, kv = _layer(_layer_params(stack, li), x, pos, cfg, collect_cache)
+    auxes, caches = [], {}
+    for name, n, moe in _stacks(cfg):
+        x, aux, c = _run_stack(params[name], n, x, pos, cfg, moe, collect_cache)
+        auxes += aux
         if collect_cache:
-            kvs.append(kv)
-    caches = {}
-    if collect_cache:
-        caches["dense"] = tuple(torch.stack(c) for c in zip(*kvs))
+            caches["moe" if moe else "dense"] = c
     x = rmsnorm(x, params["final_norm"])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
+    aux_total = (torch.stack(auxes).sum() if auxes else
+                 torch.zeros((), dtype=torch.float32, device=x.device))
+    return x, aux_total, caches
 
 
 # --------------------------------------------------------------------------- #
@@ -329,7 +397,7 @@ def prefill(model: LM, tokens: torch.Tensor):
     x, _, caches = trunk(model, tokens, collect_cache=True)
     last = x[:, -1, :]
     logits = torch.einsum("bd,vd->bv", last, model.embed.to(x.dtype))
-    stacked = dict(zip(_cache_names(cfg), caches["dense"]))
+    stacked = _merge_cache_stacks(caches, cfg)
     if cfg.window:  # keep only the trailing window (ring layout, slot = pos % W)
         s = tokens.shape[1]
         w = min(cfg.window, s)
@@ -341,6 +409,16 @@ def prefill(model: LM, tokens: torch.Tensor):
 
         stacked = {k: ring(c) for k, c in stacked.items()}
     return logits, stacked
+
+
+def _merge_cache_stacks(caches: dict, cfg: LMConfig) -> dict:
+    """Concatenate dense-stack and moe-stack caches into (L, B, S, ...)."""
+    parts = [c for c in (caches.get("dense"), caches.get("moe")) if c is not None]
+    out = {}
+    for i, name in enumerate(_cache_names(cfg)):
+        arrs = [p[i] for p in parts]
+        out[name] = torch.cat(arrs, dim=0) if len(arrs) > 1 else arrs[0]
+    return out
 
 
 @torch.no_grad()
@@ -357,9 +435,9 @@ def decode_step(model: LM, cache: dict, token: torch.Tensor, pos: int):
     # the reference's dynamic_update_slice clamps its start into the cache
     slot = min(slot, w - 1)
     pos_arr = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    stack = params["dense_layers"]
-    for li in range(cfg.n_layers):
-        lp = _layer_params(stack, li)
+    layers = [(name, li, moe) for name, n, moe in _stacks(cfg) for li in range(n)]
+    for gi, (name, li, moe) in enumerate(layers):     # gi: the cache's layer
+        lp = _layer_params(params[name], li)
         h = rmsnorm(x, lp["attn_norm"])
         c = lambda wgt: wgt.to(h.dtype)
         ap = lp["attn"]
@@ -371,10 +449,10 @@ def decode_step(model: LM, cache: dict, token: torch.Tensor, pos: int):
             lat = rmsnorm(lat_all[..., : cfg.kv_lora], ap["kv_norm"])
             k_rope = apply_rope(lat_all[..., None, cfg.kv_lora:], pos_arr,
                                 cfg.rope_theta)[:, :, 0]
-            cache["lat"][li, :, slot] = lat[:, 0].to(cfg.dtype)
-            cache["rope"][li, :, slot] = k_rope[:, 0].to(cfg.dtype)
+            cache["lat"][gi, :, slot] = lat[:, 0].to(cfg.dtype)
+            cache["rope"][gi, :, slot] = k_rope[:, 0].to(cfg.dtype)
             o = attn_lib.mla_decode_attention(
-                q_nope[:, 0], q_rope[:, 0], cache["lat"][li], cache["rope"][li],
+                q_nope[:, 0], q_rope[:, 0], cache["lat"][gi], cache["rope"][gi],
                 min(pos + 1, w), ap["w_uk"].to(cfg.dtype), ap["w_uv"].to(cfg.dtype))
             a = torch.einsum("bshv,hvd->bsd", o, c(ap["wo"]))
         else:
@@ -383,15 +461,15 @@ def decode_step(model: LM, cache: dict, token: torch.Tensor, pos: int):
             k = apply_rope(torch.einsum("bsd,dhk->bshk", h, c(ap["wk"])), pos_arr,
                            cfg.rope_theta)
             v = torch.einsum("bsd,dhk->bshk", h, c(ap["wv"]))
-            cache["k"][li, :, slot] = k[:, 0].to(cfg.dtype)
-            cache["v"][li, :, slot] = v[:, 0].to(cfg.dtype)
-            o = attn_lib.decode_attention(q, cache["k"][li], cache["v"][li],
+            cache["k"][gi, :, slot] = k[:, 0].to(cfg.dtype)
+            cache["v"][gi, :, slot] = v[:, 0].to(cfg.dtype)
+            o = attn_lib.decode_attention(q, cache["k"][gi], cache["v"][gi],
                                           min(pos + 1, w),
                                           window=None)  # ring layout already bounds SWA
             a = torch.einsum("bshk,hkd->bsd", o, c(ap["wo"]))
         x = x + a
         h2 = rmsnorm(x, lp["ffn_norm"])
-        x = x + _dense_ffn(lp["ffn"], h2)
+        x = x + (_moe_ffn(lp["ffn"], h2, cfg)[0] if moe else _dense_ffn(lp["ffn"], h2))
     x = rmsnorm(x, params["final_norm"])
     logits = torch.einsum("bd,vd->bv", x[:, 0], params["embed"].to(x.dtype))
     return logits, cache

@@ -150,14 +150,18 @@ def test_port_imports_without_jax():
         "import repro_torch.obs.regress\n"
         "import repro_torch.index.query, repro_torch.data.pipeline\n"
         "import repro_torch.models.common, repro_torch.models.specs\n"
-        "import repro_torch.models.attention\n"
+        "import repro_torch.models.attention, repro_torch.models.moe\n"
         "import repro_torch.models.transformer\n"
         "import repro_torch.configs, repro_torch.configs.base\n"
         "import repro_torch.configs.smollm_135m\n"
         "import repro_torch.configs.starcoder2_3b\n"
         "import repro_torch.configs.starcoder2_7b\n"
+        "import repro_torch.configs.deepseek_v2_lite_16b\n"
+        "import repro_torch.configs.mixtral_8x22b\n"
+        "import repro_torch.core.dgap, repro_torch.core.layout\n"
+        "import repro_torch.core.group_simple\n"
         "from repro_torch import configs\n"
-        "assert len(configs.ARCHS) == 3\n"
+        "assert len(configs.ARCHS) == 5\n"
         "from repro_torch.obs import regress, run_gate\n"
         "from repro_torch.core import codec\n"
         "assert len(codec.names()) == 31\n"

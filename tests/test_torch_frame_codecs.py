@@ -3,8 +3,11 @@ paper's vectorized decode, and ``decode_torch_scalar``, its one-quadruple-a
 -step form) of the frame codecs (BP128, Group-PackedBinary, Group-AFOR,
 Group-VSE, Group-PFD, Group-OptPFD) against
 the JAX package's ``decode_jax_vec`` and ``decode_jax_scalar`` on
-``test_codecs.py``'s cases, bitwise; and the shared helpers of
-``core/bits.py`` and ``core/frames.py`` against their reference forms."""
+``test_codecs.py``'s cases, bitwise; Group-Simple's scatter decode
+(``decode_torch_vec_scatter``) against ``decode_jax_vec_scatter`` on the
+same cases; and the shared helpers of ``core/bits.py`` (``ebw`` too),
+``core/frames.py``, ``core/dgap.py`` (``dgap_decode``) and
+``core/layout.py`` (``quadmax``) against their reference forms."""
 
 import numpy as np
 import pytest
@@ -14,8 +17,11 @@ import jax.numpy as jnp
 
 from repro.core import bits as ref_bits
 from repro.core import codec as ref_codec
+from repro.core import dgap as ref_dgap
 from repro.core import frames as ref_frames
-from repro_torch.core import bits, frames
+from repro.core import group_simple as ref_gs
+from repro.core import layout as ref_layout
+from repro_torch.core import bits, dgap, frames, group_simple, layout
 from repro_torch.core import codec as port_codec
 
 from _torch_parity import assert_u32_equal, t32
@@ -136,3 +142,57 @@ def test_frames_unpack_matches_reference(case):
                      want_s, "scalar")
     np.testing.assert_array_equal(want, x)
     np.testing.assert_array_equal(frames.unpack_data_np(data, bw, n), x)
+
+
+def test_group_simple_scatter_decode_matches_reference():
+    """``decode_torch_vec_scatter`` against the reference's original scatter
+    formulation on every case of ``CASES``, bitwise (and the input)."""
+    for case, x in CASES.items():
+        enc = group_simple.encode(x)
+        kw = group_simple.torch_args(enc, device="cpu")
+        want = np.asarray(ref_gs.decode_jax_vec_scatter(**ref_gs.jax_args(enc)))
+        got = group_simple.decode_torch_vec_scatter(**kw)
+        assert got.dtype == torch.int32
+        assert_u32_equal(got, want, f"group_simple/{case}/vec_scatter")
+        np.testing.assert_array_equal(want, x)
+
+
+def test_ebw_matches_reference():
+    """``bits.ebw`` against ``ebw_jnp`` (``32 - clz``) and ``ebw_np`` on 0,
+    1, 2**k - 1, 2**k, 2**k + 1 and 2**32 - 1."""
+    p = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    x = np.concatenate([[0, 1, 2 ** 32 - 1], p - 1, p, p + 1])
+    x = np.unique(x[x < 2 ** 32]).astype(np.uint32)
+    got = bits.ebw(t32(x))
+    assert got.dtype == torch.int32
+    want = np.asarray(ref_bits.ebw_jnp(jnp.asarray(x)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), ref_bits.ebw_np(x))
+    assert int(got[0]) == 0 and int(got[-1]) == 32
+
+
+def test_dgap_decode_matches_reference():
+    """``dgap.dgap_decode`` against ``dgap_decode_jnp`` on gaps whose sum
+    wraps past 2**32 (more than once), and on an empty array."""
+    rng = np.random.default_rng(3)
+    gaps = rng.integers(0, 1 << 32, 300, dtype=np.uint64).astype(np.uint32)
+    gaps[:3] = [0xFFFFFFFF, 1, 0x80000000]
+    for g in (gaps, gaps[:1], gaps[:0]):
+        got = dgap.dgap_decode(t32(g))
+        assert got.dtype == torch.int32
+        want = np.asarray(ref_dgap.dgap_decode_jnp(jnp.asarray(g)))
+        assert_u32_equal(got, want, f"dgap_decode n={len(g)}")
+        assert_u32_equal(got, ref_dgap.dgap_decode_np(g), "dgap_decode_np")
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_quadmax_matches_reference(k):
+    """``layout.quadmax`` (the OR of each ``k`` words) against
+    ``quadmax_jnp`` and the pseudo ``quadmax_np``, words past 2**31 too."""
+    rng = np.random.default_rng(k)
+    x = rng.integers(0, 1 << 32, 64 * k, dtype=np.uint64).astype(np.uint32)
+    x[:k] = 0
+    got = layout.quadmax(t32(x), k)
+    want = np.asarray(ref_layout.quadmax_jnp(jnp.asarray(x), k))
+    assert_u32_equal(got, want, f"quadmax k={k}")
+    assert_u32_equal(got, ref_layout.quadmax_np(x, k, pseudo=True), "quadmax_np")

@@ -1,11 +1,13 @@
 """The port's ``kernels/intersect.py`` against the JAX package's, bitwise:
 the bitmap tile AND (kernel B10; the port's wrapper runs its plain version
 on the CPU, the reference its Pallas kernel in interpret mode), the
-``use_pallas`` route of ``bitmap_and_words`` / ``bitmap_intersect_np``, and
-the host helpers, each also against ``np.intersect1d``."""
+``use_pallas`` route of ``bitmap_and_words`` / ``bitmap_intersect_np``,
+the host helpers, each also against ``np.intersect1d``, and the torch probe
+``gallop_contains`` against ``gallop_contains_jnp``."""
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -73,3 +75,23 @@ def test_bitmap_and_tiles_matches_reference():
     assert_u32_equal(intersect.bitmap_and_tiles(t32(a), t32(b)), want, "B10")
     with pytest.raises(ValueError, match="differ"):
         intersect.bitmap_and_tiles(t32(a), t32(b[:8]))
+
+
+@pytest.mark.parametrize("n_hay,n_needles", [(500, 200), (0, 50), (50, 0),
+                                              (0, 0), (1, 64)])
+def test_gallop_contains_matches_reference(n_hay, n_needles):
+    """Port of ``tests/test_query_engine.py``'s ``gallop_contains_jnp``
+    case, with empty haystacks and needles and words past 2**31."""
+    rng = np.random.default_rng(0)
+    hay = _sorted_unique(rng, n_hay, 0, 3000)
+    needles = _sorted_unique(rng, n_needles, 0, 3000)
+    if n_hay:
+        hay[-1:] = np.uint32(0xFFFFFFF0)          # an unsigned word
+    if n_needles:
+        needles[-1:] = np.uint32(0xFFFFFFF0)
+    want = ref_ix.gallop_contains_jnp(jnp.asarray(hay), jnp.asarray(needles))
+    got = intersect.gallop_contains(t32(hay), t32(needles))
+    assert got.dtype == torch.bool and got.shape == (n_needles,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(),
+                                  intersect.gallop_contains_np(hay, needles))

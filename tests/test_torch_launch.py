@@ -2,8 +2,10 @@
 ``python -m repro_torch.launch.serve --arch ...`` (the LM half of the
 reference's ``launch/serve.py``) and the three examples of this slice,
 ``examples/quickstart_torch.py``, ``serve_quickstart_torch.py`` and
-``serve_lm_torch.py``, each with ``--torch-device cpu``; the archs that
-wait name their ROADMAP.md step; the default device is the card."""
+``serve_lm_torch.py``, each with ``--torch-device cpu``; the MoE archs
+(deepseek-v2-lite-16b, mixtral-8x22b) print the reference's line too; the
+archs that wait name their ROADMAP.md step; the default device is the
+card."""
 
 import os
 import re
@@ -33,7 +35,8 @@ def test_launch_serve_arch_smoke_on_cpu():
     assert m and m.group(1) == "8", out.stdout       # the reference's line
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "starcoder2-7b"])
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "starcoder2-7b",
+                                  "deepseek-v2-lite-16b", "mixtral-8x22b"])
 def test_launch_serve_arch_in_process(arch, capsys):
     serve.main(["--arch", arch, "--smoke", "--tokens", "3",
                 "--torch-device", "cpu"])
@@ -44,9 +47,8 @@ def test_launch_serve_arch_in_process(arch, capsys):
 def test_launch_serve_names_the_step_of_what_waits():
     with pytest.raises(KeyError, match="A.13.3"):
         serve.main(["--arch", "din", "--smoke", "--torch-device", "cpu"])
-    with pytest.raises(KeyError, match="A.13.2"):
-        serve.main(["--arch", "deepseek-v2-lite-16b", "--smoke",
-                    "--torch-device", "cpu"])
+    with pytest.raises(KeyError, match="A.13.3"):
+        serve.main(["--arch", "egnn", "--smoke", "--torch-device", "cpu"])
     with pytest.raises(SystemExit):        # neither --arch nor --index
         serve.main(["--smoke"])
 
@@ -56,6 +58,14 @@ def test_launch_serve_defaults_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "smollm-135m", "--smoke"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x22b"])
+def test_launch_serve_moe_defaults_to_the_card(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch, "--smoke"])
 
 
 @pytest.mark.parametrize("script,expect", [

@@ -1,11 +1,12 @@
 """The dense-LM serving path of the port against the JAX package's
 ``models`` and ``configs``: ``common`` and ``attention`` on the same inputs
 (q chunks, right-pad, window, GQA groups, MLA decode); ``trunk``,
-``prefill`` and ``decode_step`` of the three smoke configs, a dense MLA
-config and a window config with the reference's weights carried across by
-``load_reference_params``; the port of
+``prefill`` and ``decode_step`` of the three dense smoke configs, a
+dense MLA config and a window config with the reference's weights carried
+across by ``load_reference_params``; the port of
 ``tests/test_system.py::test_decode_matches_full_forward``; the configs
-field for field.
+(the MoE ones too) field for field.  ``test_torch_moe.py`` serves the MoE
+configs with this file's helpers.
 
 Tolerances (float, not bitwise: XLA on the CPU and torch differ by ulps in
 ``pow``, ``rsqrt``, ``exp`` and summation order): fp32 logits ``atol=2e-4``
@@ -43,6 +44,7 @@ LOGIT_ATOL = 2e-4
 REL = 1e-5
 MODEL_REL = 1e-4
 BF16_REL = 2e-2
+AUX_ATOL = 1e-6
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -238,9 +240,12 @@ def _serve_parity(ref_cfg, cfg, dtype="float32", steps=4, seed=0):
     tokens fed to both; every logit, cache and the trunk compared."""
     params, model = _carried(ref_cfg, cfg, seed)
     toks = _tokens(cfg.vocab)
-    x_ref, _, _ = RT.trunk(params, jnp.asarray(toks), ref_cfg)
+    x_ref, aux_ref, _ = RT.trunk(params, jnp.asarray(toks), ref_cfg)
     x, aux, _ = T.trunk(model, torch.from_numpy(toks))
-    assert float(aux) == 0.0
+    if cfg.moe:
+        assert abs(float(aux) - float(aux_ref)) <= AUX_ATOL, (float(aux), float(aux_ref))
+    else:
+        assert float(aux) == 0.0
     rel = MODEL_REL if dtype == "float32" else BF16_REL
     assert_rel(x, x_ref, rel, "trunk")
     lg_ref, cache_ref = RT.prefill(params, jnp.asarray(toks), ref_cfg)
@@ -403,7 +408,8 @@ def test_init_params_is_seeded_and_scaled():
     assert abs(float(w2.std()) - 128 ** -0.5) < 0.01
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "starcoder2-3b", "starcoder2-7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "starcoder2-3b", "starcoder2-7b",
+                                  "deepseek-v2-lite-16b", "mixtral-8x22b"])
 def test_configs_equal_reference_field_for_field(arch):
     ref, spec = ref_configs.get(arch), configs.get(arch)
     assert spec.arch_id == ref.arch_id and spec.family == ref.family
@@ -469,23 +475,35 @@ def test_step_fns_serve_and_name_what_waits():
 
 
 def test_registry_holds_the_dense_archs_and_names_the_rest():
-    assert sorted(configs.ARCHS) == ["smollm-135m", "starcoder2-3b", "starcoder2-7b"]
+    """The five LMs (dense and MoE) are ported, in the reference's order;
+    the recsys and EGNN archs name step A.13.3; the cells are the
+    reference's over the ported archs."""
+    lms = [a for a in ref_configs.ARCHS if ref_configs.ARCHS[a].family == "lm"]
+    assert list(configs.ARCHS) == lms and len(lms) == 5
     assert sorted(set(configs.ARCHS) | set(configs.PENDING)) == sorted(ref_configs.ARCHS)
-    for aid in ("deepseek-v2-lite-16b", "mixtral-8x22b"):
-        with pytest.raises(KeyError, match="A.13.2"):
-            configs.get(aid)
-    for aid in ("din", "dien", "wide-deep", "dlrm-rm2", "egnn"):
+    assert sorted(configs.PENDING) == ["dien", "din", "dlrm-rm2", "egnn", "wide-deep"]
+    for aid in configs.PENDING:
         with pytest.raises(KeyError, match="A.13.3"):
             configs.get(aid)
-    assert len(list(configs.all_cells())) == 12
-    assert len(list(configs.all_cells(include_skipped=False))) == 9
+    for skipped in (True, False):
+        want = [(a, n) for a, n, _ in ref_configs.all_cells(include_skipped=skipped)
+                if a in configs.ARCHS]
+        assert [(a, n) for a, n, _ in configs.all_cells(include_skipped=skipped)] == want
+    assert len(list(configs.all_cells())) == 20
+    assert len(list(configs.all_cells(include_skipped=False))) == 17
 
 
 def test_moe_config_raises_naming_its_step():
-    with pytest.raises(NotImplementedError, match="A.13.2"):
-        T.LMConfig(name="moe", n_layers=2, d_model=32, n_heads=2, n_kv=2,
-                   head_dim=16, d_ff=64, vocab=64, n_experts=4, top_k=2,
-                   d_ff_expert=32)
+    """An MoE ``LMConfig`` builds, and its ``moe``, ``n_moe_layers`` and
+    ``qk_dim`` equal the reference's (MoE with MLA, MoE with GQA, dense)."""
+    for kw in (dict(n_experts=4, top_k=2, d_ff_expert=32, n_dense_layers=1,
+                    attn="mla", kv_lora=16, qk_nope=8, qk_rope=4, v_head=8),
+               dict(n_experts=4, top_k=2, d_ff_expert=32), {}):
+        base_kw = dict(name="moe", n_layers=3, d_model=32, n_heads=2, n_kv=2,
+                       head_dim=16, d_ff=64, vocab=64, **kw)
+        got, want = T.LMConfig(**base_kw), RT.LMConfig(**base_kw)
+        assert (got.moe, got.n_moe_layers, got.qk_dim) == \
+            (want.moe, want.n_moe_layers, want.qk_dim), kw
 
 
 @pytest.mark.cuda

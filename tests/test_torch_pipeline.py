@@ -2,7 +2,8 @@
 against the JAX package's ``repro.data.pipeline`` on
 ``tests/test_pipeline_index.py``'s four store cases: the encoded words and
 ``compressed_bytes`` equal, every read equal, ``lm_batch_iter``'s batches
-equal per cursor (a resumed loader included); and ``synth.concat_gaps``."""
+equal per cursor (a resumed loader included); and ``synth.concat_gaps``,
+``concat_tfs`` and ``dataset_stats``."""
 
 import numpy as np
 import pytest
@@ -105,6 +106,24 @@ def test_concat_gaps_matches_reference(name):
     want = ref_synth.concat_gaps(ref_synth.make_dataset(name, n_lists=40))
     assert got.dtype == want.dtype == np.uint32
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(synth.DATASETS))
+def test_concat_tfs_matches_reference(name):
+    got = synth.concat_tfs(synth.make_dataset(name, n_lists=40))
+    want = ref_synth.concat_tfs(ref_synth.make_dataset(name, n_lists=40))
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dataset_stats_match_paper_characteristics():
+    """Port of ``tests/test_pipeline_index.py``'s case, each dataset's stats
+    equal to the reference's."""
+    for name in synth.DATASETS:
+        stats = synth.dataset_stats(synth.make_dataset(name))
+        assert stats == ref_synth.dataset_stats(ref_synth.make_dataset(name))
+        assert stats["gap_fit8"] > 0.9 or stats["gap_mean"] < 300, (name, stats)
+        assert stats["tf_fit8"] > 0.9, (name, stats)
 
 
 def test_data_package_exports_pipeline_and_synth():

@@ -5,17 +5,19 @@ Every served result equals, bitwise, the port's offline ``plan()/execute()``
 and the reference's offline plan on the same batch; the admission helpers
 (``tenant_cap``, ``weighted_fill``, the arrival processes) return what the
 reference's return on the same inputs.  The port's engines run on the CPU
-(``torch_device="cpu"``).  The three ``CrossoverTable.from_bench`` cases of
-the reference file are not here: the port derives no crossover table from
-benchmark reports until it has benchmarks of its own (``ROADMAP.md`` step
-A.12), so it stays on ``HOST_BATCH_MAX``; the plan-placement cases run
-against the port's ``set_crossover``."""
+(``torch_device="cpu"``).  ``CrossoverTable.from_bench`` derives the same
+table as the reference's from the same report (the reference file's three
+cases); the port reads no baseline file, so the plan-placement cases run
+against tables installed with ``set_crossover``."""
+
+import dataclasses
 
 import asyncio
 
 import numpy as np
 import pytest
 
+from repro.index.engine import CrossoverTable as RefCrossover
 from repro.index.engine import QueryBatch as RefBatch
 from repro.index.engine import QueryEngine as RefEngine
 from repro.index.invindex import InvertedIndex as RefIndex
@@ -230,6 +232,66 @@ def test_weighted_fill_carries_credit_across_batches():
         both += got
     assert both.count(1) == 6 and both.count(2) == 2
     assert credit == rcredit
+
+
+# --------------------------------------------------------------------------- #
+# placement crossover table
+# --------------------------------------------------------------------------- #
+
+def _from_bench(report: dict) -> CrossoverTable:
+    """The port's table of ``report``, checked field for field against the
+    reference's."""
+    got = CrossoverTable.from_bench(report)
+    want = RefCrossover.from_bench(report)
+    assert dataclasses.astuple(got) == dataclasses.astuple(want)
+    return got
+
+
+def test_crossover_from_bench_true_crossing():
+    # host wins at 1 and 4, device at 16 and 256 -> cut at 4
+    table = _from_bench({
+        "host_qps": {"1": 100.0, "4": 90.0, "16": 50.0, "256": 40.0},
+        "device_qps": {"1": 20.0, "4": 80.0, "16": 200.0, "256": 400.0}})
+    assert table.host_batch_max == 4
+    assert table.sizes == (1, 4, 16, 256)
+
+
+def test_crossover_from_bench_no_crossing_or_degenerate():
+    # host still winning at the largest measured size: no crossing
+    assert _from_bench({
+        "host_qps": {"1": 10.0, "16": 90.0, "256": 70.0},
+        "device_qps": {"1": 20.0, "16": 40.0, "256": 60.0}
+    }).host_batch_max is None
+    # device wins everywhere: never demote
+    assert _from_bench({
+        "host_qps": {"1": 10.0, "16": 20.0},
+        "device_qps": {"1": 15.0, "16": 40.0}}).host_batch_max == 0
+    # non-monotone curve (host re-wins in the middle): only the LAST
+    # host-winning size with device winning all larger sizes counts
+    table = _from_bench({
+        "host_qps": {"1": 50.0, "4": 10.0, "16": 90.0, "64": 10.0},
+        "device_qps": {"1": 20.0, "4": 40.0, "16": 50.0, "64": 80.0}})
+    assert table.host_batch_max == 16
+    assert _from_bench({}).host_batch_max is None
+
+
+def test_crossover_from_bench_per_mode_cells():
+    # per-mode curves ("mode_qps") yield per-mode cells; cut_for falls back
+    # to the pooled host_batch_max only for modes with no measured curve
+    table = _from_bench({
+        "host_qps": {"1": 100.0, "4": 90.0, "16": 50.0},
+        "device_qps": {"1": 20.0, "4": 80.0, "16": 200.0},
+        "mode_qps": {
+            "or": {"host": {"1": 50.0, "16": 40.0},
+                   "device": {"1": 60.0, "16": 90.0}},      # device always
+            "and_scored": {"host": {"1": 90.0, "16": 80.0},
+                           "device": {"1": 10.0, "16": 20.0}},  # no crossing
+        }})
+    assert table.host_batch_max == 4
+    assert dict(table.mode_cuts) == {"or": 0, "and_scored": None}
+    assert table.cut_for("or") == 0                 # never demote ranked-or
+    assert table.cut_for("and_scored") is None      # host wins everywhere
+    assert table.cut_for("and") == 4                # pooled fallback
 
 
 # --------------------------------------------------------------------------- #
