@@ -11,8 +11,10 @@ through the entry points a user calls, at the real document count of the
 TREC GOV2 collection; the examples, the one-shot query shims and LM
 serving (smollm-135m and starcoder2-3b dense, deepseek-v2-lite-16b and
 mixtral-8x22b mixture-of-experts, at their published widths, prompts from
-the compressed token store); and holds every CUDA kernel of the paths
-against its plain torch version on the card:
+the compressed token store); recsys serving (dlrm-rm2, wide-deep, din,
+dien) and the EGNN forward on its four graph regimes, at full width; and
+holds every CUDA kernel of the paths against its plain torch version on
+the card:
 
   card       the card, its power limit, torch / CUDA / nvcc versions
   build      nvcc builds every kernels/csrc/*.cu and tools/and_round_forms.cu
@@ -241,6 +243,33 @@ against its plain torch version on the card:
              ``route_group`` on the host CPU (``idx`` equal on the slots
              of every expert no near-tied token may flip, ``wgt`` within
              1e-6).
+  recsys_gnn after the lm phase, its tensors freed; fp32, TF32 off,
+             weights from ``init`` with a seeded ``torch.Generator`` on
+             the card.  Recsys (``make_config()``: dlrm-rm2, wide-deep,
+             din, dien): ``serve_p99`` (512 rows), ``serve_bulk``
+             (262,144) and ``retrieval_cand`` (10**6 candidates, top 100)
+             through ``STEP_FNS["recsys"]`` on ``cell_batch``'s uniform ids
+             (numpy, from --seed); median ms of 10 calls after a warm-up
+             (host clock to a synchronize), rows or candidates/s, peak
+             memory.  Checks: probabilities in [0, 1], every output
+             finite; the same weights on the host CPU give ``serve_p99``'s
+             logits and probabilities and the first 4,096 candidates'
+             logits within 1e-4 of max |logit|; the chunked top 100 equals
+             one stable sort over every candidate's logit, in ids and
+             scores.  EGNN (4 layers, ``d_hidden`` 64, ``config_for_cell``)
+             on ``full_graph_sm``, ``molecule``, ``ogb_products`` (2.45 M
+             nodes, 61.9 M edges) and ``minibatch_lg`` (1,024 seeds at
+             fanout 15-10 sampled from ``CSRGraph.random(232,965,
+             114,615,892)``, built by a spawned worker from the smoke's
+             start on, padded to 170,496 nodes): ``forward`` (median of 5
+             after a warm-up, edges/s, peak memory) and ``loss_fn``'s value.
+             Checks: finite; ``full_graph_sm`` and ``molecule`` on the host
+             CPU give ``h`` within 1e-4 of max |h| and the loss within 1e-4
+             relative; ``ogb_products``' ``h`` with the coordinates rotated
+             (a seeded orthogonal 3x3) and translated within 1e-3 of max
+             |h|; the subgraph's invariants (1,024 seeds, every valid
+             edge's source in its destination's CSR row, padding edges at
+             the sentinel).
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed phase raises and the script exits nonzero without that
@@ -308,6 +337,15 @@ LM_ROUTE_CHECK = (2, 256)       # lm phase: MoE routing, card vs host CPU
 LM_ROUTE_MARGIN = 1e-5          # ... compared where top-k margins exceed it
 LM_ROUTE_WGT_TOL = 1e-6         # ... the routing weights' tolerance
 LM_WINDOW_EXTRA = 64            # lm phase: SWA check prompt = window + 64
+RECSYS_ARCHS = ("dlrm-rm2", "wide-deep", "din", "dien")   # recsys_gnn phase
+RECSYS_CELLS = ("serve_p99", "serve_bulk", "retrieval_cand")
+RECSYS_RUNS = 10                # timed calls a recsys cell (after a warm-up)
+RECSYS_CHECK = 4096             # retrieval candidates held against the CPU
+RECSYS_TOL = 1e-4               # of max |logit|: card vs the CPU path
+EGNN_CELLS = ("full_graph_sm", "molecule", "ogb_products", "minibatch_lg")
+EGNN_RUNS = 5                   # timed EGNN forwards a cell (after a warm-up)
+EGNN_TOL = 1e-4                 # h of max |h|, losses relative: card vs CPU
+EGNN_INVARIANCE_TOL = 1e-3      # of max |h|: rotated, translated coordinates
 # examples phase: (name, command, a line its output must hold)
 EXAMPLES = (
     ("quickstart", ["examples/quickstart_torch.py"],
@@ -479,6 +517,31 @@ def _pfd_build_task(src: str, seed: int, n_docs: int):
     t0 = time.perf_counter()
     idx = InvertedIndex.build(doclen, postings, codec="group_pfd")
     return idx, time.perf_counter() - t0
+
+
+def _graph_task(src: str, seed: int, n_nodes: int, n_edges: int,
+                n_seeds: int, fanout: tuple) -> dict:
+    """EGNN ``minibatch_lg`` worker: ``CSRGraph.random`` at the cell's graph
+    size, ``n_seeds`` seeds and ``sample_subgraph`` (host numpy, about as
+    long as the index build); returns the subgraph, the seeds and the CSR
+    rows of every destination node, not the graph."""
+    sys.path.insert(0, src)
+    import numpy as np
+    from repro_torch.models.sampler import CSRGraph, sample_subgraph
+    t0 = time.perf_counter()
+    g = CSRGraph.random(n_nodes, n_edges, seed)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 29)
+    seeds = rng.choice(n_nodes, n_seeds, replace=False)
+    t0 = time.perf_counter()
+    sub = sample_subgraph(g, seeds, fanout, rng)
+    sample_s = time.perf_counter() - t0
+    rows = np.unique(sub["nodes"][sub["dst"][sub["edge_valid"]]])
+    return {"sub": sub, "seeds": seeds, "rows": rows,
+            "row_lens": g.indptr[rows + 1] - g.indptr[rows],
+            "row_idx": np.concatenate([g.indices[g.indptr[r]:g.indptr[r + 1]]
+                                       for r in rows]),
+            "build_s": build_s, "sample_s": sample_s}
 
 
 def _oracle_or_task(queries: list) -> list:
@@ -1932,6 +1995,206 @@ def lm_phase(dev, seed, smi, np, torch) -> dict:
     return out
 
 
+def subgraph_invariants(job: dict, n_seeds: int, np) -> dict:
+    """The sampled subgraph's invariants: ``n_seed`` seeds, every valid
+    edge's source in its destination's CSR row, every padding edge at the
+    sentinel.  Raises on a breach."""
+    sub, rows = job["sub"], job["rows"]
+    nodes, ok, m = sub["nodes"], sub["edge_valid"], len(sub["nodes"])
+    if sub["n_seed"] != n_seeds or not np.isin(job["seeds"], nodes).all():
+        raise AssertionError(f"recsys_gnn minibatch_lg: n_seed "
+                             f"{sub['n_seed']}, want {n_seeds}")
+    src, dst = nodes[sub["src"][ok]], nodes[sub["dst"][ok]]
+    # (row, neighbour) keys, sorted: rows ascend and each CSR row is sorted
+    span = np.int64(job["row_idx"].max(initial=0)) + 1
+    keys = (np.repeat(np.arange(len(rows), dtype=np.int64), job["row_lens"])
+            * span + job["row_idx"])
+    r = np.searchsorted(rows, dst)
+    want = r * span + src
+    pos = np.minimum(np.searchsorted(keys, want), len(keys) - 1)
+    if not (rows[r] == dst).all() or not (keys[pos] == want).all():
+        raise AssertionError("recsys_gnn minibatch_lg: a sampled edge's source "
+                             "is not a neighbour of its destination")
+    if not ((sub["src"][~ok] == m) & (sub["dst"][~ok] == m)).all():
+        raise AssertionError("recsys_gnn minibatch_lg: a padding edge misses "
+                             "the sentinel")
+    return {"nodes": m, "valid_edges": int(ok.sum()), "edges": len(ok),
+            "seeds": int(sub["n_seed"])}
+
+
+def recsys_gnn_phase(dev, seed, graph_job, smi, np, torch) -> dict:
+    """The recsys_gnn phase (module docstring): the four recsys archs on
+    their three serving cells and EGNN on its four graph regimes, at full
+    width on ``dev``.  Raises on any failed check; returns the figures."""
+    from repro_torch import configs
+    from repro_torch.configs.base import STEP_FNS
+    from repro_torch.launch.batches import cell_batch, subgraph_batch
+    from repro_torch.models import egnn as E
+    from repro_torch.models import recsys as R
+    from repro_torch.models.specs import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    host = torch.device("cpu")
+    log(f"== recsys_gnn: {', '.join(RECSYS_ARCHS)} on {', '.join(RECSYS_CELLS)}, "
+        f"EGNN on {', '.join(EGNN_CELLS)}, full width; memory_allocated "
+        f"{torch.cuda.memory_allocated()} bytes at the start")
+
+    def timed(fn, runs):
+        """(last result, median ms of ``runs`` calls after a warm-up, host
+        clock to a synchronize)."""
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return res, sorted(ts)[len(ts) // 2]
+
+    def rel_err(got, want) -> tuple:
+        """(max |got - want| on the host, max |want|)."""
+        got, want = got.double().cpu(), want.double().cpu()
+        return float((got - want).abs().max()), float(want.abs().max())
+
+    def to_host(tree):
+        return tree_map(lambda t: t.to(host), tree)
+
+    out = {"recsys": {}, "egnn": {}}
+    for arch in RECSYS_ARCHS:
+        spec = configs.get(arch)
+        cfg = spec.make_config()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        t0 = time.perf_counter()
+        model = R.init(cfg, gen)
+        torch.cuda.synchronize()
+        r = {"params": sum(p.numel() for p in model.parameters()),
+             "init_s": time.perf_counter() - t0}
+        cpu = R.RecModel(cfg, to_host(model.tree()))
+        rng = np.random.default_rng(seed + 31)
+        for name in RECSYS_CELLS:
+            cell = spec.shapes[name]
+            what = f"recsys_gnn {arch} {name}"
+            batch = cell_batch(spec, cfg, cell, rng, dev)
+            step, _ = STEP_FNS["recsys"](cfg, cell)
+            torch.cuda.reset_peak_memory_stats()
+            res, ms = timed(lambda: step(model, batch), RECSYS_RUNS)
+            rows = cell.dims.get("n_candidates", cell.dims["batch"])
+            c = {"ms": ms, "rows_per_s": rows / ms * 1e3,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            hb = {k: v.to(host) for k, v in batch.items()}
+            if cell.kind == "serve":
+                if not (bool(torch.isfinite(res).all()) and float(res.min()) >= 0
+                        and float(res.max()) <= 1):
+                    raise AssertionError(f"{what}: a probability outside [0, 1]")
+                if name == "serve_p99":     # card vs the CPU path
+                    logit = R.forward(cpu, hb)
+                    le, lmax = rel_err(R.forward(model, batch), logit)
+                    pe, _ = rel_err(res, torch.sigmoid(logit))
+                    c["vs_cpu"] = {"logit_err": le, "prob_err": pe, "max_abs_logit": lmax}
+                    if max(le, pe) > RECSYS_TOL * lmax:
+                        raise AssertionError(f"{what}: card vs CPU {c['vs_cpu']}")
+            else:
+                scores, ids = res
+                logits = R.candidate_logits(model, batch)
+                fs, fi = torch.sort(logits, descending=True, stable=True)
+                c["topk_equal"] = (torch.equal(scores, fs[:100])
+                                   and torch.equal(ids, batch["cand_items"][fi[:100]]))
+                if not c["topk_equal"] or not bool(torch.isfinite(logits).all()):
+                    raise AssertionError(f"{what}: the chunked top k differs from "
+                                         f"one stable sort over every logit")
+                le, lmax = rel_err(logits[:RECSYS_CHECK],
+                                   R.candidate_logits(cpu, hb, 0, RECSYS_CHECK))
+                c["vs_cpu"] = {"logit_err": le, "max_abs_logit": lmax,
+                               "candidates": RECSYS_CHECK}
+                if le > RECSYS_TOL * lmax:
+                    raise AssertionError(f"{what}: card vs CPU {c['vs_cpu']}")
+                del logits, fs, fi
+            r[name] = c
+            log(f"{arch} {name}: {c['ms']:.3f} ms (median of {RECSYS_RUNS}), "
+                f"{c['rows_per_s']:.4e} {'candidates' if cell.kind == 'retrieval' else 'rows'}"
+                f"/s, peak {c['peak_gib']:.2f} GiB"
+                + (f"; card vs CPU logit err {c['vs_cpu']['logit_err']:.3e} of "
+                   f"{c['vs_cpu']['max_abs_logit']:.4f}" if "vs_cpu" in c else "")
+                + ("; chunked top 100 equals one stable sort" if cell.kind == "retrieval" else "")
+                + f"; {smi}")
+            del batch, hb, res
+        out["recsys"][arch] = r
+        del model, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    job = graph_job.result()
+    spec = configs.get("egnn")
+    mb = spec.shapes["minibatch_lg"].dims
+    out["graph"] = {"build_s": job["build_s"], "sample_s": job["sample_s"],
+                    "wait_s": time.perf_counter() - t0,
+                    **subgraph_invariants(job, mb["batch_nodes"], np)}
+    log(f"minibatch_lg graph (worker process): CSRGraph.random("
+        f"{mb['graph_nodes']}, {mb['graph_edges']}) {job['build_s']:.2f} s, "
+        f"sample_subgraph {job['sample_s']:.2f} s, waited "
+        f"{out['graph']['wait_s']:.2f} s; {out['graph']}")
+    for name in EGNN_CELLS:
+        cell = spec.shapes[name]
+        what = f"recsys_gnn egnn {name}"
+        cfg = spec.config_for_cell(spec.make_config(), cell)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        model = E.init(cfg, gen)
+        rng = np.random.default_rng(seed + 37)
+        if name == "minibatch_lg":
+            batch = subgraph_batch(job["sub"], job["seeds"], cfg, cell, rng, dev)
+        else:
+            batch = cell_batch(spec, cfg, cell, rng, dev)
+        args = [batch[k] for k in ("feats", "coords", "src", "dst")]
+        torch.cuda.reset_peak_memory_stats()
+        h, ms = timed(lambda: E.forward(model, *args), EGNN_RUNS)
+        loss, _ = E.loss_fn(model, batch)
+        c = {"ms": ms, "edges_per_s": cell.dims["n_edges"] / ms * 1e3,
+             "loss": float(loss),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if not (bool(torch.isfinite(h).all()) and bool(torch.isfinite(loss))):
+            raise AssertionError(f"{what}: h or the loss is not finite")
+        if name in ("full_graph_sm", "molecule"):   # card vs the CPU path
+            cpu = E.EGNN(cfg, to_host(model.tree()))
+            hb = {k: v.to(host) for k, v in batch.items()}
+            he, hmax = rel_err(h, E.forward(cpu, *[hb[k] for k in ("feats", "coords", "src", "dst")]))
+            cl = float(E.loss_fn(cpu, hb)[0])
+            c["vs_cpu"] = {"h_err": he, "max_abs_h": hmax,
+                           "loss_rel_err": abs(c["loss"] - cl) / abs(cl)}
+            if he > EGNN_TOL * hmax or c["vs_cpu"]["loss_rel_err"] > EGNN_TOL:
+                raise AssertionError(f"{what}: card vs CPU {c['vs_cpu']}")
+        if name == "ogb_products":      # E(n) invariance at full size
+            q, rr = np.linalg.qr(np.random.default_rng(seed + 41).standard_normal((3, 3)))
+            q = torch.as_tensor(q * np.sign(np.diag(rr)), dtype=torch.float32, device=dev)
+            shift = torch.tensor([3.0, -1.5, 0.25], device=dev)
+            hr = E.forward(model, args[0], args[1] @ q.T + shift, args[2], args[3])
+            ie, hmax = rel_err(hr, h)
+            c["invariance"] = {"h_err": ie, "max_abs_h": hmax}
+            if ie > EGNN_INVARIANCE_TOL * hmax:
+                raise AssertionError(f"{what}: rotated and translated h "
+                                     f"{c['invariance']}")
+            del hr
+        out["egnn"][name] = c
+        log(f"egnn {name}: forward {ms:.3f} ms (median of {EGNN_RUNS}), "
+            f"{c['edges_per_s']:.4e} edges/s, loss {c['loss']:.6f}, peak "
+            f"{c['peak_gib']:.2f} GiB"
+            + (f"; card vs CPU h err {c['vs_cpu']['h_err']:.3e} of "
+               f"{c['vs_cpu']['max_abs_h']:.4f}, loss rel err "
+               f"{c['vs_cpu']['loss_rel_err']:.3e}" if "vs_cpu" in c else "")
+            + (f"; rotated + translated h err {c['invariance']['h_err']:.3e} "
+               f"of {c['invariance']['max_abs_h']:.4f}" if "invariance" in c else "")
+            + f"; {smi}")
+        del model, batch, args, h, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2019,6 +2282,15 @@ def main() -> int:
     pfd_pool = concurrent.futures.ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
     pfd_job = pfd_pool.submit(_pfd_build_task, src, args.seed, args.n_docs)
+    # the recsys_gnn phase's EGNN minibatch_lg graph and its sampled
+    # subgraph, built by a worker of its own (host numpy, about 90 s)
+    graph_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    from repro_torch.configs.egnn import SHAPES as EGNN_SHAPES
+    mb = EGNN_SHAPES["minibatch_lg"].dims
+    graph_job = graph_pool.submit(_graph_task, src, args.seed,
+                                  mb["graph_nodes"], mb["graph_edges"],
+                                  mb["batch_nodes"], mb["fanout"])
     t0 = time.perf_counter()
     doclen, postings = synth.make_corpus("gov2", seed=args.seed,
                                          n_docs=args.n_docs)
@@ -3356,13 +3628,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm = lm_phase(dev, args.seed, smi, np, torch)
     phase_done("lm")
+
+    # ---- recsys and EGNN, after the lm phase ------------------------------ #
+    gc.collect()
+    torch.cuda.empty_cache()
+    rg = recsys_gnn_phase(dev, args.seed, graph_job, smi, np, torch)
+    graph_pool.shutdown()
+    phase_done("recsys_gnn")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"phases_s": phase_s, "ranked": {
         m: {k: v for k, v in r.items() if k != "recent"}
         for m, r in ranked.items()}, "mutation": mut, "stream": stream,
         "codecs": codecs, "sharded": sharded, "serve": serve,
-        "examples": examples, "lm": lm}),
+        "examples": examples, "lm": lm, "recsys_gnn": rg}),
         flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,8 @@ then batched greedy decode against the KV cache, on the card unless asked
 for the CPU.
 
 The port's counterpart of ``examples/serve_lm.py``, with the same arguments
-and output (and ``--torch-device``).  The ported archs are the dense GQA LMs
-(``repro_torch.configs.ARCHS``); the MLA and MoE archs wait for ROADMAP.md
-step A.13.2.
+and output (and ``--torch-device``): any LM of ``repro_torch.configs.ARCHS``
+(dense GQA, MLA, mixture-of-experts).
 
   PYTHONPATH=src python examples/serve_lm_torch.py [--arch smollm-135m] [--tokens 16] [--torch-device cpu]
 """

@@ -1,25 +1,19 @@
-"""Architecture registry of the port (``--arch <id>``): the two
-mixture-of-experts LMs (deepseek-v2-lite-16b with MLA, mixtral-8x22b with
-a sliding window) and the three dense GQA LMs, in the reference's order.
-The reference's other architectures are named in ``PENDING`` with the
-ROADMAP.md step that ports each; :func:`get` raises ``KeyError`` naming it."""
+"""Architecture registry of the port (``--arch <id>``): the reference's 10
+architectures in its order, the LMs (dense and mixture-of-experts), EGNN
+and the four recsys models.  ``PENDING`` names an architecture that is not
+ported yet with the ROADMAP.md step that ports it (none is left);
+:func:`get` raises ``KeyError`` naming it."""
 
-from . import (deepseek_v2_lite_16b, mixtral_8x22b, smollm_135m,
-               starcoder2_3b, starcoder2_7b)
+from . import (deepseek_v2_lite_16b, dien, din, dlrm_rm2, egnn, mixtral_8x22b,
+               smollm_135m, starcoder2_3b, starcoder2_7b, wide_deep)
 
 ARCHS = {
     m.ARCH.arch_id: m.ARCH
     for m in (deepseek_v2_lite_16b, mixtral_8x22b, starcoder2_3b,
-              starcoder2_7b, smollm_135m)
+              starcoder2_7b, smollm_135m, egnn, din, wide_deep, dlrm_rm2, dien)
 }
 
-PENDING = {
-    "egnn": "EGNN serving (ROADMAP.md, step A.13.3)",
-    "din": "recsys serving (ROADMAP.md, step A.13.3)",
-    "dien": "recsys serving (ROADMAP.md, step A.13.3)",
-    "wide-deep": "recsys serving (ROADMAP.md, step A.13.3)",
-    "dlrm-rm2": "recsys serving (ROADMAP.md, step A.13.3)",
-}
+PENDING: dict = {}
 
 
 def get(arch_id: str):
@@ -30,7 +24,7 @@ def get(arch_id: str):
 
 
 def all_cells(include_skipped: bool = True):
-    """Yield (arch_id, shape_name, cell) for the ported architectures."""
+    """Yield (arch_id, shape_name, cell) for the full 40-cell matrix."""
     for aid, spec in ARCHS.items():
         for sname, cell in spec.shapes.items():
             if not include_skipped and cell.skip_reason:

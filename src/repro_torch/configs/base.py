@@ -16,6 +16,7 @@ from typing import Any, Callable, Optional
 import torch
 
 I32 = torch.int32
+F32 = torch.float32
 
 
 def sds(shape, dtype) -> torch.Tensor:
@@ -107,13 +108,69 @@ def lm_step_fn(cfg, cell: ShapeCell, opt_cfg=None):
 
 
 def gnn_step_fn(cfg, cell: ShapeCell, opt_cfg=None):
+    """Every EGNN cell is a ``train`` cell: its step (gradient and AdamW)
+    waits for the training slice.  ``models.egnn`` serves the forward and
+    the losses' values."""
     raise NotImplementedError(
-        "the EGNN model is not ported yet (ROADMAP.md, step A.13.3)")
+        f"{cell.name}: EGNN has only train cells, and its train step (the "
+        "gradient, AdamW, the trainer) is not ported yet (ROADMAP.md, step "
+        "A.13.4)")
 
 
 def recsys_step_fn(cfg, cell: ShapeCell, opt_cfg=None):
-    raise NotImplementedError(
-        "the recsys models are not ported yet (ROADMAP.md, step A.13.3)")
+    """(step(model, batch), is_train) of a recsys cell: ``serve`` cells
+    give probabilities, ``retrieval`` cells the top 100 (scores, ids).  A
+    ``train`` cell raises until training is ported."""
+    from ..models import recsys as R
+    if cell.kind == "train":
+        raise NotImplementedError(
+            f"{cell.name}: recsys training (the gradient, AdamW, the "
+            "trainer) is not ported yet (ROADMAP.md, step A.13.4)")
+    if cell.kind == "retrieval":
+        def retr(model, batch):
+            return R.retrieval_topk(model, batch, k=100)
+        return retr, False
+
+    def serve_fn(model, batch):
+        return R.serve(model, batch)
+    return serve_fn, False
 
 
 STEP_FNS = {"lm": lm_step_fn, "gnn": gnn_step_fn, "recsys": recsys_step_fn}
+
+
+# --------------------------------------------------------------------------- #
+# recsys shared shapes/specs
+# --------------------------------------------------------------------------- #
+
+RECSYS_SHAPES = {
+    "train_batch": ShapeCell("train_batch", "train", {"batch": 65536}),
+    "serve_p99": ShapeCell("serve_p99", "serve", {"batch": 512}),
+    "serve_bulk": ShapeCell("serve_bulk", "serve", {"batch": 262144}),
+    "retrieval_cand": ShapeCell("retrieval_cand", "retrieval",
+                                {"batch": 1, "n_candidates": 1_000_000}),
+}
+
+
+def recsys_input_specs(cfg, cell: ShapeCell) -> dict:
+    b = cell.dims["batch"]
+    if cfg.model in ("dlrm", "wide_deep"):
+        specs = {"sparse": sds((b, cfg.n_sparse), I32)}
+        if cfg.model == "dlrm":
+            specs["dense"] = sds((b, cfg.n_dense), F32)
+    else:
+        specs = {
+            "target_item": sds((b,), I32), "target_cate": sds((b,), I32),
+            "hist_items": sds((b, cfg.seq_len), I32),
+            "hist_cates": sds((b, cfg.seq_len), I32),
+            "hist_len": sds((b,), I32),
+            "profile": sds((b, cfg.n_profile), I32),
+        }
+    if cell.kind == "train":
+        specs["label"] = sds((b,), I32)
+    if cell.kind == "retrieval":
+        c = cell.dims["n_candidates"]
+        specs["cand_items"] = sds((c,), I32)
+        if cfg.model in ("din", "dien"):
+            specs["cand_cates"] = sds((c,), I32)
+    return specs

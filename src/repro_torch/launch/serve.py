@@ -1,21 +1,26 @@
 """Serving launcher of the port, on the card unless asked for the CPU:
-LM prefill + batched greedy decode (``--arch``), or the latency-governed
-index serving loop (``--index``: async admission + dynamic batching over
-the ``QueryEngine``, see ``repro_torch.index.serve``).
+LM prefill + batched greedy decode, batched recsys scoring / retrieval
+(``--arch``), or the latency-governed index serving loop (``--index``:
+async admission + dynamic batching over the ``QueryEngine``, see
+``repro_torch.index.serve``).
 
   python -m repro_torch.launch.serve --arch smollm-135m --smoke --tokens 8
   python -m repro_torch.launch.serve --arch smollm-135m --smoke --torch-device cpu
   python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --smoke --torch-device cpu
   python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke
+  python -m repro_torch.launch.serve --arch din --shape serve_p99 --smoke --torch-device cpu
+  python -m repro_torch.launch.serve --arch dien --shape retrieval_cand --smoke
   python -m repro_torch.launch.serve --index --smoke
   python -m repro_torch.launch.serve --index --rate 300 --requests 512 --placement device
 
 Counterpart of the JAX package's ``launch/serve.py``.  ``--arch`` serves
-the ported LMs, dense and mixture-of-experts (``repro_torch.configs.ARCHS``);
-the reference's other architectures raise, naming the ROADMAP.md step that
-ports them (recsys and EGNN: A.13.3).  The reference's ``--shape`` and ``--multi-pod`` pick a
-sharding plan and mesh, and wait for the sharding slice (A.13.5): the LM
-runs the first serving cell's config on one device.
+every architecture with a serving cell (``repro_torch.configs.ARCHS``):
+the LMs and the four recsys models.  EGNN has only train cells and raises,
+naming the training slice (ROADMAP.md, step A.13.4); the reference fails
+there too (an ``IndexError`` without ``--shape``, an ``AttributeError``
+with one).  ``--shape`` picks the cell (default: the arch's first serving
+cell); as in the reference it picks no plan or mesh until the sharding
+slice (A.13.5), and ``--multi-pod`` waits for it.
 """
 
 from __future__ import annotations
@@ -100,21 +105,16 @@ def serve_index(args) -> None:
         print("index serve smoke ok")
 
 
-def serve_lm(args) -> None:
+def serve_lm(args, spec, cell) -> None:
     """Prefill a batch of seeded prompts, then batched greedy decode against
     the KV cache, as the reference's LM branch does; prints its line."""
     import torch
 
-    from .. import configs
     from ..index.device import resolve_device
     from ..models import transformer
 
-    spec = configs.get(args.arch)
-    serve_cells = [c for c in spec.shapes.values()
-                   if c.kind in ("prefill", "decode", "serve", "retrieval")]
     cfg = spec.config_for_cell(
-        spec.make_smoke_config() if args.smoke else spec.make_config(),
-        serve_cells[0])
+        spec.make_smoke_config() if args.smoke else spec.make_config(), cell)
     dev = resolve_device(args.torch_device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -137,14 +137,46 @@ def serve_lm(args) -> None:
     print(f"decoded {args.tokens} steps x batch {b} in {(time.perf_counter()-t0)*1e3:.1f} ms")
 
 
+def serve_recsys(args, spec, cell) -> None:
+    """One step of a recsys cell (``serve``: probabilities; ``retrieval``:
+    the top 100) on a seeded batch, as the reference's recsys branch runs
+    it; prints its line."""
+    import torch
+
+    from ..configs.base import STEP_FNS
+    from ..index.device import resolve_device
+    from ..models import recsys
+    from .batches import smoke_batch
+
+    cfg = spec.config_for_cell(
+        spec.make_smoke_config() if args.smoke else spec.make_config(), cell)
+    dev = resolve_device(args.torch_device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = recsys.init(cfg, gen)
+    step_fn, _ = STEP_FNS["recsys"](cfg, cell, None)
+    # the reference's module-global generator, seeded 11, at its first draw
+    batch = smoke_batch(spec, cfg, cell, np.random.default_rng(11), dev)
+    if cell.kind == "retrieval":
+        batch = {k: (v[:1] if not k.startswith("cand_") else v) for k, v in batch.items()}
+    out = step_fn(model, batch)
+    out0 = out[0] if isinstance(out, tuple) else out
+    print(f"{cell.name}: output {tuple(out0.shape)} ok")
+
+
 def main(argv=None) -> None:
     from .. import configs
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
                     choices=sorted(set(configs.ARCHS) | set(configs.PENDING)),
-                    help="serve a model arch (the LMs are ported; the "
-                         "others raise, naming their ROADMAP.md step)")
+                    help="serve a model arch: the LMs and the recsys models "
+                         "(egnn has only train cells and raises, naming "
+                         "ROADMAP.md step A.13.4)")
+    ap.add_argument("--shape", default=None,
+                    help="the arch's cell to serve (default: its first "
+                         "serving cell), e.g. serve_p99, serve_bulk, "
+                         "retrieval_cand")
     ap.add_argument("--index", action="store_true",
                     help="serve the inverted index (async admission + "
                          "dynamic batching)")
@@ -181,7 +213,21 @@ def main(argv=None) -> None:
         return
     if args.arch is None:
         ap.error("either --arch or --index is required")
-    serve_lm(args)
+    spec = configs.get(args.arch)
+    serve_cells = [c for c in spec.shapes.values()
+                   if c.kind in ("prefill", "decode", "serve", "retrieval")]
+    if not serve_cells:
+        raise NotImplementedError(
+            f"{args.arch}: has only train cells ({', '.join(spec.shapes)}); "
+            "its train step waits for the training slice (ROADMAP.md, step "
+            "A.13.4)")
+    if args.shape is not None and args.shape not in spec.shapes:
+        ap.error(f"--shape {args.shape}: {args.arch} has {sorted(spec.shapes)}")
+    cell = spec.shapes[args.shape] if args.shape else serve_cells[0]
+    if spec.family == "lm":
+        serve_lm(args, spec, cell)
+    else:
+        serve_recsys(args, spec, cell)
 
 
 if __name__ == "__main__":

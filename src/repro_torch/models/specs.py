@@ -10,7 +10,10 @@ tensors for leaves.
 leaf in the order of a fixed walk (keys sorted at every level, as
 ``jax.tree.flatten`` orders a dict).  It cannot give ``jax.random``'s
 numbers; a test carries the reference's weights across instead
-(``transformer.load_reference_params``).
+(:func:`load_reference_params`, which each model module re-exports).
+
+A model is a :class:`_Tree` subclass holding its config: the parameter
+tree as an ``nn.Module`` under the reference's names.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,3 +96,58 @@ def stack_layers(specs, n_layers: int) -> Any:
 
 def count_params(specs) -> int:
     return int(sum(np.prod(s.shape) for s in tree_leaves(specs)))
+
+
+class _Tree(nn.Module):
+    """A nested dict of tensors held as a module: each dict key names a
+    submodule or a parameter, so ``named_parameters()`` gives the
+    reference's tree paths joined by dots (``dense_layers.attn.wq``)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> dict:
+        """The parameters as the reference's nested dict (no copies)."""
+        out = {k: m.tree() for k, m in self.named_children()}
+        out.update(self.named_parameters(recurse=False))
+        return out
+
+
+def load_tree(dst: dict, src, path: str = "") -> None:
+    """Copy the reference's parameter tree, given as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), into the tensors of ``dst`` (a
+    model's ``tree()``) on their device.  Every leaf's path, shape and
+    dtype must match; a missing or an extra leaf raises."""
+    if not isinstance(src, dict):
+        raise TypeError(f"{path or 'root'}: expected a dict, got {type(src)}")
+    missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
+    if missing or extra:
+        raise KeyError(f"{path or 'root'}: missing leaves {missing}, extra "
+                       f"leaves {extra}")
+    for k in sorted(dst):
+        d, name = dst[k], f"{path}{k}"
+        if isinstance(d, dict):
+            load_tree(d, src[k], name + ".")
+            continue
+        a = np.array(src[k])
+        if tuple(a.shape) != tuple(d.shape):
+            raise ValueError(f"{name}: shape {a.shape}, model {tuple(d.shape)}")
+        want = str(d.dtype).removeprefix("torch.")
+        if a.dtype.name != want:
+            raise TypeError(f"{name}: dtype {a.dtype.name}, model {want}")
+        t = (torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+             if want == "bfloat16" else torch.from_numpy(a))
+        d.copy_(t)
+
+
+def load_reference_params(model: _Tree, tree: dict) -> None:
+    """Copy the reference's ``init(...)`` tree, given as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), into ``model`` on the model's
+    device (:func:`load_tree`: every leaf must match)."""
+    load_tree(model.tree(), tree)

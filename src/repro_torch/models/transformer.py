@@ -35,14 +35,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-import numpy as np
 import torch
-from torch import nn
 
 from . import attention as attn_lib
 from . import moe as moe_lib
 from .common import apply_rope, rmsnorm
-from .specs import P, abstract_params, axes_tree, init_params, stack_layers, tree_map
+from .specs import (P, _Tree, abstract_params, axes_tree, init_params,
+                    load_reference_params,  # noqa: F401  (the model's)
+                    stack_layers, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,27 +168,6 @@ def param_specs(cfg: LMConfig) -> dict:
     return specs
 
 
-class _Tree(nn.Module):
-    """A nested dict of tensors held as a module: each dict key names a
-    submodule or a parameter, so ``named_parameters()`` gives the
-    reference's tree paths joined by dots (``dense_layers.attn.wq``)."""
-
-    def __init__(self, tree: dict):
-        super().__init__()
-        for k in sorted(tree):
-            v = tree[k]
-            if isinstance(v, dict):
-                self.add_module(k, _Tree(v))
-            else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
-
-    def tree(self) -> dict:
-        """The parameters as the reference's nested dict (no copies)."""
-        out = {k: m.tree() for k, m in self.named_children()}
-        out.update(self.named_parameters(recurse=False))
-        return out
-
-
 class LM(_Tree):
     """The LM's parameters (``embed``, ``final_norm``, ``dense_layers``
     and, with experts, ``moe_layers``) and its config.  Build one with
@@ -211,37 +190,6 @@ def abstract(cfg: LMConfig) -> dict:
 
 def axes(cfg: LMConfig) -> dict:
     return axes_tree(param_specs(cfg))
-
-
-def load_reference_params(model: LM, tree: dict) -> None:
-    """Copy the reference's ``T.init(...)`` tree, given as numpy arrays
-    (``jax.tree.map(np.asarray, params)``), into ``model`` on the model's
-    device.  Every leaf's path, shape and dtype must match; a missing or an
-    extra leaf raises."""
-    _load_tree(model.tree(), tree, "")
-
-
-def _load_tree(dst: dict, src, path: str) -> None:
-    if not isinstance(src, dict):
-        raise TypeError(f"{path or 'root'}: expected a dict, got {type(src)}")
-    missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
-    if missing or extra:
-        raise KeyError(f"{path or 'root'}: missing leaves {missing}, extra "
-                       f"leaves {extra}")
-    for k in sorted(dst):
-        d, name = dst[k], f"{path}{k}"
-        if isinstance(d, dict):
-            _load_tree(d, src[k], name + ".")
-            continue
-        a = np.array(src[k])
-        if tuple(a.shape) != tuple(d.shape):
-            raise ValueError(f"{name}: shape {a.shape}, model {tuple(d.shape)}")
-        want = str(d.dtype).removeprefix("torch.")
-        if a.dtype.name != want:
-            raise TypeError(f"{name}: dtype {a.dtype.name}, model {want}")
-        t = (torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-             if want == "bfloat16" else torch.from_numpy(a))
-        d.copy_(t)
 
 
 # --------------------------------------------------------------------------- #

@@ -158,10 +158,16 @@ def test_port_imports_without_jax():
         "import repro_torch.configs.starcoder2_7b\n"
         "import repro_torch.configs.deepseek_v2_lite_16b\n"
         "import repro_torch.configs.mixtral_8x22b\n"
+        "import repro_torch.configs.din, repro_torch.configs.dien\n"
+        "import repro_torch.configs.dlrm_rm2, repro_torch.configs.wide_deep\n"
+        "import repro_torch.configs.egnn\n"
+        "import repro_torch.models.embedding, repro_torch.models.recsys\n"
+        "import repro_torch.models.egnn, repro_torch.models.sampler\n"
+        "import repro_torch.launch.batches, repro_torch.launch.serve\n"
         "import repro_torch.core.dgap, repro_torch.core.layout\n"
         "import repro_torch.core.group_simple\n"
         "from repro_torch import configs\n"
-        "assert len(configs.ARCHS) == 5\n"
+        "assert len(configs.ARCHS) == 10 and not configs.PENDING\n"
         "from repro_torch.obs import regress, run_gate\n"
         "from repro_torch.core import codec\n"
         "assert len(codec.names()) == 31\n"

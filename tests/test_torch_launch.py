@@ -3,8 +3,9 @@
 reference's ``launch/serve.py``) and the three examples of this slice,
 ``examples/quickstart_torch.py``, ``serve_quickstart_torch.py`` and
 ``serve_lm_torch.py``, each with ``--torch-device cpu``; the MoE archs
-(deepseek-v2-lite-16b, mixtral-8x22b) print the reference's line too; the
-archs that wait name their ROADMAP.md step; the default device is the
+(deepseek-v2-lite-16b, mixtral-8x22b) print the reference's line too, and
+so do the recsys archs on each serving cell (``--shape``); EGNN, which
+has only train cells, names its ROADMAP.md step; the default device is the
 card."""
 
 import os
@@ -44,13 +45,45 @@ def test_launch_serve_arch_in_process(arch, capsys):
                      capsys.readouterr().out, re.M)
 
 
-def test_launch_serve_names_the_step_of_what_waits():
-    with pytest.raises(KeyError, match="A.13.3"):
-        serve.main(["--arch", "din", "--smoke", "--torch-device", "cpu"])
-    with pytest.raises(KeyError, match="A.13.3"):
+def test_launch_serve_names_the_step_of_what_waits(capsys):
+    """``--arch din`` serves and prints the reference's line; EGNN has only
+    train cells and raises, naming the training slice, with ``--shape`` or
+    without (the reference fails there with an IndexError or an
+    AttributeError)."""
+    serve.main(["--arch", "din", "--smoke", "--torch-device", "cpu"])
+    assert capsys.readouterr().out.strip().endswith("serve_p99: output (8,) ok")
+    with pytest.raises(NotImplementedError, match="A.13.4"):
         serve.main(["--arch", "egnn", "--smoke", "--torch-device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A.13.4"):
+        serve.main(["--arch", "egnn", "--shape", "molecule", "--smoke",
+                    "--torch-device", "cpu"])
     with pytest.raises(SystemExit):        # neither --arch nor --index
         serve.main(["--smoke"])
+    with pytest.raises(SystemExit):        # a cell the arch does not have
+        serve.main(["--arch", "din", "--shape", "decode_32k", "--smoke",
+                    "--torch-device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["din", "dien", "wide-deep", "dlrm-rm2"])
+@pytest.mark.parametrize("shape,out", [("serve_p99", 8), ("serve_bulk", 8),
+                                       ("retrieval_cand", 64)])
+def test_launch_serve_recsys_cells_on_cpu(arch, shape, out, capsys):
+    """Each recsys arch and serving cell prints the reference's line
+    (``<cell>: output (...) ok``); a train cell names training."""
+    serve.main(["--arch", arch, "--shape", shape, "--smoke",
+                "--torch-device", "cpu"])
+    assert capsys.readouterr().out.strip() == f"{shape}: output ({out},) ok"
+    if shape == "serve_p99":
+        with pytest.raises(NotImplementedError, match="A.13.4"):
+            serve.main(["--arch", arch, "--shape", "train_batch", "--smoke",
+                        "--torch-device", "cpu"])
+
+
+def test_launch_serve_recsys_in_a_subprocess():
+    out = _run(["-m", "repro_torch.launch.serve", "--arch", "dien", "--shape",
+                "retrieval_cand", "--smoke", "--torch-device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "retrieval_cand: output (64,) ok"
 
 
 def test_launch_serve_defaults_to_the_card():
@@ -66,6 +99,13 @@ def test_launch_serve_moe_defaults_to_the_card(arch):
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", arch, "--smoke"])
+
+
+def test_launch_serve_recsys_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "din", "--shape", "serve_p99", "--smoke"])
 
 
 @pytest.mark.parametrize("script,expect", [

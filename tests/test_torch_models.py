@@ -468,29 +468,35 @@ def test_step_fns_serve_and_name_what_waits():
     assert out.shape == (2, cfg.vocab)
     with pytest.raises(NotImplementedError, match="A.13.4"):
         base.STEP_FNS["lm"](cfg, base.LM_SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="A.13.3"):
-        base.STEP_FNS["recsys"](cfg, base.LM_SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="A.13.3"):
-        base.STEP_FNS["gnn"](cfg, base.LM_SHAPES["train_4k"])
+    # recsys serves (tests/test_torch_recsys.py); the train cells of recsys
+    # and EGNN (all of EGNN's) name the training slice
+    rcfg = configs.get("din").make_smoke_config()
+    fn, is_train = base.STEP_FNS["recsys"](rcfg, base.RECSYS_SHAPES["serve_p99"])
+    assert not is_train and callable(fn)
+    with pytest.raises(NotImplementedError, match="A.13.4"):
+        base.STEP_FNS["recsys"](rcfg, base.RECSYS_SHAPES["train_batch"])
+    gspec = configs.get("egnn")
+    for cell in gspec.shapes.values():
+        with pytest.raises(NotImplementedError, match="A.13.4"):
+            base.STEP_FNS["gnn"](gspec.make_smoke_config(), cell)
 
 
 def test_registry_holds_the_dense_archs_and_names_the_rest():
-    """The five LMs (dense and MoE) are ported, in the reference's order;
-    the recsys and EGNN archs name step A.13.3; the cells are the
-    reference's over the ported archs."""
-    lms = [a for a in ref_configs.ARCHS if ref_configs.ARCHS[a].family == "lm"]
-    assert list(configs.ARCHS) == lms and len(lms) == 5
-    assert sorted(set(configs.ARCHS) | set(configs.PENDING)) == sorted(ref_configs.ARCHS)
-    assert sorted(configs.PENDING) == ["dien", "din", "dlrm-rm2", "egnn", "wide-deep"]
-    for aid in configs.PENDING:
-        with pytest.raises(KeyError, match="A.13.3"):
-            configs.get(aid)
+    """Every architecture of the reference is ported, in its order (the
+    LMs, EGNN and the four recsys models); nothing is pending; the cells
+    are the reference's 40, 37 of them not skipped."""
+    assert list(configs.ARCHS) == list(ref_configs.ARCHS) and len(configs.ARCHS) == 10
+    assert configs.PENDING == {}
+    for aid, spec in configs.ARCHS.items():
+        assert configs.get(aid) is spec
+        assert spec.family == ref_configs.ARCHS[aid].family
     for skipped in (True, False):
-        want = [(a, n) for a, n, _ in ref_configs.all_cells(include_skipped=skipped)
-                if a in configs.ARCHS]
-        assert [(a, n) for a, n, _ in configs.all_cells(include_skipped=skipped)] == want
-    assert len(list(configs.all_cells())) == 20
-    assert len(list(configs.all_cells(include_skipped=False))) == 17
+        want = [(a, n, dataclasses.asdict(c))
+                for a, n, c in ref_configs.all_cells(include_skipped=skipped)]
+        assert [(a, n, dataclasses.asdict(c))
+                for a, n, c in configs.all_cells(include_skipped=skipped)] == want
+    assert len(list(configs.all_cells())) == 40
+    assert len(list(configs.all_cells(include_skipped=False))) == 37
 
 
 def test_moe_config_raises_naming_its_step():
