@@ -12,13 +12,16 @@ TREC GOV2 collection; the examples, the one-shot query shims and LM
 serving (smollm-135m and starcoder2-3b dense, deepseek-v2-lite-16b and
 mixtral-8x22b mixture-of-experts, at their published widths, prompts from
 the compressed token store); recsys serving (dlrm-rm2, wide-deep, din,
-dien) and the EGNN forward on its four graph regimes, at full width; and
-holds every CUDA kernel of the paths against its plain torch version on
-the card:
+dien) and the EGNN forward on its four graph regimes, at full width;
+training (smollm-135m, the four recsys archs and EGNN taking train steps
+at full width, checkpoints, crash and resume, the compressed gradient
+all-reduce); and holds every CUDA kernel of the paths against its plain
+torch version on the card:
 
   card       the card, its power limit, torch / CUDA / nvcc versions
   build      nvcc builds every kernels/csrc/*.cu and tools/and_round_forms.cu
-             (one process per source)
+             (one process per source), in threads beside the main path's
+             corpus and index build; joined before the index goes to the card
   main path  GOV2-statistics corpus (synth's Zipf formula, 200 terms) at
              25,205,179 docs; InvertedIndex.build; QueryEngine.to_device(
              fused=True); one batch of 256 AND queries to warm up, then a
@@ -55,8 +58,8 @@ the card:
              ranked path, in front of a fresh engine over the main path's
              generation (its arenas and score arena, cached on the
              generation, reused; ``to_device`` timed): a seeded open-loop
-             Poisson stream at 20 requests/s of the main path's 256 fresh
-             ``and`` queries and 64 of its fresh ``or`` queries (k=10),
+             Poisson stream at 20 requests/s of 128 of the main path's
+             fresh ``and`` queries and 32 of its fresh ``or`` queries (k=10),
              shuffled, each with a 60,000 ms deadline, counts set to 0
              after the warm-up; shed_rate == 0, every served result equal
              to the main path's, the ``serve/*`` spans present, B1, B2, B2
@@ -67,7 +70,7 @@ the card:
   mutation   on the same index, a fresh engine (fused placement) per
              generation.  Tombstone-only epoch: 1 % of the docs deleted (a
              permutation from --seed), then one fresh batch of each mode
-             (256 queries, k=10), the first ``_df_live`` pass timed inside
+             (64 queries, k=10), the first ``_df_live`` pass timed inside
              the ``and`` batch; the ``and`` and ``or`` batches again under
              the fenced span tracer (``and/tomb_gate``,
              ``ranked/tomb_gate``), the ``or`` repeat leaving its largest
@@ -75,12 +78,12 @@ the card:
              the dead-docid test (``np.isin`` beside ``dead_hits``) timed.
              Delta epoch: 4,096 fresh docs past the doc space and 1,024
              base docs upserted (8 of the 120 most frequent terms each, tf
-             1-4, the mean doclen), then ``and`` and ``and_scored`` (256)
-             and ``or`` (32: with the theta cut disarmed every member doc
+             1-4, the mean doclen), then ``and`` and ``and_scored`` (64)
+             and ``or`` (16: with the theta cut disarmed every member doc
              is a candidate for the host rescore).  Then a 16-query ``and``
              plan pinned, ``compact()`` timed (the pause), the pinned plan
              served across the swap, the old engine freed, the new
-             generation put on the card and ``and`` and ``or`` (256) served.
+             generation put on the card and ``and`` and ``or`` (64) served.
              Every result equals a numpy oracle over the live postings
              (BM25 with live df, the doc space, the live doclen mean; the
              ``or`` oracles computed by the ranked path's 4 worker
@@ -103,13 +106,18 @@ the card:
              unmutated generation is kept on the host only, for the
              sharded and examples phases):
              ``InvertedIndex.build(..., codec="group_pfd")`` on the same
-             postings (in a spawned worker process, which makes the corpus
-             from --seed and builds from the main path's start on; timed
-             there, and the wait for it here; blocks with exceptions
+             postings (in the spawned build worker, which makes the
+             corpus from --seed and builds from the main path's start on,
+             its first job; timed there, and the wait for it here; blocks
+             with exceptions
              counted, > 0), then
-             ``QueryEngine(idx).to_device(fused=True)`` and
-             ``ensure_scores()`` (each timed) serving the main
-             path's own fresh batches (256 queries), ``and``, ``or`` and
+             ``QueryEngine(idx).to_device(fused=True)`` (timed) with the
+             score arena ``ensure_scores()`` builds made by the worker on
+             the host after the index (``ScoreArena.from_index(device=
+             "cpu")``, its seconds printed) and its two tensors moved to
+             the card (timed), serving the main
+             path's own fresh batches (their first 128 queries), ``and``,
+             ``or`` and
              ``and_scored`` (k=10) on the ``device`` placement, then ``and``
              on the ``fused`` one, counts set to 0 just before each; every
              result equals the oracle the main path computed for that
@@ -134,13 +142,17 @@ the card:
              then ``QueryEngine(...).to_device(fused=True, shards=4,
              mesh=serving_mesh(4))`` (one card a shard where the machine
              has 4, else logical shards on one card; printed), timed with
-             ``shard_generation``, the shards' arenas and ``ensure_scores``
-             apart.  The main path's fresh batches (256 queries) in ``and``,
+             the shards' arenas and ``ensure_scores`` apart.  The shard
+             generations (``shard_generation``, host work) are the
+             build worker's second job, from the same corpus and index
+             made from --seed (its bounds equal ``derive``'s; its build
+             seconds and the wait printed).  The main path's fresh
+             batches (their first 128 queries) in ``and``,
              ``or`` and ``and_scored`` (k=10) on ``fused`` and ``and`` on
              ``device``, counts set to 0 just before each: every result
              equal to the main path's (its numpy oracles); on the shard
              engines cand_syncs == score_syncs == 0; merge_syncs == 1 and
-             collective_bytes == shards x 256 x 8 a ranked batch (0 for
+             collective_bytes == shards x 128 x 8 a ranked batch (0 for
              ``and``), shard_final_syncs == the non-empty shards a batch;
              B1 (fused), B2, and for the ranked batches B2 add, B3 and B4
              (where dense blocks scored) launched.  The traced batches of
@@ -154,11 +166,14 @@ the card:
              path's.  Then ``examples/quickstart_torch.py``, ``examples/
              serve_quickstart_torch.py`` and ``python -m
              repro_torch.launch.serve --arch smollm-135m --tokens 8`` (the
-             full config), subprocesses on the card started together at
-             the start of the sharded phase (its shard build is host work
-             of this process alone), collected: each exits 0 and prints
-             its result line, and the quickstart's own launch counts show
-             B2, B3, B6 and B7a (B4 printed, launched or not).
+             full config), ``python -m repro_torch.launch.train --arch
+             smollm-135m --smoke --steps 4`` and ``examples/
+             train_lm_torch.py --steps 20``, subprocesses on the card
+             started together at the start of the sharded phase,
+             collected: each exits 0 and prints its result line (the
+             reference's ``final loss``; the example's loss decreased),
+             and the quickstart's own launch counts show B2, B3, B6 and
+             B7a (B4 printed, launched or not).
   kernels    B1 (every bit-width bucket), B5, B2 (both forms), B3, B4 and
              B6-B10 on inputs made from --seed at the largest shape any main
              path gave each kernel (B1 probed against a random bitmap and
@@ -187,7 +202,8 @@ the card:
              wraps past 2**32, a ragged row count, 1,001 tiles with a
              ragged end (more than the card holds at once) and two calls
              queued back to back on inputs of one shape.  CUDA-event times
-             (median of 30 after warm-up, each call queued behind a spin of
+             (median of 30 after warm-up, of 10 for the plain versions and
+             library calls, each call queued behind a spin of
              the card so the events bracket device work, not the host's
              enqueue) of kernel, plain version and the library call where
              one computes the same function (``index_put_(accumulate=True)``
@@ -249,7 +265,7 @@ the card:
              din, dien): ``serve_p99`` (512 rows), ``serve_bulk``
              (262,144) and ``retrieval_cand`` (10**6 candidates, top 100)
              through ``STEP_FNS["recsys"]`` on ``cell_batch``'s uniform ids
-             (numpy, from --seed); median ms of 10 calls after a warm-up
+             (numpy, from --seed); median ms of 5 calls after a warm-up
              (host clock to a synchronize), rows or candidates/s, peak
              memory.  Checks: probabilities in [0, 1], every output
              finite; the same weights on the host CPU give ``serve_p99``'s
@@ -260,8 +276,8 @@ the card:
              on ``full_graph_sm``, ``molecule``, ``ogb_products`` (2.45 M
              nodes, 61.9 M edges) and ``minibatch_lg`` (1,024 seeds at
              fanout 15-10 sampled from ``CSRGraph.random(232,965,
-             114,615,892)``, built by a spawned worker from the smoke's
-             start on, padded to 170,496 nodes): ``forward`` (median of 5
+             114,615,892)``, the build worker's third job, padded to
+             170,496 nodes): ``forward`` (median of 3
              after a warm-up, edges/s, peak memory) and ``loss_fn``'s value.
              Checks: finite; ``full_graph_sm`` and ``molecule`` on the host
              CPU give ``h`` within 1e-4 of max |h| and the loss within 1e-4
@@ -270,6 +286,59 @@ the card:
              |h|; the subgraph's invariants (1,024 seeds, every valid
              edge's source in its destination's CSR row, padding edges at
              the sentinel).
+  train      last, its tensors freed; fp32 weights, TF32 off; no kernel of
+             the B line (the training path has no Pallas site: every
+             launch count 0 from just before the phase to its end).
+             smollm-135m (``make_config()``, 30 layers, bf16 activations)
+             on ``train_4k`` cut to 4 x 4,096 tokens from a bp128
+             ``TokenStore`` of 4,194,304 Zipf(1.1) ids through
+             ``lm_batch_iter``: ``train_loop.run`` with ``make_train_step``
+             (AdamW, lr 3e-3, no warm-up), one warm-up step and 4 timed
+             (host clock to a synchronize); tokens/s, median ms, peak
+             memory; one more step under ``torch.profiler`` (busy share,
+             the 8 kernels of most device time).  Checks: every loss and
+             gradient norm finite; one full-size checkpoint (params, m,
+             v) saved (timed), restored and bitwise equal; on the first 2
+             layers at full width, the losses of an uninterrupted run of
+             5 steps fall, the last below the first (``test_system``'s
+             rule: at 30 layers the reference's init of the attention
+             projections makes the gradient norm about 1e14 and the loss
+             chaotic, ROADMAP.md §C), and a run crashed at step 3 of 5
+             and resumed from its step-2 checkpoint equals it bitwise
+             (params, AdamW state, losses); one
+             step of 1 x 128 on the card within 2e-2 of the host CPU's
+             (bf16 activations): the loss relative, and each
+             gradient leaf of its max |g| with the attention projections
+             rescaled to 1/sqrt of their fan-in (the reference's init
+             draws them at 1/sqrt(heads): scores in the hundreds, and wq
+             and wk's gradients come from the few near-tied scores, which
+             round-off flips; at that init the gradient errors are
+             printed).  Then
+             ``compressed_allreduce_flat`` of smollm's flat gradient
+             (134,515,008 floats, one real gradient per rank, each of a
+             128-token sequence, 8 logical ranks), int8 and int4 timed, every rank's output equal, int8
+             within 0.05 of max |exact mean|; wire bytes a rank.  The four
+             recsys archs (``make_config()``) on ``train_batch`` (65,536
+             rows of ``cell_batch``): one warm-up step and 3 timed, ms,
+             rows/s, peak; on 4,096 rows against the host CPU: the loss
+             within 1e-4 relative, then loss and gradients with fp64
+             weights and activations (dlrm-rm2's and wide-deep's tables
+             cut to the rows those 4,096 read, ids renumbered: the same
+             function) within 1e-4 (each leaf of the larger
+             of its max |g| and 1e-3 of the largest |g| of any leaf:
+             dien's score bias before its softmax has a zero gradient).
+             In fp32 a ReLU input within round-off of 0 takes the other
+             side on one of the two, and a table row's gradient, one
+             row's term, moves by a whole (1.7e-2 of dlrm-rm2's tables'
+             max in one run).  Compressed data
+             parallelism: din at full width, 8 logical ranks of 8,192
+             rows (the example's batches), ``bits`` None, 8 and 4, 4 steps
+             each: the three loss trajectories, ms a step, wire bytes a
+             rank.  EGNN on its four regimes (the recsys_gnn phase's
+             batches and subgraph): one warm-up step and 2 timed, ms,
+             edges/s, peak (ogb_products below 40 GiB); full_graph_sm's
+             loss and gradients against the host CPU (1e-4 relative,
+             1e-3).
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed phase raises and the script exits nonzero without that
@@ -298,6 +367,7 @@ import time
 GOV2_DOCS = 25_205_179          # documents in the TREC GOV2 collection
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 TIMED_RUNS = 30
+PLAIN_RUNS = 10                 # the slow plain versions and library calls
 SPIN_CYCLES = 2_000_000         # about 1 ms of the card's clock
 DECODE_RUNS = 5                 # whole-corpus decode passes timed per form
 QUERIES = 256                   # queries per batch on the main paths
@@ -306,15 +376,17 @@ RANKED_K = 10                   # top-k of the ranked batches
 QUERY_TERMS = 120               # queries draw from the most frequent terms
 MUT_INSERTS = 4096              # fresh docs past the doc space (delta epoch)
 MUT_UPSERTS = 1024              # base docs re-inserted (delta epoch)
-MUT_OR_QUERIES = 32             # the delta epoch's disarmed `or` batch
+MUT_QUERIES = 64                # queries a mutation-epoch batch (cut)
+MUT_OR_QUERIES = 16             # the delta epoch's disarmed `or` batch (cut)
+REPLAY_QUERIES = 128            # codecs, sharded: fresh queries replayed (cut)
 TABLE_STEP = 10                 # decode table: every tenth list by df
 TABLE_RUNS = 5                  # decode table: timed passes (after one)
 SCALAR_QUADS = 1024             # decode table: the scalar decode's input
 ENCODE_WORKERS = 6              # processes encoding the decode table's lists
 ORACLE_WORKERS = 4              # processes computing the ranked `or` oracles
 SHARDS = 4                      # doc-range shards of the sharded phase
-SERVE_AND = 256                 # serve phase: `and` requests of the stream
-SERVE_OR = 64                   # serve phase: `or` (k=10) requests
+SERVE_AND = 128                 # serve phase: `and` requests of the stream
+SERVE_OR = 32                   # serve phase: `or` (k=10) requests
 SERVE_RATE = 20.0               # serve phase: Poisson arrivals per second
 SERVE_DEADLINE_MS = 60_000.0    # serve phase: every request's budget
 SHIM_QUERIES = 8                # examples phase: fresh queries per shim
@@ -339,13 +411,31 @@ LM_ROUTE_WGT_TOL = 1e-6         # ... the routing weights' tolerance
 LM_WINDOW_EXTRA = 64            # lm phase: SWA check prompt = window + 64
 RECSYS_ARCHS = ("dlrm-rm2", "wide-deep", "din", "dien")   # recsys_gnn phase
 RECSYS_CELLS = ("serve_p99", "serve_bulk", "retrieval_cand")
-RECSYS_RUNS = 10                # timed calls a recsys cell (after a warm-up)
+RECSYS_RUNS = 5                 # timed calls a recsys cell (after a warm-up)
 RECSYS_CHECK = 4096             # retrieval candidates held against the CPU
 RECSYS_TOL = 1e-4               # of max |logit|: card vs the CPU path
 EGNN_CELLS = ("full_graph_sm", "molecule", "ogb_products", "minibatch_lg")
-EGNN_RUNS = 5                   # timed EGNN forwards a cell (after a warm-up)
+EGNN_RUNS = 3                   # timed EGNN forwards a cell (after a warm-up)
 EGNN_TOL = 1e-4                 # h of max |h|, losses relative: card vs CPU
 EGNN_INVARIANCE_TOL = 1e-3      # of max |h|: rotated, translated coordinates
+TRAIN_LM = "smollm-135m"        # train phase: the LM, at published widths
+TRAIN_LM_BATCH = 4              # ... sequences a step (train_4k's 256, cut)
+TRAIN_LM_STEPS = 5              # ... one warm-up, then timed steps
+TRAIN_LM_STORE = 1 << 22        # ... token ids in its TokenStore
+TRAIN_CRASH_LAYERS = 2          # crash/resume check: the first 2 layers
+TRAIN_CRASH_AT = 3              # ... a run crashed at step 3 of 5
+TRAIN_LM_CHECK = (1, 128)       # card vs host CPU: one step of 1 x 128
+TRAIN_LM_TOL = 2e-2             # ... loss relative, grads of max |g| (fp32)
+TRAIN_RECSYS_STEPS = 4          # recsys train_batch: one warm-up, 3 timed
+TRAIN_RECSYS_CHECK = 4096       # ... rows held against the host CPU
+TRAIN_RECSYS_TOL = 1e-4         # ... loss relative, grads of max |g|
+TRAIN_EGNN_STEPS = 3            # EGNN: one warm-up, 2 timed
+TRAIN_EGNN_PEAK_GIB = 40.0      # ogb_products' limit
+TRAIN_EGNN_TOL = (1e-4, 1e-3)   # full_graph_sm card vs CPU: loss, grads
+TRAIN_GRAD_FLOOR = 1e-3         # a leaf's bound floor: of the largest |g|
+TRAIN_DP_RANKS = 8              # compressed DP: logical ranks on the card
+TRAIN_DP_STEPS = 4              # ... steps per bits (None, 8, 4)
+TRAIN_DP_ALLREDUCE_TOL = 0.05   # int8 all-reduce: of max |exact mean|
 # examples phase: (name, command, a line its output must hold)
 EXAMPLES = (
     ("quickstart", ["examples/quickstart_torch.py"],
@@ -355,6 +445,11 @@ EXAMPLES = (
     ("launch.serve", ["-m", "repro_torch.launch.serve", "--arch",
                       "smollm-135m", "--tokens", "8"],
      r"(?m)^decoded 8 steps x batch 2 in [0-9.]+ ms$"),
+    ("launch.train", ["-m", "repro_torch.launch.train", "--arch",
+                      "smollm-135m", "--smoke", "--steps", "4"],
+     r"(?m)^final loss \d+\.\d{4}$"),
+    ("train_lm", ["examples/train_lm_torch.py", "--steps", "20"],
+     r"OK: loss decreased on the compressed pipeline"),
 )
 
 
@@ -375,8 +470,8 @@ def run_cmd(cmd: list) -> str:
 # --------------------------------------------------------------------------- #
 
 
-def cuda_ms(fn, torch, primed: bool = True) -> float:
-    """Median CUDA-event time of ``fn()`` over TIMED_RUNS calls, after two
+def cuda_ms(fn, torch, primed: bool = True, runs: int = TIMED_RUNS) -> float:
+    """Median CUDA-event time of ``fn()`` over ``runs`` calls, after two
     warm-up calls.  ``primed``: each call is queued behind a spin of the
     card (``torch.cuda._sleep``, about 1 ms), so the events bracket its
     device work and not the host's time to enqueue it; otherwise the call
@@ -384,7 +479,7 @@ def cuda_ms(fn, torch, primed: bool = True) -> float:
     for _ in range(2):
         fn()
     times = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         if primed:
@@ -411,24 +506,30 @@ def in_turns(fns: dict, torch) -> dict:
 def device_ops(fn, torch) -> dict:
     """Kernels and memsets that one call of ``fn()`` puts on the card,
     counted from a ``torch.profiler`` trace of that call (after one
-    warm-up call).  Raises if the trace holds no kernel."""
+    warm-up call), and the traces taken.  Raises if 3 traces hold no
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ops = {"grid_launches": 0, "memsets": 0}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            if e.key.startswith("Memset"):
-                ops["memsets"] += e.count
-            elif not e.key.startswith("Memcpy"):
-                ops["grid_launches"] += e.count
-    if not ops["grid_launches"]:
-        raise AssertionError("the torch.profiler trace holds no kernel")
-    return ops
+    # a trace can come back without the card's activity (seen once, for
+    # B10's 6 us call right after B8's trace): the call is traced again,
+    # up to 3 times, and counted from the first trace that holds a kernel
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = {"grid_launches": 0, "memsets": 0}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                if e.key.startswith("Memset"):
+                    ops["memsets"] += e.count
+                elif not e.key.startswith("Memcpy"):
+                    ops["grid_launches"] += e.count
+        if ops["grid_launches"]:
+            ops["traces"] = attempt + 1
+            return ops
+    raise AssertionError("3 torch.profiler traces hold no kernel")
 
 
 def max_abs_err(got, want, torch) -> int:
@@ -508,15 +609,49 @@ def _oracle_init(src: str, seed: int, n_docs: int) -> None:
 
 def _pfd_build_task(src: str, seed: int, n_docs: int):
     """Group-PFD build worker: the same corpus as the main process (made
-    from the seed), built with ``codec="group_pfd"``; returns the index
-    and the build's seconds (the codecs phase serves it)."""
+    from the seed), built with ``codec="group_pfd"``, and its generation's
+    score arena built on the host (``ScoreArena.from_index(device="cpu")``,
+    host work alone: its two tensors go to the card in the codecs phase);
+    returns the index, the build's seconds, the score arena and its
+    seconds (the codecs phase serves them)."""
     sys.path.insert(0, src)
     from repro_torch.data import synth
     from repro_torch.index.invindex import InvertedIndex
+    from repro_torch.index.scores import ScoreArena
     doclen, postings = synth.make_corpus("gov2", seed=seed, n_docs=n_docs)
     t0 = time.perf_counter()
     idx = InvertedIndex.build(doclen, postings, codec="group_pfd")
-    return idx, time.perf_counter() - t0
+    build_s = time.perf_counter() - t0
+    del doclen, postings
+    t0 = time.perf_counter()
+    scores = ScoreArena.from_index(idx.gen, device="cpu")
+    return idx, build_s, scores, time.perf_counter() - t0
+
+
+def _shard_build_task(src: str, seed: int, n_docs: int, n_shards: int):
+    """Shard build worker: the main path's corpus (made from the seed) and
+    index, ``ShardSpec.derive`` and ``shard_generation`` of every
+    non-empty range, then each shard's score arena on the host
+    (``ScoreArena.from_index(device="cpu")``; host numpy); returns the
+    bounds, {(lo, hi): shard generation}, the shard build's seconds, the
+    score arenas and their seconds (the sharded phase serves them in
+    place of its own build)."""
+    sys.path.insert(0, src)
+    from repro_torch.data import synth
+    from repro_torch.index import shards
+    from repro_torch.index.invindex import InvertedIndex
+    from repro_torch.index.scores import ScoreArena
+    doclen, postings = synth.make_corpus("gov2", seed=seed, n_docs=n_docs)
+    gen = InvertedIndex.build(doclen, postings).gen
+    del doclen, postings
+    spec = shards.ShardSpec.derive(gen, n_shards)
+    t0 = time.perf_counter()
+    built = {(lo, hi): shards.shard_generation(gen, lo, hi)
+             for lo, hi in spec.ranges() if hi > lo}
+    shard_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = [ScoreArena.from_index(sg, device="cpu") for sg in built.values()]
+    return spec.bounds, built, shard_s, scores, time.perf_counter() - t0
 
 
 def _graph_task(src: str, seed: int, n_nodes: int, n_edges: int,
@@ -888,7 +1023,7 @@ def mutation_phase(idx, doclen, postings, terms, seed, oracle_pool, np,
     step(f"delete {n_dead} docs")
     eng = engine()
     view = live_view()
-    tq = {m: draw(QUERIES, m, view) for m in ("and", "or", "and_scored")}
+    tq = {m: draw(MUT_QUERIES, m, view) for m in ("and", "or", "and_scored")}
     step("tombstone oracle (3 batches)")
     df_s = [0.0]
     eng._df_live = timed_calls(eng._df_live, df_s)
@@ -970,8 +1105,8 @@ def mutation_phase(idx, doclen, postings, terms, seed, oracle_pool, np,
     upserted.update((d, mean_dl) for d in upserts)
     step(f"insert {MUT_INSERTS} docs and upsert {MUT_UPSERTS}")
     view = live_view()
-    dq = {"and": draw(QUERIES, "and", view),
-          "and_scored": draw(QUERIES, "and_scored", view),
+    dq = {"and": draw(MUT_QUERIES, "and", view),
+          "and_scored": draw(MUT_QUERIES, "and_scored", view),
           "or": draw(MUT_OR_QUERIES, "or", view)}
     step("delta oracle (3 batches)")
     for mode in ("and", "and_scored", "or"):
@@ -1009,7 +1144,7 @@ def mutation_phase(idx, doclen, postings, terms, seed, oracle_pool, np,
     log(f"new generation: to_device(fused=True) {out['to_device_s']:.2f} s, "
         f"ensure_scores {out['ensure_scores_s']:.2f} s")
     step("new generation on the card")
-    cq = {m: draw(QUERIES, m, view) for m in ("and", "or")}
+    cq = {m: draw(MUT_QUERIES, m, view) for m in ("and", "or")}
     step("compacted oracle (2 batches)")
     for mode in ("and", "or"):
         batch(eng, f"compacted {mode}", mode, *cq[mode], gated=False)
@@ -1030,6 +1165,7 @@ def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> dict:
     from repro_torch.core import codec as codec_lib
     from repro_torch.core.bits import ebw_np, from_np, to_np
     from repro_torch.core.dgap import dgap_encode_np
+    from repro_torch.index.device import DeviceArena
     from repro_torch.index.engine import QueryBatch, QueryEngine
     from repro_torch.kernels import ops
     from repro_torch.obs.trace import enable_tracing
@@ -1053,7 +1189,7 @@ def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> dict:
 
         log("== codecs: the Group-PFD index on the device placement")
         t0 = time.perf_counter()
-        idx, out["build_s"] = pfd_job.result()
+        idx, out["build_s"], scores, out["worker_scores_s"] = pfd_job.result()
         out["build_wait_s"] = time.perf_counter() - t0
         encs = [e for tp in idx.terms.values() for _, e, _ in tp.blocks]
         pfd = [e for e in encs if e.codec == "group_pfd"]
@@ -1076,11 +1212,17 @@ def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> dict:
         out["to_device_s"] = time.perf_counter() - t0
         ar = eng.arena
         t0 = time.perf_counter()
-        ar.ensure_scores()
+        with prebuilt_scores(DeviceArena, [scores]) as adopted:
+            ar.ensure_scores()
         torch.cuda.synchronize()
         out["ensure_scores_s"] = time.perf_counter() - t0
+        if adopted != [scores] or ar.scores is not scores:
+            raise AssertionError("ensure_scores did not adopt the worker's "
+                                 "score arena of the served generation")
+        del scores, adopted
         log(f"to_device(fused=True): {out['to_device_s']:.2f} s; "
-            f"ensure_scores: {out['ensure_scores_s']:.2f} s")
+            f"ensure_scores: {out['worker_scores_s']:.2f} s on the host in "
+            f"the worker, {out['ensure_scores_s']:.2f} s to the card here")
         torch.cuda.reset_peak_memory_stats()
 
         def same(mode, got, want):
@@ -1106,8 +1248,8 @@ def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> dict:
                 "cand_syncs", "final_syncs", "score_syncs", "resident_rounds",
                 "score_rounds", "worklist_decodes", "fallback_decodes",
                 "blocks_dense", "blocks_scored")}
-            log(f"{what}: {QUERIES} queries in {dt:.4f} s = "
-                f"{QUERIES / dt:.2f} qps (fresh batch of the main path, "
+            log(f"{what}: {len(queries)} queries in {dt:.4f} s = "
+                f"{len(queries) / dt:.2f} qps (fresh batch of the main path, "
                 f"equal to its oracle); counters {stats}; launches "
                 f"{launches}")
             if stats["cand_syncs"] != 0 or stats["final_syncs"] != 1:
@@ -1137,7 +1279,7 @@ def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> dict:
                                          key=lambda kv: -kv[1][1]):
                 log(f"  {name:24s} x{n:<3d} {tot:10.2f} ms")
             out["serving"][what] = {
-                "qps": QUERIES / dt, "seconds": dt, "stats": stats,
+                "qps": len(queries) / dt, "seconds": dt, "stats": stats,
                 "launches": launches,
                 "spans_ms": {n: v[1] for n, v in spans.items()}}
             del res, traced
@@ -1244,11 +1386,59 @@ def timed_methods(targets: dict):
             setattr(owner, attr, saved[name])
 
 
-def sharded_phase(gen, fresh, smi, np, torch) -> dict:
+@contextlib.contextmanager
+def prebuilt_shards(shards_mod, parent, built: dict):
+    """``shards_mod.shard_generation(parent, lo, hi)`` returns ``built[(lo,
+    hi)]`` (a shard the worker made from the same corpus) while the block
+    runs; any other call raises."""
+    saved = shards_mod.shard_generation
+
+    def lookup(gen, lo, hi):
+        sg = built.get((lo, hi))
+        if gen is not parent or sg is None or sg.gid != gen.gid:
+            raise AssertionError(f"sharded: no prebuilt shard [{lo}, {hi}) "
+                                 f"of this generation")
+        return sg
+    shards_mod.shard_generation = lookup
+    try:
+        yield
+    finally:
+        shards_mod.shard_generation = saved
+
+
+@contextlib.contextmanager
+def prebuilt_scores(arena_cls, built: list):
+    """While the block runs, ``arena_cls.ensure_scores`` on an arena of a
+    generation that ``built`` holds a score arena for (made by the build
+    worker: ``ScoreArena.from_index(gen, device="cpu")``, host work alone)
+    adopts it, its two tensors moved to the arena's device, in place of
+    building it; yields the list of the score arenas adopted."""
+    saved = arena_cls.ensure_scores
+    left = {id(sa.idx): sa for sa in built}
+    adopted = []
+
+    def ensure_scores(self):
+        sa = left.get(id(self.idx))
+        if self.scores is None and sa is not None and sa.idx is self.idx:
+            sa.tiles = sa.tiles.to(self.device)
+            if sa.dense_tiles is not None:
+                sa.dense_tiles = sa.dense_tiles.to(self.device)
+            self.scores = sa
+            adopted.append(left.pop(id(self.idx)))
+        return saved(self)
+    arena_cls.ensure_scores = ensure_scores
+    try:
+        yield adopted
+    finally:
+        arena_cls.ensure_scores = saved
+
+
+def sharded_phase(gen, shard_job, fresh, smi, np, torch) -> dict:
     """The sharded phase (module docstring): the main path's unmutated
-    ``group_simple`` generation split into SHARDS doc-range shards, the
-    main path's fresh batches served over them and held against the main
-    path's oracles.  Raises on any failed check; returns the figures."""
+    ``group_simple`` generation split into SHARDS doc-range shards (built
+    by a worker process, ``shard_job``), the main path's fresh batches
+    served over them and held against the main path's oracles.  Raises on
+    any failed check; returns the figures."""
     from repro_torch import kernels as K
     from repro_torch.index import shards as shards_mod
     from repro_torch.index.device import DeviceArena
@@ -1273,15 +1463,26 @@ def sharded_phase(gen, fresh, smi, np, torch) -> dict:
     out["bounds"] = list(spec.bounds)
     log(f"ShardSpec.derive: bounds {list(spec.bounds)} in "
         f"{out['derive_s']:.3f} s")
+    t0 = time.perf_counter()
+    (bounds, built, out["shard_generation_s"], scores,
+     out["worker_scores_s"]) = shard_job.result()
+    out["shard_wait_s"] = time.perf_counter() - t0
+    if tuple(bounds) != spec.bounds:
+        raise AssertionError(f"the shard worker's bounds {bounds} != "
+                             f"{spec.bounds}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with timed_methods({
-            "shard_generation": (shards_mod, "shard_generation"),
-            "arenas": (Generation, "to_device"),
-            "ensure_scores": (DeviceArena, "ensure_scores")}) as took:
+    with prebuilt_shards(shards_mod, gen, built), \
+            prebuilt_scores(DeviceArena, scores) as adopted, timed_methods({
+                "arenas": (Generation, "to_device"),
+                "ensure_scores": (DeviceArena, "ensure_scores")}) as took:
         eng = QueryEngine(InvertedIndex(gen=gen), cache_blocks=1 << 22
                           ).to_device(fused=True, shards=SHARDS, mesh=mesh)
         torch.cuda.synchronize()
+    if len(adopted) != len(scores):
+        raise AssertionError(f"the shard engines adopted {len(adopted)} of "
+                             f"the worker's {len(scores)} score arenas")
+    del built, scores, adopted
     out["to_device_s"] = time.perf_counter() - t0
     out.update({f"{k}_s": v[0] for k, v in took.items()})
     got_spec, engs, _ = eng._shard_engines(eng._ctx_now())
@@ -1293,9 +1494,12 @@ def sharded_phase(gen, fresh, smi, np, torch) -> dict:
     out["shard_blocks"] = [sum(len(tp.blocks) for tp in e.idx.terms.values())
                            for e in live]
     log(f"to_device(fused=True, shards={SHARDS}): {out['to_device_s']:.2f} s "
-        f"(shard_generation {out['shard_generation_s']:.2f} s, the shards' "
+        f"(shard_generation {out['shard_generation_s']:.2f} s in the worker, "
+        f"waited {out['shard_wait_s']:.2f} s; the shards' "
         f"arenas {out['arenas_s']:.2f} s, ensure_scores "
-        f"{out['ensure_scores_s']:.2f} s); {len(live)} shards, docs "
+        f"{out['ensure_scores_s']:.2f} s here, their score arenas "
+        f"{out['worker_scores_s']:.2f} s on the host in the worker); "
+        f"{len(live)} shards, docs "
         f"{out['shard_docs']}, blocks {out['shard_blocks']}")
 
     def run(mode, placement, queries, want):
@@ -1585,31 +1789,47 @@ def examples_phase(procs, gen, fresh, smi, np) -> dict:
     return out
 
 
-def decode_breakdown(step, torch) -> dict:
-    """One call of ``step`` (a decode step, after the timed ones) under
-    ``torch.profiler``: the wall seconds (profiler on), the device's kernel
-    time, and the kernel time under ``aten::_to_copy`` (the dtype casts:
-    every weight cast to bf16 on use, and the cache to fp32 for the
-    scores).  ``None`` for a figure the trace does not hold."""
+def step_breakdown(step, torch, casts: bool = False, top: int = 0) -> dict:
+    """One call of ``step`` (after the timed ones) under ``torch.profiler``:
+    the wall seconds (profiler on), the device's kernel time and busy
+    share; with ``casts`` the kernel time under ``aten::_to_copy`` (the
+    dtype casts: every weight cast to bf16 on use, and the cache to fp32
+    for the scores), which needs the CPU ops traced too; with ``top`` the
+    ``top`` kernels of most device time.  Without ``casts`` the card's
+    activity alone is traced: a train step's CPU ops (tens of thousands)
+    would take the profiler longer to sum than the step takes.  ``None``
+    for a figure the trace does not hold."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if casts else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = casts = 0.0
+    ks, cast_us = [], 0.0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels += getattr(e, "self_device_time_total", 0.0)
+            ks.append((getattr(e, "self_device_time_total", 0.0), e.key,
+                       e.count))
         elif e.key == "aten::_to_copy":
-            casts += getattr(e, "device_time_total", 0.0)
+            cast_us += getattr(e, "device_time_total", 0.0)
+    kernels = sum(k[0] for k in ks)
+    out = {"wall_s": wall, "kernel_s": None}
+    if casts:
+        out["cast_s"] = None
+    if top:
+        out["top"] = None
     if not kernels:
-        return {"wall_s": wall, "kernel_s": None, "cast_s": None}
-    return {"wall_s": wall, "kernel_s": kernels / 1e6, "cast_s": casts / 1e6,
-            "busy_share": kernels / 1e6 / wall,
-            "cast_share_of_kernels": casts / kernels}
+        return out
+    out.update(kernel_s=kernels / 1e6, busy_share=kernels / 1e6 / wall)
+    if casts:
+        out.update(cast_s=cast_us / 1e6, cast_share_of_kernels=cast_us / kernels)
+    if top:
+        out["top"] = [{"kernel": kernel_tag(name), "ms": us / 1e3, "calls": n,
+                       "share": us / kernels}
+                      for us, name, n in sorted(ks, reverse=True)[:top]]
+    return out
 
 
 @contextlib.contextmanager
@@ -1809,9 +2029,9 @@ def lm_phase(dev, seed, smi, np, torch) -> dict:
         if not all(on_card) or not bool(finite):
             raise AssertionError(f"lm {arch}: logits or cache off the card "
                                  f"or not finite")
-        r["decode_trace"] = decode_breakdown(
+        r["decode_trace"] = step_breakdown(
             lambda: T.decode_step(model, cache, tok, LM_PREFILL + LM_DECODE - 1),
-            torch)
+            torch, casts=True)
         if cfg.moe:     # one more step, recorded: a decode group drops nothing
             with route_spy(moe, torch) as calls:
                 T.decode_step(model, cache, tok, LM_PREFILL + LM_DECODE - 1)
@@ -2195,6 +2415,518 @@ def recsys_gnn_phase(dev, seed, graph_job, smi, np, torch) -> dict:
     return out
 
 
+def kernel_tag(name: str) -> str:
+    """A CUDA kernel's name without its template noise: the kernel, then
+    the functors and kernels named inside its arguments (``elementwise_kernel
+    [gpu_kernel_impl_nocast, BinaryFunctor, MulFunctor]``)."""
+    head = re.match(r"(?:void )?([\w:]+)", name).group(1).split("::")[-1]
+    inner = [m for m in re.findall(r"(\w+(?:Functor|_kernel_cuda|_impl_nocast"
+                                   r"|_impl|_kernel))", name) if m not in head]
+    inner = list(dict.fromkeys(inner))[:4]
+    return head + (f" [{', '.join(inner)}]" if inner else "")
+
+
+def attn_fan_in(params: dict, cfg, torch) -> None:
+    """Rescale an LM's (d, heads, head_dim) and (heads, head_dim, d)
+    attention projections, drawn at 1/sqrt(shape[-2]) by the reference's
+    rule, to 1/sqrt of their fan-in (d, and heads x head_dim), in place."""
+    d = cfg.d_model
+    with torch.no_grad():
+        for stack in ("dense_layers", "moe_layers"):
+            a = params.get(stack, {}).get("attn", {})
+            for k, w in a.items():
+                if k in ("wq", "wk", "wv"):
+                    w.mul_((w.shape[-2] / d) ** 0.5)
+                elif k == "wo":
+                    w.mul_((w.shape[-2] / (w.shape[-3] * w.shape[-2])) ** 0.5)
+
+
+def touched_rows(params: dict, batch: dict, torch) -> tuple:
+    """(params, batch) of the same function on this batch with dlrm's and
+    wide-deep's stacked tables cut to the rows the batch reads: table t
+    keeps its distinct ids' rows (padded with row 0 to one count) and the
+    ids become their ranks.  The tables' gradient rows are the full
+    gradient's at those ids (its other rows are 0).  Other models are
+    returned as they are."""
+    if "tables" not in params:
+        return params, batch
+    ids = batch["sparse"].long()
+    uniq = [torch.unique(ids[:, t]) for t in range(ids.shape[1])]
+    n = max(len(u) for u in uniq)
+    rows = torch.stack([torch.cat([u, u.new_zeros(n - len(u))]) for u in uniq])
+    t = torch.arange(ids.shape[1], device=ids.device)[:, None]
+    cut = dict(params)
+    for k in ("tables", "wide"):
+        if k in params:
+            cut[k] = params[k][t, rows]
+    local = torch.stack([torch.searchsorted(u, ids[:, i].contiguous())
+                         for i, u in enumerate(uniq)], dim=1)
+    return cut, {**batch, "sparse": local.to(batch["sparse"].dtype)}
+
+
+def _paths(tree, prefix=()) -> list:
+    """The key paths of a nested dict's leaves, in the walk's order."""
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (k,))]
+
+
+def grad_errs(got: list, want: list) -> tuple:
+    """(max over leaves of |got - want| / bound, the leaf at that max) for
+    each leaf's bound: the larger of its largest |g| and TRAIN_GRAD_FLOOR
+    of the largest |g| of any leaf (a leaf whose gradient is a
+    cancellation, such as dien's score bias before its softmax, has
+    nothing but round-off)."""
+    top = max(float(w.abs().max()) for w in want)
+    worst = (-1.0, -1)
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.to(g.device, g.dtype)
+        bound = max(float(w.abs().max()), TRAIN_GRAD_FLOOR * top, 1e-30)
+        worst = max(worst, (float((g - w).abs().max()) / bound, i))
+    return worst
+
+
+def train_phase(dev, seed, graph_job, smi, np, torch) -> dict:
+    """The train phase (module docstring): smollm-135m, the four recsys
+    archs and EGNN take train steps at full width on ``dev``; compressed
+    data parallelism over logical ranks.  Raises on any failed check;
+    returns the figures."""
+    import dataclasses
+    import importlib.util
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import STEP_FNS
+    from repro_torch.data.pipeline import TokenStore, lm_batch_iter
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.batches import cell_batch, subgraph_batch
+    from repro_torch.models import egnn as E
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as T
+    from repro_torch.models.specs import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import train_loop as TL
+    from repro_torch.runtime.trainer import (make_compressed_dp_train_step,
+                                             make_train_step, to_device,
+                                             value_and_grad)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    host = torch.device("cpu")
+    out = {"lm": {}, "recsys": {}, "egnn": {}, "dp": {}}
+    log(f"== train: {TRAIN_LM} ({TRAIN_LM_BATCH} x 4,096), "
+        f"{', '.join(RECSYS_ARCHS)} (65,536 rows), EGNN on "
+        f"{', '.join(EGNN_CELLS)}, compressed DP over {TRAIN_DP_RANKS} "
+        f"ranks; memory_allocated {torch.cuda.memory_allocated()} bytes")
+
+    def to_host(tree):
+        return tree_map(lambda t: t.to(host), tree)
+
+    def timed_step(step, times):
+        """``step`` timed to a synchronize into ``times`` (seconds)."""
+        def run(*a):
+            t0 = time.perf_counter()
+            res = step(*a)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return res
+        return run
+
+    def same(a: list, b: list) -> bool:
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+    def state_leaves(model, opt) -> list:
+        return tree_leaves(model.tree()) + [x for k in sorted(opt) for x in (
+            tree_leaves(opt[k]) if isinstance(opt[k], dict) else [opt[k]])]
+
+    secs, mark = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        secs[name] = now - mark[0]
+        mark[0] = now
+        log(f"-- train {name}: {secs[name]:.1f} s")
+
+    # ---- smollm-135m ----------------------------------------------------- #
+    spec = configs.get(TRAIN_LM)
+    cell = spec.shapes["train_4k"]
+    cfg = spec.config_for_cell(spec.make_config(), cell)
+    seq = cell.dims["seq"]
+    rng = np.random.default_rng(seed + 43)
+    toks = ((rng.zipf(LM_ZIPF, TRAIN_LM_STORE) - 1) % cfg.vocab).astype(np.uint32)
+    store = TokenStore.build(toks, codec="bp128", block=LM_STORE_BLOCK)
+    del toks
+    batches = lm_batch_iter(store, TRAIN_LM_BATCH, seq)
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=TRAIN_LM_STEPS)
+
+    def lm_loss(m, b):
+        return T.loss_fn(m, b["tokens"], b["labels"])
+
+    r = out["lm"]
+    with tempfile.TemporaryDirectory() as tmp:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        model = T.init(cfg, gen)
+        opt = adamw_init(model.tree())
+        r["params"] = sum(p.numel() for p in model.parameters())
+        times = []
+        step = timed_step(make_train_step(lm_loss, ocfg), times)
+        torch.cuda.reset_peak_memory_stats()
+        model, opt, info = TL.run(
+            step, model, opt, batches,
+            TL.LoopConfig(total_steps=TRAIN_LM_STEPS, ckpt_dir=tmp + "/loop",
+                          ckpt_every=10 ** 9, log_every=1), log_fn=log)
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        part("lm steps")
+        losses = [m["loss"] for m in info["metrics"]]
+        r["losses"] = losses
+        r["step_ms"] = [t * 1e3 for t in times]
+        med = sorted(times[1:])[len(times[1:]) // 2]
+        r["median_step_ms"] = med * 1e3
+        r["tokens_per_s"] = TRAIN_LM_BATCH * seq / med
+        r["grad_norms"] = [m["grad_norm"] for m in info["metrics"]]
+        if not all(np.isfinite(losses + r["grad_norms"])):
+            raise AssertionError(f"train {TRAIN_LM}: losses {losses}, grad "
+                                 f"norms {r['grad_norms']}")
+        if not all(p.device == dev for p in model.parameters()):
+            raise AssertionError(f"train {TRAIN_LM}: a parameter left the card")
+        # one full-size checkpoint, saved, restored and compared bitwise
+        ck = Checkpointer(tmp + "/one")
+        t0 = time.perf_counter()
+        ck.save(TRAIN_LM_STEPS, (model.tree(), opt), {"cursor": TRAIN_LM_STEPS})
+        r["ckpt_save_s"] = time.perf_counter() - t0
+        r["ckpt_bytes"] = os.path.getsize(os.path.join(
+            tmp, "one", f"step_{TRAIN_LM_STEPS:06d}", "arrays.npz"))
+        t0 = time.perf_counter()
+        (tree, opt2), _, extra = ck.restore((model.tree(), opt))
+        torch.cuda.synchronize()
+        r["ckpt_restore_s"] = time.perf_counter() - t0
+        if not (same(state_leaves(T.LM(cfg, tree), opt2), state_leaves(model, opt))
+                and extra == {"cursor": TRAIN_LM_STEPS}
+                and all(t.device == dev for t in tree_leaves(tree))):
+            raise AssertionError(f"train {TRAIN_LM}: the restored checkpoint "
+                                 f"differs from the state saved")
+        del tree, opt2
+        part("lm checkpoint")
+        b, _ = batches(TRAIN_LM_STEPS)
+        one = make_train_step(lm_loss, ocfg)
+        r["traced"] = step_breakdown(lambda: one(model, opt, b), torch,
+                                     top=8)
+        del model, opt, one
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{TRAIN_LM} train_4k ({r['params']} params, fp32 weights, bf16 "
+            f"activations, batch {TRAIN_LM_BATCH} x {seq}): losses "
+            f"{[round(x, 4) for x in losses]} (grad norms "
+            f"{[float(f'{x:.3e}') for x in r['grad_norms']]}); steps ms "
+            f"{[round(x, 1) for x in r['step_ms']]} (the first a warm-up), "
+            f"median {r['median_step_ms']:.1f} ms = {r['tokens_per_s']:.1f} "
+            f"tokens/s; peak {r['peak_gib']:.2f} GiB; checkpoint "
+            f"{r['ckpt_bytes']} bytes saved in {r['ckpt_save_s']:.2f} s, "
+            f"restored in {r['ckpt_restore_s']:.2f} s, bitwise equal; {smi}")
+        tr = r["traced"]
+        if tr["kernel_s"] is not None:
+            log(f"  one traced step: {tr['wall_s'] * 1e3:.1f} ms wall, kernels "
+                f"{tr['kernel_s'] * 1e3:.1f} ms, busy {tr['busy_share']:.3f}")
+            for k in tr["top"]:
+                log(f"    {k['ms']:9.2f} ms {k['share']:6.3f} x{k['calls']:<5d} "
+                    f"{k['kernel']}")
+
+        part("lm trace")
+        # crash at step 3 and resume == uninterrupted, bitwise (2 layers)
+        cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_CRASH_LAYERS)
+        runs = {}
+        for name, where, crash in (("straight", "a", None),
+                                   ("crashed", "b", TRAIN_CRASH_AT),
+                                   ("resumed", "b", None)):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed + 1)
+            m = T.init(cfg2, gen)
+            o = adamw_init(m.tree())
+            loop = TL.LoopConfig(total_steps=TRAIN_LM_STEPS,
+                                 ckpt_dir=f"{tmp}/{where}", ckpt_every=2,
+                                 log_every=10 ** 9, crash_at_step=crash)
+            try:
+                m, o, info = TL.run(make_train_step(lm_loss, ocfg), m, o,
+                                    batches, loop, log_fn=log)
+            except RuntimeError as e:
+                if crash is None or "injected crash" not in str(e):
+                    raise
+                continue
+            runs[name] = (state_leaves(m, o), [x["loss"] for x in info["metrics"]],
+                          [x["grad_norm"] for x in info["metrics"]])
+        # the loss falls where the model trains: the reference's init of the
+        # (d, heads, head_dim) projections (fan_in = heads) makes the 30
+        # layers chaotic (grad norms above), so the rule runs on 2 layers
+        straight = runs["straight"][1]
+        r["two_layer_losses"] = straight
+        if not (all(np.isfinite(straight)) and straight[-1] < straight[0]):
+            raise AssertionError(f"train {TRAIN_LM} first {TRAIN_CRASH_LAYERS} "
+                                 f"layers: losses {straight}")
+        r["crash_resume_equal"] = same(runs["straight"][0], runs["resumed"][0])
+        if not (r["crash_resume_equal"]
+                and runs["resumed"][1] == runs["straight"][1][2:]):
+            raise AssertionError(f"train {TRAIN_LM}: crashed at step "
+                                 f"{TRAIN_CRASH_AT} and resumed differs from "
+                                 f"the uninterrupted run")
+        log(f"{TRAIN_LM} first {TRAIN_CRASH_LAYERS} layers: crashed at step "
+            f"{TRAIN_CRASH_AT} of {TRAIN_LM_STEPS}, resumed from step 2, equals "
+            f"the uninterrupted run bitwise (params and AdamW state; losses "
+            f"{[round(x, 4) for x in straight]}, the last below the first; "
+            f"grad norms {[float(f'{x:.3e}') for x in runs['straight'][2]]}); no op on the "
+            f"path is nondeterministic on CUDA, so without "
+            f"use_deterministic_algorithms")
+        del runs, m, o
+        part("lm crash-resume")
+
+    # one step of the first 2 layers, card vs host CPU, in bf16.
+    # The reference's init draws a (d, heads, head_dim) projection at
+    # 1/sqrt(heads): scores in the hundreds, attention all but one-hot, and
+    # the gradients of wq and wk made of the few near-tied scores, which
+    # round-off flips (in fp32 4e-3 and 0.15 of their max in two runs).
+    # So the gradients are checked with the projections at 1/sqrt of their
+    # fan-in; the loss, and the gradients at the reference's init
+    # (printed), as drawn.
+    cb, cs = TRAIN_LM_CHECK
+    b, _ = lm_batch_iter(store, cb, cs)(0)
+    names = [".".join(k) for k in _paths(T.abstract(cfg2))]
+    for fan_in in (False, True):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 2)
+        card = T.init(cfg2, gen)
+        if fan_in:
+            attn_fan_in(card.tree(), cfg2, torch)
+        cpu = T.LM(cfg2, to_host(card.tree()))
+        (lc, _), gc_ = value_and_grad(lm_loss, card, to_device(b, dev))
+        (lh, _), gh = value_and_grad(lm_loss, cpu, to_device(b, host))
+        err, leaf = grad_errs(tree_leaves(gc_), tree_leaves(gh))
+        tag = "fan_in" if fan_in else "reference_init"
+        r[f"vs_cpu_{tag}"] = v = {
+            "loss_rel_err": abs(float(lc) - float(lh)) / abs(float(lh)),
+            "grad_err": err, "grad_leaf": names[leaf]}
+        log(f"{TRAIN_LM} first {TRAIN_CRASH_LAYERS} layers, bf16, "
+            f"{'projections at 1/sqrt(fan-in)' if fan_in else 'the reference init'}, "
+            f"one step of {cb} x {cs} on the card vs the host CPU: loss rel "
+            f"err {v['loss_rel_err']:.3e}, grads {err:.3e} of each leaf's max "
+            f"|g| (worst {v['grad_leaf']})"
+            + ("" if fan_in else "; the grads printed, not checked"))
+        if max(v["loss_rel_err"], err if fan_in else 0.0) > TRAIN_LM_TOL:
+            raise AssertionError(f"train {TRAIN_LM}: card vs CPU {tag} {v}")
+        del card, cpu, gc_, gh
+
+    part("lm vs cpu")
+    # compressed all-reduce of smollm's flat gradient, one a rank (each the
+    # gradient of a sequence of TRAIN_LM_CHECK's length)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = T.init(cfg, gen)
+    b, _ = lm_batch_iter(store, TRAIN_DP_RANKS, cs)(0)
+    b = to_device(b, dev)
+    flats = []
+    for i in range(TRAIN_DP_RANKS):
+        _, g = value_and_grad(lm_loss, model, {k: v[i:i + 1] for k, v in b.items()})
+        flats.append(torch.cat([x.reshape(-1) for x in tree_leaves(g)]))
+        del g
+    del model, b
+    n = flats[0].numel()
+    exact = torch.stack(flats).mean(dim=0)
+    emax = float(exact.abs().max())
+    r["allreduce"] = {"n": n}
+    for bits in (8, 4):
+        C.compressed_allreduce_flat(flats, bits=bits)       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reds, _ = C.compressed_allreduce_flat(flats, bits=bits)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        err = float((reds[0] - exact).abs().max())
+        same_all = all(torch.equal(x, reds[0]) for x in reds)
+        r["allreduce"][bits] = {"ms": dt * 1e3, "err": err, "max_abs_mean": emax,
+                                "wire_bytes": C.wire_bytes(n, TRAIN_DP_RANKS, bits)}
+        log(f"compressed_allreduce_flat int{bits} of {TRAIN_LM}'s flat gradient "
+            f"({n} floats) over {TRAIN_DP_RANKS} ranks: {dt * 1e3:.1f} ms, max "
+            f"err {err:.3e} of max |exact mean| {emax:.3e}; wire "
+            f"{r['allreduce'][bits]['wire_bytes']} bytes a rank vs the fp32 "
+            f"ring's {C.wire_bytes(n, TRAIN_DP_RANKS, None)}")
+        if not same_all or (bits == 8 and err > TRAIN_DP_ALLREDUCE_TOL * emax):
+            raise AssertionError(f"train: int{bits} all-reduce {r['allreduce'][bits]}")
+        del reds
+    del flats, exact, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("allreduce")
+
+    # ---- recsys train_batch ---------------------------------------------- #
+    for arch in RECSYS_ARCHS:
+        spec = configs.get(arch)
+        cfg = spec.make_config()
+        cell = spec.shapes["train_batch"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        model = R.init(cfg, gen)
+        batch = cell_batch(spec, cfg, cell, np.random.default_rng(seed + 47), dev)
+        rows = cell.dims["batch"]
+        # card vs host CPU on the first rows, at the initial weights: the
+        # fp32 loss, then loss and gradients in fp64 (in fp32 a ReLU whose
+        # input lies within round-off of 0 takes the other side on one of
+        # them, and a table row's gradient, one row's term, moves whole)
+        sub = {k: v[:TRAIN_RECSYS_CHECK] for k, v in batch.items()}
+        hsub = to_device(sub, host)
+        with torch.no_grad():
+            lc = float(R.loss_fn(model, sub)[0])
+            lh = float(R.loss_fn(R.RecModel(cfg, to_host(model.tree())), hsub)[0])
+        c = {"vs_cpu": {"loss_rel_err": abs(lc - lh) / abs(lh)}}
+        c64 = dataclasses.replace(cfg, dtype=torch.float64)
+        p64, s64 = touched_rows(model.tree(), sub, torch)
+        card = R.RecModel(c64, tree_map(lambda t: t.double(), p64))
+        (lc, _), gc_ = value_and_grad(R.loss_fn, card, s64)
+        del card
+        (lh, _), gh = value_and_grad(R.loss_fn, R.RecModel(c64, tree_map(
+            lambda t: t.to(host, torch.float64), p64)), to_device(s64, host))
+        del p64, s64
+        err, leaf = grad_errs(tree_leaves(gc_), tree_leaves(gh))
+        c["vs_cpu"].update({"fp64_loss_rel_err": abs(float(lc) - float(lh)) / abs(float(lh)),
+                            "fp64_grad_err": err, "fp64_grad_leaf": leaf})
+        del gc_, gh
+        v = c["vs_cpu"]
+        if max(v["loss_rel_err"], v["fp64_loss_rel_err"], err) > TRAIN_RECSYS_TOL:
+            raise AssertionError(f"train {arch}: card vs CPU {c['vs_cpu']}")
+        step, _ = STEP_FNS["recsys"](cfg, cell, AdamWConfig(
+            lr=1e-3, warmup_steps=0, total_steps=TRAIN_RECSYS_STEPS))
+        opt = adamw_init(model.tree())
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        run = timed_step(step, times)
+        for _ in range(TRAIN_RECSYS_STEPS):
+            model, opt, m = run(model, opt, batch)
+            losses.append(float(m["loss"]))
+        med = sorted(times[1:])[len(times[1:]) // 2]
+        c.update({"losses": losses, "step_ms": [t * 1e3 for t in times],
+                  "median_step_ms": med * 1e3, "rows_per_s": rows / med,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train {arch}: losses {losses}")
+        out["recsys"][arch] = c
+        log(f"{arch} train_batch ({rows} rows): steps ms "
+            f"{[round(x, 2) for x in c['step_ms']]} (the first a warm-up), "
+            f"median {c['median_step_ms']:.2f} ms = {c['rows_per_s']:.4e} "
+            f"rows/s; losses {[round(x, 5) for x in losses]}; peak "
+            f"{c['peak_gib']:.2f} GiB; card vs CPU ({TRAIN_RECSYS_CHECK} rows) "
+            f"loss rel err {c['vs_cpu']['loss_rel_err']:.3e}, in fp64 "
+            f"{c['vs_cpu']['fp64_loss_rel_err']:.3e}, grads {err:.3e} (leaf "
+            f"{leaf}); {smi}")
+        del model, opt, batch, sub, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        part(arch)
+
+    # ---- compressed data parallelism: din, 8 ranks x 8,192 rows ---------- #
+    spec = configs.get("din")
+    cfg = spec.make_config()
+    rows = spec.shapes["train_batch"].dims["batch"]
+    ex = importlib.util.spec_from_file_location(
+        "compressed_dp_example", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "examples", "compressed_dp_training_torch.py"))
+    example = importlib.util.module_from_spec(ex)
+    ex.loader.exec_module(example)
+    ocfg = AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=TRAIN_DP_STEPS,
+                       weight_decay=0.0)
+    for bits in (None, 8, 4):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        model = R.init(cfg, gen)
+        n = sum(p.numel() for p in model.parameters())
+        step, init_opt = make_compressed_dp_train_step(
+            R.loss_fn, ocfg, ranks=TRAIN_DP_RANKS, bits=bits)
+        opt = init_opt(model)
+        brng = np.random.default_rng(seed + 53)
+        times, losses = [], []
+        run = timed_step(step, times)
+        for _ in range(TRAIN_DP_STEPS):
+            model, opt, m = run(model, opt, example.make_batch(cfg, brng, rows))
+            losses.append(float(m["loss"]))
+        tag = "fp32" if bits is None else f"int{bits}+EF"
+        d = {"losses": losses, "step_ms": [t * 1e3 for t in times],
+             "wire_bytes": C.wire_bytes(n, TRAIN_DP_RANKS, bits), "params": n}
+        out["dp"][tag] = d
+        log(f"din compressed DP {tag}: {TRAIN_DP_RANKS} ranks x "
+            f"{rows // TRAIN_DP_RANKS} rows, losses "
+            f"{[round(x, 5) for x in losses]}, steps ms "
+            f"{[round(x, 1) for x in d['step_ms']]}; wire {d['wire_bytes']} "
+            f"bytes a rank an all-reduce of {n} floats (fp32 ring "
+            f"{C.wire_bytes(n, TRAIN_DP_RANKS, None)})")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train din DP {tag}: losses {losses}")
+        del model, opt, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("dp")
+
+    # ---- EGNN on its four regimes ---------------------------------------- #
+    job = graph_job.result()
+    spec = configs.get("egnn")
+    for name in EGNN_CELLS:
+        cell = spec.shapes[name]
+        cfg = spec.config_for_cell(spec.make_config(), cell)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        model = E.init(cfg, gen)
+        rng = np.random.default_rng(seed + 37)
+        if name == "minibatch_lg":
+            batch = subgraph_batch(job["sub"], job["seeds"], cfg, cell, rng, dev)
+        else:
+            batch = cell_batch(spec, cfg, cell, rng, dev)
+        c = {}
+        if name == "full_graph_sm":       # card vs the host CPU
+            cpu = E.EGNN(cfg, to_host(model.tree()))
+            (lc, _), gc_ = value_and_grad(E.loss_fn, model, batch)
+            (lh, _), gh = value_and_grad(E.loss_fn, cpu, to_device(batch, host))
+            err, leaf = grad_errs(tree_leaves(gc_), tree_leaves(gh))
+            c["vs_cpu"] = {"loss_rel_err": abs(float(lc) - float(lh)) / abs(float(lh)),
+                           "grad_err": err, "grad_leaf": leaf}
+            del cpu, gc_, gh
+            if (c["vs_cpu"]["loss_rel_err"] > TRAIN_EGNN_TOL[0]
+                    or err > TRAIN_EGNN_TOL[1]):
+                raise AssertionError(f"train egnn {name}: card vs CPU {c['vs_cpu']}")
+        step, _ = STEP_FNS["gnn"](cfg, cell, AdamWConfig(
+            lr=1e-3, warmup_steps=0, total_steps=TRAIN_EGNN_STEPS))
+        opt = adamw_init(model.tree())
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        run = timed_step(step, times)
+        for _ in range(TRAIN_EGNN_STEPS):
+            model, opt, m = run(model, opt, batch)
+            losses.append(float(m["loss"]))
+        med = sorted(times[1:])[len(times[1:]) // 2]
+        c.update({"losses": losses, "step_ms": [t * 1e3 for t in times],
+                  "median_step_ms": med * 1e3,
+                  "edges_per_s": cell.dims["n_edges"] / med,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        out["egnn"][name] = c
+        log(f"egnn {name} train: steps ms {[round(x, 2) for x in c['step_ms']]} "
+            f"(the first a warm-up), median {c['median_step_ms']:.2f} ms = "
+            f"{c['edges_per_s']:.4e} edges/s; losses "
+            f"{[round(x, 5) for x in losses]}; peak {c['peak_gib']:.2f} GiB"
+            + (f"; card vs CPU loss rel err {c['vs_cpu']['loss_rel_err']:.3e}, "
+               f"grads {c['vs_cpu']['grad_err']:.3e} (leaf "
+               f"{c['vs_cpu']['grad_leaf']})" if "vs_cpu" in c else "")
+            + f"; {smi}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train egnn {name}: losses {losses}")
+        if name == "ogb_products" and c["peak_gib"] >= TRAIN_EGNN_PEAK_GIB:
+            raise AssertionError(f"train egnn ogb_products: peak "
+                                 f"{c['peak_gib']:.2f} GiB >= {TRAIN_EGNN_PEAK_GIB}")
+        del model, opt, batch, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        part(f"egnn {name}")
+    out["seconds"] = secs
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2256,15 +2988,20 @@ def main() -> int:
 
     # ---- build ------------------------------------------------------------ #
     log("== build")
-    t0 = time.perf_counter()
-    # the AND round's earlier forms (tools/and_round_forms.cu), timed beside
-    # B1 and B2 bits on the captured calls, build beside the kernels
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        forms_build = pool.submit(forms.build)
-        took = cuda_build.build(verbose=True)
-        forms_lib = forms_build.result()
-    log(f"built {sorted(took)} and tools/and_round_forms.cu in "
-        f"{time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    t_build = time.perf_counter()
+    # the kernels and the AND round's earlier forms (tools/and_round_forms.cu,
+    # timed beside B1 and B2 bits on the captured calls) build while this
+    # process makes the corpus and the index; joined before the first
+    # tensor goes to the card
+    nvcc_pool = concurrent.futures.ThreadPoolExecutor(2)
+
+    def timed_build(fn, *a, **kw):
+        res = fn(*a, **kw)
+        return res, time.perf_counter()
+
+    forms_build = nvcc_pool.submit(timed_build, forms.build)
+    kernels_build = nvcc_pool.submit(timed_build, cuda_build.build,
+                                     verbose=True)
 
     # ---- main path -------------------------------------------------------- #
     phase_done("card and build")
@@ -2277,20 +3014,22 @@ def main() -> int:
     oracle_pool = concurrent.futures.ProcessPoolExecutor(
         ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"),
         initializer=_oracle_init, initargs=(src, args.seed, args.n_docs))
-    # the codecs phase's Group-PFD index builds in a worker process of its
-    # own meanwhile (host work only, as long as the main path's build)
-    pfd_pool = concurrent.futures.ProcessPoolExecutor(
+    # one build worker makes, in turn, the codecs phase's Group-PFD
+    # index (about as long as the main path's build), the sharded phase's
+    # SHARDS shard generations (about 80 s of shard_generation) and the
+    # recsys_gnn phase's EGNN minibatch_lg graph and its sampled subgraph
+    # (about 90 s): host work, each done long before its phase, in one
+    # process so that it takes one core beside the oracle workers
+    build_pool = concurrent.futures.ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
-    pfd_job = pfd_pool.submit(_pfd_build_task, src, args.seed, args.n_docs)
-    # the recsys_gnn phase's EGNN minibatch_lg graph and its sampled
-    # subgraph, built by a worker of its own (host numpy, about 90 s)
-    graph_pool = concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
+    pfd_job = build_pool.submit(_pfd_build_task, src, args.seed, args.n_docs)
+    shard_job = build_pool.submit(_shard_build_task, src, args.seed,
+                               args.n_docs, SHARDS)
     from repro_torch.configs.egnn import SHAPES as EGNN_SHAPES
     mb = EGNN_SHAPES["minibatch_lg"].dims
-    graph_job = graph_pool.submit(_graph_task, src, args.seed,
-                                  mb["graph_nodes"], mb["graph_edges"],
-                                  mb["batch_nodes"], mb["fanout"])
+    graph_job = build_pool.submit(_graph_task, src, args.seed,
+                               mb["graph_nodes"], mb["graph_edges"],
+                               mb["batch_nodes"], mb["fanout"])
     t0 = time.perf_counter()
     doclen, postings = synth.make_corpus("gov2", seed=args.seed,
                                          n_docs=args.n_docs)
@@ -2313,6 +3052,13 @@ def main() -> int:
     n_blocks = sum(len(tp.blocks) for tp in idx.terms.values())
     log(f"InvertedIndex.build: {n_blocks} blocks in "
         f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    (took, t_k), (forms_lib, t_f) = (kernels_build.result(),
+                                      forms_build.result())
+    nvcc_pool.shutdown()
+    log(f"built {sorted(took)} and tools/and_round_forms.cu in "
+        f"{max(t_k, t_f) - t_build:.2f} s (parallel nvcc, beside the corpus "
+        f"and the index build); waited {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     eng = QueryEngine(idx, cache_blocks=1 << 22).to_device(fused=True)
     torch.cuda.synchronize()
@@ -2726,8 +3472,11 @@ def main() -> int:
 
     # ---- codecs ----------------------------------------------------------- #
     phase_done("stream path")
-    codecs = codecs_phase(pfd_job, postings, fresh, src, smi, np, torch)
-    pfd_pool.shutdown()
+    # the codecs and sharded phases replay the first REPLAY_QUERIES of each
+    # of the main path's fresh batches (a depth cut: PERF.md, Cells)
+    replay = {m: tuple((qs[:REPLAY_QUERIES], want[:REPLAY_QUERIES])
+                       for qs, want in pair) for m, pair in fresh.items()}
+    codecs = codecs_phase(pfd_job, postings, replay, src, smi, np, torch)
     del postings, pfd_job
     gc.collect()
     torch.cuda.empty_cache()
@@ -2738,7 +3487,8 @@ def main() -> int:
     # is host work of this process alone, about twice their run time
     ex_procs = start_examples(root)
     try:
-        sharded = sharded_phase(gen0, fresh, smi, np, torch)
+        sharded = sharded_phase(gen0, shard_job, replay, smi, np, torch)
+        del shard_job
 
         # ---- examples and the one-shot shims ------------------------------ #
         phase_done("sharded")
@@ -2748,7 +3498,7 @@ def main() -> int:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    del fresh, gen0
+    del fresh, replay, gen0
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2820,7 +3570,7 @@ def main() -> int:
             ms = cuda_ms(lambda: intersect_rounds.segmented_decode_and(
                 *args_, bw=bw, crows=crows), torch)
             pms = cuda_ms(lambda: intersect_rounds.segmented_decode_and_plain(
-                *args_, bw=bw, crows=crows), torch)
+                *args_, bw=bw, crows=crows), torch, runs=PLAIN_RUNS)
             per_bw[bw] = {"W": w, "queries": q, "crows": crows,
                           "on_main_path": bw in seen,
                           "paths": sorted(b1_paths.get(bw, ())), "max_abs_err": err,
@@ -2901,7 +3651,7 @@ def main() -> int:
                        *a, bw=bw, crows=crows), torch),
                    "plain_ms": cuda_ms(
                        lambda: intersect_rounds.segmented_decode_and_plain(
-                           *a, bw=bw, crows=crows), torch),
+                           *a, bw=bw, crows=crows), torch, runs=PLAIN_RUNS),
                    "bound_ms": bound_ms(counts["bytes"]),
                    "sector_floor_ms": bound_ms(counts["floor_bytes"]),
                    "probe_bits_set": bit_share(a[5]),
@@ -2999,9 +3749,11 @@ def main() -> int:
         nbytes = inputs + counts["touched_words"] * 8
         floor_ms = bound_ms(inputs + counts["touched_sectors"] * 64)
         ms = cuda_ms(lambda: accumulate.scatter_bits(bm, ids, qslot, surv), torch)
-        pms = cuda_ms(lambda: accumulate.scatter_bits_plain(bm, ids, qslot, surv), torch)
+        pms = cuda_ms(lambda: accumulate.scatter_bits_plain(bm, ids, qslot, surv),
+                      torch, runs=PLAIN_RUNS)
         lib_flat = bm.view(-1)
-        lms = cuda_ms(lambda: lib_flat.index_put_((flat,), vals, accumulate=True), torch)
+        lms = cuda_ms(lambda: lib_flat.index_put_((flat,), vals, accumulate=True),
+                      torch, runs=PLAIN_RUNS)
         old_ms = cuda_ms(lambda: forms.bits_form(forms_lib, "flat", bm, ids,
                                                  qslot, surv), torch)
         log(f"B2 bits Q={q} words={words} P={p} L={lanes} ({b2_path} path): err "
@@ -3108,10 +3860,11 @@ def main() -> int:
             if err:
                 raise AssertionError(f"{what} disagrees with its plain version")
             out = {"max_abs_err": err, "ms": cuda_ms(lambda: run(acc), torch),
-                   "plain_ms": cuda_ms(lambda: run_plain(acc), torch)}
+                   "plain_ms": cuda_ms(lambda: run_plain(acc), torch,
+                                       runs=PLAIN_RUNS)}
             acc_flat = acc.view(-1)
             out["library_ms"] = cuda_ms(lambda: acc_flat.index_put_(
-                (flat,), vals, accumulate=True), torch)
+                (flat,), vals, accumulate=True), torch, runs=PLAIN_RUNS)
             out["probes_ms"] = {name: cuda_ms(lambda: fn(acc), torch)
                                 for name, fn in (probes or {}).items()}
             # width is a multiple of 8, so flat >> 3 is (row, column >> 3)
@@ -3633,15 +4386,27 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rg = recsys_gnn_phase(dev, args.seed, graph_job, smi, np, torch)
-    graph_pool.shutdown()
     phase_done("recsys_gnn")
+
+    # ---- training, last ---------------------------------------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    train = train_phase(dev, args.seed, graph_job, smi, np, torch)
+    build_pool.shutdown()
+    train["launches"] = {k: v for k, v in K.LAUNCHES.items() if v}
+    if train["launches"]:
+        raise AssertionError(f"the train phase launched B kernels: "
+                             f"{train['launches']}")
+    log("train launched no B kernel (every count 0)")
+    phase_done("train")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"phases_s": phase_s, "ranked": {
         m: {k: v for k, v in r.items() if k != "recent"}
         for m, r in ranked.items()}, "mutation": mut, "stream": stream,
         "codecs": codecs, "sharded": sharded, "serve": serve,
-        "examples": examples, "lm": lm, "recsys_gnn": rg}),
+        "examples": examples, "lm": lm, "recsys_gnn": rg, "train": train}),
         flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

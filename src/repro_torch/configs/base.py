@@ -90,13 +90,19 @@ def lm_input_specs(cfg, cell: ShapeCell) -> dict:
 
 
 def lm_step_fn(cfg, cell: ShapeCell, opt_cfg=None):
-    """(step(model, batch), is_train) of an LM cell: ``prefill`` and
-    ``decode`` cells.  A ``train`` cell raises until training is ported."""
+    """(step, is_train) of an LM cell: a ``train`` cell's
+    ``step(model, opt, batch) -> (model, opt, metrics)`` (AdamW, in
+    place), or ``prefill`` / ``decode``'s ``step(model, batch)``."""
     from ..models import transformer as T
+    from ..optim import AdamWConfig
+    from ..runtime.trainer import make_train_step
     if cell.kind == "train":
-        raise NotImplementedError(
-            f"{cell.name}: LM training (loss_fn, optim, runtime) is not ported "
-            "yet (ROADMAP.md, step A.13.4)")
+        opt_cfg = opt_cfg or AdamWConfig()
+
+        def loss(model, batch):
+            return T.loss_fn(model, batch["tokens"], batch["labels"])
+
+        return make_train_step(loss, opt_cfg), True
     if cell.kind == "prefill":
         def prefill(model, batch):
             return T.prefill(model, batch["tokens"])
@@ -108,24 +114,22 @@ def lm_step_fn(cfg, cell: ShapeCell, opt_cfg=None):
 
 
 def gnn_step_fn(cfg, cell: ShapeCell, opt_cfg=None):
-    """Every EGNN cell is a ``train`` cell: its step (gradient and AdamW)
-    waits for the training slice.  ``models.egnn`` serves the forward and
-    the losses' values."""
-    raise NotImplementedError(
-        f"{cell.name}: EGNN has only train cells, and its train step (the "
-        "gradient, AdamW, the trainer) is not ported yet (ROADMAP.md, step "
-        "A.13.4)")
+    """Every EGNN cell is a ``train`` cell: its step, as ``lm_step_fn``'s."""
+    from ..models import egnn as E
+    from ..optim import AdamWConfig
+    from ..runtime.trainer import make_train_step
+    return make_train_step(E.loss_fn, opt_cfg or AdamWConfig()), True
 
 
 def recsys_step_fn(cfg, cell: ShapeCell, opt_cfg=None):
-    """(step(model, batch), is_train) of a recsys cell: ``serve`` cells
-    give probabilities, ``retrieval`` cells the top 100 (scores, ids).  A
-    ``train`` cell raises until training is ported."""
+    """(step, is_train) of a recsys cell: ``train`` as ``lm_step_fn``'s;
+    ``serve`` cells give probabilities, ``retrieval`` cells the top 100
+    (scores, ids)."""
     from ..models import recsys as R
+    from ..optim import AdamWConfig
+    from ..runtime.trainer import make_train_step
     if cell.kind == "train":
-        raise NotImplementedError(
-            f"{cell.name}: recsys training (the gradient, AdamW, the "
-            "trainer) is not ported yet (ROADMAP.md, step A.13.4)")
+        return make_train_step(R.loss_fn, opt_cfg or AdamWConfig()), True
     if cell.kind == "retrieval":
         def retr(model, batch):
             return R.retrieval_topk(model, batch, k=100)

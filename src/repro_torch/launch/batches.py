@@ -1,10 +1,11 @@
 """Concrete batches of the recsys and GNN cells, drawn with numpy from an
 explicit ``np.random.Generator`` and put on ``device``.
 
-  * :func:`smoke_batch`: the small batch of a smoke config.  It draws the
-    same arrays, in the same order, as the reference's
-    ``tests/test_arch_smoke.py::_smoke_batch`` (which the reference's
-    launcher imports and which draws from a module-global generator).
+  * :func:`smoke_batch`: the small batch of a smoke config (an LM train
+    cell's tokens and labels too).  It draws the same arrays, in the same
+    order, as the reference's ``tests/test_arch_smoke.py::_smoke_batch``
+    (which the reference's launcher imports and which draws from a
+    module-global generator).
   * :func:`cell_batch`: the same draws at a cell's own full size (its
     ``dims``): ids uniform in each table, floats uniform in [0, 1).
   * :func:`subgraph_batch`: a sampled subgraph (``models.sampler``) padded
@@ -63,18 +64,23 @@ def _gnn_batch(cfg, n: int, e: int, n_graphs: int, rng, device) -> dict:
     return batch
 
 
-def smoke_batch(spec, cfg, cell, rng: np.random.Generator, device="cpu") -> dict:
-    """The reference's ``_smoke_batch`` for a recsys or GNN cell: batch 8
-    (64 candidates), or a graph of 40 nodes and 120 edges (4 graphs)."""
+def smoke_batch(spec, cfg, cell, rng: np.random.Generator, device) -> dict:
+    """The reference's ``_smoke_batch`` for a recsys or GNN cell, or an LM
+    train cell: batch 8 (64 candidates), a graph of 40 nodes and 120 edges
+    (4 graphs), or 2 sequences of 32 tokens with their next tokens."""
     if spec.family == "recsys":
         return _recsys_batch(cfg, cell.kind, 8, 64, rng, device)
     if spec.family == "gnn":
         return _gnn_batch(cfg, 40, 120, 4, rng, device)
+    if cell.kind == "train":
+        t = rng.integers(0, cfg.vocab, (2, 33))
+        return {"tokens": _t(t[:, :-1], torch.int32, device),
+                "labels": _t(t[:, 1:], torch.int32, device)}
     raise ValueError(f"{spec.arch_id}: smoke_batch builds recsys and gnn "
-                     f"batches, not {spec.family}")
+                     f"batches and LM train batches, not {cell.kind}")
 
 
-def cell_batch(spec, cfg, cell, rng: np.random.Generator, device="cpu") -> dict:
+def cell_batch(spec, cfg, cell, rng: np.random.Generator, device) -> dict:
     """A cell's batch at its full size, drawn as :func:`smoke_batch` draws:
     ``dims["batch"]`` rows (a retrieval cell: one query row and
     ``n_candidates`` candidates), or ``n_nodes`` nodes and ``n_edges``
@@ -89,7 +95,7 @@ def cell_batch(spec, cfg, cell, rng: np.random.Generator, device="cpu") -> dict:
 
 
 def subgraph_batch(sub: dict, seeds: np.ndarray, cfg, cell,
-                   rng: np.random.Generator, device="cpu") -> dict:
+                   rng: np.random.Generator, device) -> dict:
     """A node-classification batch over ``sample_subgraph``'s output, padded
     with zero rows to the cell's ``n_nodes`` and with sentinel edges to its
     ``n_edges``.  Features, coordinates and labels are drawn for the

@@ -16,9 +16,8 @@ async admission + dynamic batching over the ``QueryEngine``, see
 Counterpart of the JAX package's ``launch/serve.py``.  ``--arch`` serves
 every architecture with a serving cell (``repro_torch.configs.ARCHS``):
 the LMs and the four recsys models.  EGNN has only train cells and raises,
-naming the training slice (ROADMAP.md, step A.13.4); the reference fails
-there too (an ``IndexError`` without ``--shape``, an ``AttributeError``
-with one).  ``--shape`` picks the cell (default: the arch's first serving
+naming ``launch.train``; the reference fails there too (an ``IndexError``
+without ``--shape``, an ``AttributeError`` with one).  ``--shape`` picks the cell (default: the arch's first serving
 cell); as in the reference it picks no plan or mesh until the sharding
 slice (A.13.5), and ``--multi-pod`` waits for it.
 """
@@ -172,7 +171,7 @@ def main(argv=None) -> None:
                     choices=sorted(set(configs.ARCHS) | set(configs.PENDING)),
                     help="serve a model arch: the LMs and the recsys models "
                          "(egnn has only train cells and raises, naming "
-                         "ROADMAP.md step A.13.4)")
+                         "launch.train)")
     ap.add_argument("--shape", default=None,
                     help="the arch's cell to serve (default: its first "
                          "serving cell), e.g. serve_p99, serve_bulk, "
@@ -219,11 +218,15 @@ def main(argv=None) -> None:
     if not serve_cells:
         raise NotImplementedError(
             f"{args.arch}: has only train cells ({', '.join(spec.shapes)}); "
-            "its train step waits for the training slice (ROADMAP.md, step "
-            "A.13.4)")
+            f"train it with python -m repro_torch.launch.train --arch "
+            f"{args.arch}")
     if args.shape is not None and args.shape not in spec.shapes:
         ap.error(f"--shape {args.shape}: {args.arch} has {sorted(spec.shapes)}")
     cell = spec.shapes[args.shape] if args.shape else serve_cells[0]
+    if cell.kind == "train":
+        raise NotImplementedError(
+            f"{cell.name} is a train cell: train it with python -m "
+            f"repro_torch.launch.train --arch {args.arch} --shape {cell.name}")
     if spec.family == "lm":
         serve_lm(args, spec, cell)
     else:

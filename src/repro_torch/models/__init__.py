@@ -1,6 +1,7 @@
 """Model substrate of the port (counterpart of the JAX package's
 ``models``): the decoder-only LM (dense and mixture-of-experts), the four
-recsys models and EGNN, and their serving paths.
+recsys models and EGNN: their serving paths and their losses, which
+train (``runtime.trainer``).
 
   * ``common``: RMSNorm, RoPE, cross-entropy.
   * ``specs``: parameter specs with logical axes, materialized from one
@@ -11,17 +12,19 @@ recsys models and EGNN, and their serving paths.
   * ``moe``: group-local top-k routing with capacity dropping
     (``route_group``) and the expert FFN (``moe_ffn``).
   * ``transformer``: ``LMConfig``, the ``LM`` module, ``trunk``,
-    ``prefill`` and ``decode_step``.
+    ``loss_fn`` (the chunked cross entropy), ``prefill`` and
+    ``decode_step``.
   * ``embedding``: table lookups and EmbeddingBag, the plain path (the
     expert-parallel one waits for ROADMAP.md step A.13.5).
   * ``recsys``: DLRM, Wide&Deep, DIN and DIEN: ``forward``, ``serve``,
-    ``loss_fn``'s value and ``retrieval_topk``, in row chunks.
-  * ``egnn``: the EGNN forward and its two losses' values, in edge chunks.
+    ``loss_fn`` and ``retrieval_topk``, in row chunks.
+  * ``egnn``: the EGNN forward and its two losses, in edge chunks.
   * ``sampler``: the host CSR neighbour sampler (numpy).
 
 No Pallas kernel of the reference sits on these paths: its attention, MoE,
 lookups, GRU scan and message passing are plain ``jnp``, so the port's are
-plain torch.  Training waits for ROADMAP.md step A.13.4.
+plain torch.  Under autograd the models recompute in backward where the
+reference runs ``jax.checkpoint`` (``specs.grad_on``).
 """
 
 from . import (attention, common, egnn, embedding, moe, recsys, sampler,

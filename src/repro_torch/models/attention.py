@@ -6,14 +6,23 @@ Counterpart of the JAX package's ``models/attention.py``, which is plain
 Python loop over the same chunks in the same order, every score and
 softmax sum in fp32, so the port stays within float tolerance of the
 reference.  The reference's ``shard(...)`` constraints are dropped until the
-sharding slice; its ``jax.checkpoint`` matters only under autodiff, which
-this serving path does not run.
+sharding slice.
+
+Two forms of one kv-chunk step, with the same values: serving scales,
+masks and exponentiates the fp32 score block in place; under autograd
+(``specs.grad_on``) every pass is out of place, and each chunk runs under
+``torch.utils.checkpoint`` as the reference's step runs under
+``jax.checkpoint``: backward recomputes a chunk's scores from its
+``(m, l, acc)`` carry instead of holding every chunk's score block.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from .specs import grad_on
 
 NEG_INF = -1e30
 
@@ -24,6 +33,27 @@ def _scale(d: int) -> float:
     correctly rounded in numpy's float32, and the Python float holds that
     fp32 value exactly."""
     return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
+def _kv_step(m, l, acc, qf, kblk, vblk, mask, scale: float, inplace: bool):
+    """One kv chunk of the online softmax: the carry ``(m, l, acc)`` after
+    the chunk.  ``inplace``: the fp32 score block (B, Sq, KH, G, kv_chunk),
+    the largest tensor of prefill, is scaled, masked and exponentiated in
+    place (serving); else out of place (autograd saves ``s`` for ``amax``)."""
+    s = torch.einsum("bqkgd,bskd->bqkgs", qf, kblk.to(torch.float32))
+    keep = mask[None, :, None, None, :]
+    if inplace:
+        s.mul_(scale).masked_fill_(~keep, NEG_INF)
+    else:
+        s = (s * scale).masked_fill(~keep, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = (s.sub_(m_new[..., None]).exp_() if inplace
+         else torch.exp(s - m_new[..., None]))
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bqkgs,bskd->bqkgd", p, vblk.to(torch.float32))
+    return m_new, l, acc
 
 
 def _chunk_attn(q, k, v, q0: int, causal: bool, window, kv_chunk: int):
@@ -39,6 +69,7 @@ def _chunk_attn(q, k, v, q0: int, causal: bool, window, kv_chunk: int):
     g = h // kh
     dev = q.device
     scale = _scale(d)
+    train = grad_on(q, k, v)
     qf = q.to(torch.float32).reshape(b, sq, kh, g, d)
     nchunks = -(-skv // kv_chunk)
     pad = nchunks * kv_chunk - skv
@@ -53,30 +84,24 @@ def _chunk_attn(q, k, v, q0: int, causal: bool, window, kv_chunk: int):
         kblk = k[:, ci * kv_chunk:(ci + 1) * kv_chunk]
         vblk = v[:, ci * kv_chunk:(ci + 1) * kv_chunk]
         kpos = ci * kv_chunk + torch.arange(kv_chunk, device=dev)
-        # the fp32 score block (B, Sq, KH, G, kv_chunk) is the largest
-        # tensor of prefill: scaled, masked and exponentiated in place
-        s = torch.einsum("bqkgd,bskd->bqkgs", qf, kblk.to(torch.float32))
-        s.mul_(scale)
         mask = (kpos[None, :] <= skv - 1).expand(sq, kv_chunk)  # drop right-pad
         if causal:
             mask = mask & (kpos[None, :] <= qpos[:, None])
         if window is not None:
             mask = mask & (kpos[None, :] > qpos[:, None] - window)
-        s.masked_fill_(~mask[None, :, None, None, :], NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = s.sub_(m_new[..., None]).exp_()
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bqkgs,bskd->bqkgd", p, vblk.to(torch.float32))
-        m = m_new
+        if train:
+            m, l, acc = checkpoint(_kv_step, m, l, acc, qf, kblk, vblk, mask,
+                                   scale, False, use_reentrant=False)
+        else:
+            m, l, acc = _kv_step(m, l, acc, qf, kblk, vblk, mask, scale, True)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
 def full_attention(q, k, v, *, causal: bool = True, window=None,
                    q_chunk: int = 1024, kv_chunk: int = 1024):
-    """Prefill attention, looping over q chunks to bound the score block."""
+    """Train/prefill attention, looping over q chunks to bound the score
+    block."""
     b, sq, h, d = q.shape
     dv = v.shape[-1]
     if sq <= q_chunk:

@@ -1,6 +1,6 @@
 """E(n)-Equivariant GNN (EGNN, Satorras et al. 2021, arXiv:2102.09844;
 counterpart of the JAX package's ``models/egnn.py``): the forward and the
-two losses' values (their gradients wait for ROADMAP.md step A.13.4).
+two losses, which train (``runtime.trainer``).
 
 Message passing scatters with ``index_add_`` into a zeroed ``(n_nodes, .)``
 tensor where the reference calls ``jax.ops.segment_sum``; on the card
@@ -19,6 +19,12 @@ The edge-wise part runs ``EDGE_CHUNK`` edges at a time, each chunk's sums
 added into the node accumulators before ``h`` and ``x`` change: at
 ogb-products' 61,859,328 edges one unchunked layer would hold over 100 GB
 of (E, 64) fp32 activations.  The result is the same sums in another order.
+
+Under autograd (``specs.grad_on``) backward recomputes, as the reference
+recomputes each layer under ``jax.checkpoint``: each layer, and inside it
+each edge chunk (``torch.utils.checkpoint``), whose messages are added
+into the node sums out of place; so backward holds one chunk's edge
+activations at a time, and ogb-products trains on one card.
 """
 
 from __future__ import annotations
@@ -28,10 +34,12 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from .specs import (P, _Tree, abstract_params, axes_tree, init_params,
+from .specs import (P, _Tree, abstract_params, axes_tree, grad_on,
+                    init_params,
                     load_reference_params,  # noqa: F401  (the model's)
-                    stack_layers, tree_map)
+                    stack_layers, tree_leaves, tree_map)
 
 # edges of one chunk of a layer's edge-wise part (about 8 GB of activations)
 EDGE_CHUNK = 1 << 22
@@ -99,23 +107,36 @@ def axes(cfg: EGNNConfig) -> dict:
     return axes_tree(param_specs(cfg))
 
 
+def _messages(p, h, x, s, d):
+    """One edge chunk's messages: (x_i - x_j) * phi_x(m_ij) (E, 3) and
+    m_ij (E, dh), along edges (src=j, dst=i)."""
+    hi, hj = h[d], h[s]
+    diff = x[d] - x[s]
+    d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
+    m = _mlp(p["phi_e"], torch.cat([hi, hj, d2], dim=-1))
+    del hi, hj, d2          # two (chunk, 64) gathers freed before phi_x
+    wx = _mlp(p["phi_x"], m)                                   # (E, 1)
+    return diff * wx, m
+
+
 def _layer(p, h, x, src, dst, n_nodes: int):
     """One EGNN layer. src/dst (E,) int32: message j->i along edge (src=j,
     dst=i), every index below ``n_nodes``."""
+    train = grad_on(h, x, *tree_leaves(p))
     num = x.new_zeros(n_nodes, x.shape[-1])
     cnt = x.new_zeros(n_nodes, 1)
     agg = h.new_zeros(n_nodes, p["phi_e"]["w1"].shape[-1])
     for lo in range(0, src.shape[0], EDGE_CHUNK):
         s, d = src[lo:lo + EDGE_CHUNK], dst[lo:lo + EDGE_CHUNK]
-        hi, hj = h[d], h[s]
-        diff = x[d] - x[s]
-        d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
-        m = _mlp(p["phi_e"], torch.cat([hi, hj, d2], dim=-1))
-        del hi, hj, d2          # two (chunk, 64) gathers freed before phi_x
-        wx = _mlp(p["phi_x"], m)                                   # (E, 1)
-        num.index_add_(0, d, diff * wx)
         cnt.index_add_(0, d, x.new_ones(d.shape[0], 1))
-        agg.index_add_(0, d, m)
+        if train:
+            dx, m = checkpoint(_messages, p, h, x, s, d, use_reentrant=False)
+            num, agg = num.index_add(0, d, dx), agg.index_add(0, d, m)
+        else:
+            dx, m = _messages(p, h, x, s, d)
+            num.index_add_(0, d, dx)
+            agg.index_add_(0, d, m)
+        del dx, m
     x = x + num / torch.clamp(cnt, min=1.0)
     h = h + _mlp(p["phi_h"], torch.cat([h, agg], dim=-1))
     return h, x
@@ -127,11 +148,14 @@ def forward(model: EGNN, feats, coords, src, dst) -> torch.Tensor:
     n = feats.shape[0]
     h = feats.to(cfg.dtype) @ params["embed_in"].to(cfg.dtype)
     x = coords.to(cfg.dtype)
-    # the reference scans the stacked layers under jax.checkpoint, which
-    # changes nothing in a forward
+    train = grad_on(h, *tree_leaves(params["layers"]))
     for li in range(cfg.n_layers):
         lp = tree_map(lambda t: t[li], params["layers"])
-        h, x = _layer(lp, h, x, src, dst, n)
+        if train:       # the reference's scan body under jax.checkpoint
+            h, x = checkpoint(_layer, lp, h, x, src, dst, n,
+                              use_reentrant=False)
+        else:
+            h, x = _layer(lp, h, x, src, dst, n)
     return h
 
 

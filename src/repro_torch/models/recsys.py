@@ -3,10 +3,9 @@ package's ``models/recsys.py``).
 
 Common substrate: large sparse embedding tables (``models/embedding.py``)
 -> feature interaction (dot / concat / target attention / AUGRU) -> small
-MLP.  Four shapes per arch: train_batch (BCE loss; its gradient waits for
-ROADMAP.md step A.13.4), serve_p99 / serve_bulk (forward), retrieval_cand
-(1 query vs 10^6 candidates, batched scoring + global top-k, never a loop
-over candidates).
+MLP.  Four shapes per arch: train_batch (BCE loss), serve_p99 /
+serve_bulk (forward), retrieval_cand (1 query vs 10^6 candidates, batched
+scoring + global top-k, never a loop over candidates).
 
 Plain torch, as the reference is plain ``jnp``: the GRU's ``lax.scan``
 becomes a Python loop over the history's steps.  The reference's
@@ -16,9 +15,11 @@ the sharding slice (A.13.5).
 One card holds what the reference shards over a mesh by taking rows (and
 candidates) ``ROW_CHUNK`` at a time: a forward over more rows runs chunk
 by chunk, and ``retrieval_topk`` keeps each chunk's top k and merges them.
-Rows are independent, so each chunked pass computes the reference's
-function (its values may differ in the last bits, as matmul blocking
-changes with the row count).
+Under autograd ``loss_fn`` takes ``TRAIN_ROW_CHUNK`` rows a pass, each
+recomputed in backward (``torch.utils.checkpoint``): dien's two scans
+save about 1 MB a row for backward.  Rows are independent, so each
+chunked pass computes the reference's function (its values may differ in
+the last bits, as matmul blocking and summation order change).
 """
 
 from __future__ import annotations
@@ -27,14 +28,19 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import embedding as emb
-from .specs import (P, _Tree, abstract_params, axes_tree, init_params,
-                    load_reference_params)  # noqa: F401  (the model's)
+from .specs import (P, _Tree, abstract_params, axes_tree, grad_on,
+                    init_params,
+                    load_reference_params,  # noqa: F401  (the model's)
+                    tree_leaves)
 
 # rows (serving) or candidates (retrieval) a forward pass takes at once:
 # dien's two scans hold about 250 KB of activations a row, 16 GB at 2**16
 ROW_CHUNK = 1 << 16
+# rows of one recomputed pass of a train step (dien: about 16 GB saved)
+TRAIN_ROW_CHUNK = 1 << 14
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,17 +111,21 @@ def _gru_cell(p, h, xt, a=None):
 
 def _gru_scan(p, x, mask, a=None):
     """x (B, L, D) -> (final hidden (B, H), every step's (B, L, H)); masked
-    positions keep the state."""
+    positions keep the state.  The inputs are split into steps once and
+    the states stacked at the end, as ``lax.scan`` slices and stacks: an
+    index ``x[:, t]`` or a write into one (B, L, H) tensor a step would
+    make backward fill a whole (B, L, .) gradient at every step."""
     b, l, _ = x.shape
     d_h = p["wh"].shape[0]
     h = x.new_zeros(b, d_h)
-    hs = x.new_empty(b, l, d_h)
+    xs = x.unbind(dim=1)
+    ats = [None] * l if a is None else a[..., None].unbind(dim=1)
+    hs = []
     for t in range(l):
-        at = None if a is None else a[:, t, None]
-        hn = _gru_cell(p, h, x[:, t], at)
+        hn = _gru_cell(p, h, xs[t], ats[t])
         h = torch.where(mask[:, t, None], hn, h)
-        hs[:, t] = h
-    return h, hs
+        hs.append(h)
+    return h, torch.stack(hs, dim=1)
 
 
 # --------------------------------------------------------------------------- #
@@ -279,12 +289,30 @@ def forward(model: RecModel, batch: dict) -> torch.Tensor:
                       for i in range(0, b, ROW_CHUNK)])
 
 
+def _bce(logit: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """The rows' BCE-with-logits terms (B,), in fp32."""
+    logit, y = logit.to(torch.float32), label.to(torch.float32)
+    return (torch.clamp(logit, min=0) - logit * y
+            + torch.log1p(torch.exp(-torch.abs(logit))))
+
+
 def loss_fn(model: RecModel, batch: dict):
-    """The BCE loss's value (its gradient waits for A.13.4)."""
-    logit = forward(model, batch).to(torch.float32)
-    y = batch["label"].to(torch.float32)
-    loss = torch.mean(torch.clamp(logit, min=0) - logit * y
-                      + torch.log1p(torch.exp(-torch.abs(logit))))
+    """The mean BCE loss; under autograd ``TRAIN_ROW_CHUNK`` rows a
+    recomputed pass."""
+    cfg, params = model.cfg, model.tree()
+    if not grad_on(*tree_leaves(params)):
+        loss = torch.mean(_bce(forward(model, batch), batch["label"]))
+        return loss, {"bce": loss}
+    fn = FORWARDS[cfg.model]
+
+    def chunk_sum(c):
+        return _bce(fn(params, c, cfg), c["label"]).sum()
+
+    b = batch["label"].shape[0]
+    loss = sum(checkpoint(chunk_sum, {k: v[i:i + TRAIN_ROW_CHUNK]
+                                      for k, v in batch.items()},
+                          use_reentrant=False)
+               for i in range(0, b, TRAIN_ROW_CHUNK)) / b
     return loss, {"bce": loss}
 
 

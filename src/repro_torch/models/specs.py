@@ -18,6 +18,7 @@ tree as an ``nn.Module`` under the reference's names.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Optional
@@ -51,6 +52,12 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(tree, leaves) -> Any:
+    """``leaves`` (in the walk's order) in the structure of ``tree``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def _init_leaf(spec: P, generator: torch.Generator) -> torch.Tensor:
@@ -117,6 +124,28 @@ class _Tree(nn.Module):
         out = {k: m.tree() for k, m in self.named_children()}
         out.update(self.named_parameters(recurse=False))
         return out
+
+    @contextlib.contextmanager
+    def grads_on(self):
+        """The training path's view of the parameters: inside the block
+        every parameter takes gradients; yields :meth:`tree`.  Outside it
+        they are frozen (``requires_grad=False``), so serving records no
+        autograd graph."""
+        ps = list(self.parameters())
+        for p in ps:
+            p.requires_grad_(True)
+        try:
+            yield self.tree()
+        finally:
+            for p in ps:
+                p.requires_grad_(False)
+
+
+def grad_on(*tensors) -> bool:
+    """True when autograd records an op on any of ``tensors``: the models
+    take their training form (no in-place passes on saved tensors, and
+    recomputation in backward) only then."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def load_tree(dst: dict, src, path: str = "") -> None:

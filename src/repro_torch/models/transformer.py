@@ -27,7 +27,14 @@ mixtral with a sliding window) run ``models/moe.py`` with the shared
 experts added; as in the reference, the ``n_dense_layers`` leading dense
 layers form the stack ``dense_layers`` and the rest ``moe_layers``, the
 cache index of an MoE layer is its global one, and ``trunk`` sums the
-layers' ``aux``.  ``loss_fn`` (training) waits for ROADMAP.md step A.13.4.
+layers' ``aux``.
+
+Training (``loss_fn``, the chunked cross entropy) recomputes where the
+reference does under ``jax.checkpoint``: each layer
+(``torch.utils.checkpoint``, once the parameters take gradients), each kv
+chunk of attention (``models/attention.py``) and each ``loss_chunk`` of
+the loss, so backward holds one chunk's ``(B, loss_chunk, vocab)`` fp32
+logits at a time.
 """
 
 from __future__ import annotations
@@ -36,13 +43,15 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_lib
 from . import moe as moe_lib
 from .common import apply_rope, rmsnorm
-from .specs import (P, _Tree, abstract_params, axes_tree, init_params,
+from .specs import (P, _Tree, abstract_params, axes_tree, grad_on,
+                    init_params,
                     load_reference_params,  # noqa: F401  (the model's)
-                    stack_layers, tree_map)
+                    stack_layers, tree_leaves, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -284,9 +293,16 @@ def _run_stack(stack: dict, n: int, x, pos, cfg: LMConfig, moe: bool,
     """x through the stack's ``n`` layers -> (x, the MoE layers' aux
     losses, the per-name caches (n, B, S, ...) when ``collect_cache``)."""
     auxes, kvs = [], []
+    # recompute each layer in backward (the reference's scan body runs
+    # under jax.checkpoint): autograd then holds a layer's input only
+    train = grad_on(x, *tree_leaves(stack))
     for li in range(n):
-        x, aux, kv = _layer(_layer_params(stack, li), x, pos, cfg, moe,
-                            collect_cache)
+        lp = _layer_params(stack, li)
+        if train:
+            x, aux, kv = checkpoint(_layer, lp, x, pos, cfg, moe,
+                                    collect_cache, use_reentrant=False)
+        else:
+            x, aux, kv = _layer(lp, x, pos, cfg, moe, collect_cache)
         if aux is not None:
             auxes.append(aux)
         kvs.append(kv)
@@ -312,6 +328,34 @@ def trunk(model: LM, tokens: torch.Tensor, collect_cache: bool = False):
     aux_total = (torch.stack(auxes).sum() if auxes else
                  torch.zeros((), dtype=torch.float32, device=x.device))
     return x, aux_total, caches
+
+
+def _ce_sum(xs, ys, emb):
+    """The summed cross entropy of one loss chunk: xs (B, C, D), ys (B, C)."""
+    logits = torch.einsum("bcd,vd->bcv", xs, emb.to(xs.dtype)).to(torch.float32)
+    lz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ys[..., None].long())[..., 0]
+    return torch.sum(lz - gold)
+
+
+def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor):
+    """Chunked cross entropy: the (B, S, V) logits tensor never
+    materializes.  Returns (loss + aux_weight * aux, {"ce", "aux"})."""
+    cfg = model.cfg
+    x, aux, _ = trunk(model, tokens)
+    b, s, d = x.shape
+    ck = min(cfg.loss_chunk, s)
+    while s % ck:
+        ck -= 1
+    emb = model.embed
+    train = grad_on(x, emb)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, ck):
+        xs, ys = x[:, i:i + ck], labels[:, i:i + ck]
+        tot = tot + (checkpoint(_ce_sum, xs, ys, emb, use_reentrant=False)
+                     if train else _ce_sum(xs, ys, emb))
+    loss = tot / (b * s)
+    return loss + cfg.aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 # --------------------------------------------------------------------------- #

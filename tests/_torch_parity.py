@@ -16,6 +16,19 @@ _ENCODED_FIELDS = ("codec", "n", "control", "data", "control_bits",
 
 
 @pytest.fixture
+def one_thread():
+    """The test's torch ops on one CPU thread: a test of many small ops (a
+    smoke model's train steps) stalls at every op's thread barrier when
+    pytest-xdist's workers each run a pool as wide as the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture
 def cuda_device():
     """The card, for tests marked ``cuda``; skips where there is none."""
     if not torch.cuda.is_available():

@@ -64,7 +64,8 @@ def _pair(cell: str, seed: int = 0):
 
 def _batch(cfg, cell: str, seed: int = 3):
     spec = configs.get("egnn")
-    tb = smoke_batch(spec, cfg, spec.shapes[cell], np.random.default_rng(seed))
+    tb = smoke_batch(spec, cfg, spec.shapes[cell], np.random.default_rng(seed),
+                     "cpu")
     return tb, {k: jnp.asarray(v.numpy()) for k, v in tb.items()}
 
 
@@ -179,7 +180,7 @@ def test_subgraph_batch_pads_to_the_cell():
                                dims={**configs.get("egnn").shapes["minibatch_lg"].dims,
                                      "n_nodes": m + 9, "n_edges": e + 5})
     _, cfg, _, model = _pair("full_graph_sm")
-    b = subgraph_batch(sub, seeds, cfg, cell, np.random.default_rng(0))
+    b = subgraph_batch(sub, seeds, cfg, cell, np.random.default_rng(0), "cpu")
     assert b["feats"].shape == (m + 9, cfg.d_feat) and b["src"].shape == (e + 5,)
     assert not b["feats"][m:].any() and not b["coords"][m:].any()
     assert (b["src"][e:] == m).all() and (b["dst"][e:] == m).all()
@@ -188,7 +189,8 @@ def test_subgraph_batch_pads_to_the_cell():
     assert bool(torch.isfinite(loss))
     with pytest.raises(ValueError, match="does not fit"):
         subgraph_batch(sub, seeds, cfg, dataclasses.replace(
-            cell, dims={**cell.dims, "n_nodes": m}), np.random.default_rng(0))
+            cell, dims={**cell.dims, "n_nodes": m}), np.random.default_rng(0),
+            "cpu")
 
 
 def test_gnn_molecule_smoke():
@@ -198,7 +200,7 @@ def test_gnn_molecule_smoke():
     cell = spec.shapes["molecule"]
     cfg = dataclasses.replace(spec.config_for_cell(spec.make_smoke_config(), cell), d_feat=8)
     model = E.init(cfg, torch.Generator().manual_seed(0))
-    batch = smoke_batch(spec, cfg, cell, np.random.default_rng(11))
+    batch = smoke_batch(spec, cfg, cell, np.random.default_rng(11), "cpu")
     loss, m = E.loss_fn(model, batch)
     assert np.isfinite(float(loss))
 

@@ -129,10 +129,12 @@ def test_legacy_and_many_through_b5_matches_host(gov2):
 
 
 def test_port_imports_without_jax():
-    """The port never imports jax: every module loads with jax blocked."""
+    """The port never imports jax (nor ml_dtypes): every module loads with
+    both blocked."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import repro_torch.index.engine, repro_torch.index.device\n"
         "import repro_torch.kernels.intersect_rounds\n"
         "import repro_torch.kernels.topk, repro_torch.index.scores\n"
@@ -166,13 +168,20 @@ def test_port_imports_without_jax():
         "import repro_torch.launch.batches, repro_torch.launch.serve\n"
         "import repro_torch.core.dgap, repro_torch.core.layout\n"
         "import repro_torch.core.group_simple\n"
+        "import repro_torch.optim, repro_torch.optim.adamw\n"
+        "import repro_torch.runtime, repro_torch.runtime.trainer\n"
+        "import repro_torch.runtime.train_loop\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.checkpointer\n"
+        "import repro_torch.launch.train\n"
+        "import repro_torch.distributed.collectives\n"
         "from repro_torch import configs\n"
         "assert len(configs.ARCHS) == 10 and not configs.PENDING\n"
         "from repro_torch.obs import regress, run_gate\n"
         "from repro_torch.core import codec\n"
         "assert len(codec.names()) == 31\n"
-        "bad = [m for m in sys.modules if m == 'repro' "
-        "or m.startswith(('repro.', 'jax.'))]\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "(m == 'repro' "
+        "or m.startswith(('repro.', 'jax.', 'ml_dtypes')))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     src = os.path.join(os.path.dirname(os.path.dirname(

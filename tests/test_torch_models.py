@@ -37,6 +37,7 @@ from repro_torch import configs
 from repro_torch.configs import base
 from repro_torch.models import attention, common, specs
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw_init
 
 from _torch_parity import cuda_device  # noqa: F401  (fixture)
 
@@ -466,19 +467,23 @@ def test_step_fns_serve_and_name_what_waits():
     fn, _ = base.STEP_FNS["lm"](cfg, base.LM_SHAPES["decode_32k"])
     out, _ = fn(model, {"cache": _extend(cache, 1), "token": want.argmax(-1), "pos": 8})
     assert out.shape == (2, cfg.vocab)
-    with pytest.raises(NotImplementedError, match="A.13.4"):
-        base.STEP_FNS["lm"](cfg, base.LM_SHAPES["train_4k"])
-    # recsys serves (tests/test_torch_recsys.py); the train cells of recsys
-    # and EGNN (all of EGNN's) name the training slice
+    # every train cell (the LM's, recsys', all of EGNN's) is a train step
+    # since the training slice: step(model, opt, batch), AdamW in place
+    fn, is_train = base.STEP_FNS["lm"](cfg, base.LM_SHAPES["train_4k"])
+    assert is_train
+    opt = adamw_init(model.tree())
+    _, opt, metrics = fn(model, opt, {"tokens": toks, "labels": toks})
+    assert int(opt["step"]) == 1 and set(metrics) == {"loss", "ce", "aux",
+                                                       "grad_norm", "lr"}
     rcfg = configs.get("din").make_smoke_config()
     fn, is_train = base.STEP_FNS["recsys"](rcfg, base.RECSYS_SHAPES["serve_p99"])
     assert not is_train and callable(fn)
-    with pytest.raises(NotImplementedError, match="A.13.4"):
-        base.STEP_FNS["recsys"](rcfg, base.RECSYS_SHAPES["train_batch"])
+    fn, is_train = base.STEP_FNS["recsys"](rcfg, base.RECSYS_SHAPES["train_batch"])
+    assert is_train and callable(fn)
     gspec = configs.get("egnn")
     for cell in gspec.shapes.values():
-        with pytest.raises(NotImplementedError, match="A.13.4"):
-            base.STEP_FNS["gnn"](gspec.make_smoke_config(), cell)
+        fn, is_train = base.STEP_FNS["gnn"](gspec.make_smoke_config(), cell)
+        assert is_train and callable(fn)
 
 
 def test_registry_holds_the_dense_archs_and_names_the_rest():

@@ -30,6 +30,7 @@ from repro_torch.launch.batches import cell_batch, smoke_batch
 from repro_torch.models import embedding
 from repro_torch.models import recsys as R
 from repro_torch.models import specs
+from repro_torch.optim import adamw_init
 
 from _torch_parity import cuda_device  # noqa: F401  (fixture)
 
@@ -84,7 +85,7 @@ def _batch(arch: str, cfg, shape: str, seed: int = 3):
     reference; a retrieval batch keeps one query row."""
     spec = configs.get(arch)
     cell = spec.shapes[shape]
-    tb = smoke_batch(spec, cfg, cell, np.random.default_rng(seed))
+    tb = smoke_batch(spec, cfg, cell, np.random.default_rng(seed), "cpu")
     if cell.kind == "retrieval":
         tb = {k: (v if k.startswith("cand_") else v[:1]) for k, v in tb.items()}
     return tb, {k: jnp.asarray(v.numpy()) for k, v in tb.items()}
@@ -306,7 +307,8 @@ def test_smoke_batch_draws_the_reference_arrays(arch, shape, monkeypatch):
     ref_cfg = ref_spec.config_for_cell(ref_spec.make_smoke_config(), ref_spec.shapes[shape])
     monkeypatch.setattr(test_arch_smoke, "RNG", np.random.default_rng(21))
     want = test_arch_smoke._smoke_batch(ref_spec, ref_cfg, ref_spec.shapes[shape])
-    got = smoke_batch(spec, cfg, spec.shapes[shape], np.random.default_rng(21))
+    got = smoke_batch(spec, cfg, spec.shapes[shape], np.random.default_rng(21),
+                      "cpu")
     assert list(got) == list(want)
     for k, v in got.items():
         w = np.asarray(want[k])
@@ -321,7 +323,7 @@ def test_cell_batch_has_the_cells_shapes():
     cfg = spec.make_smoke_config()
     for name, cell in spec.shapes.items():
         cell = dataclasses.replace(cell, dims={k: min(v, 300) for k, v in cell.dims.items()})
-        got = cell_batch(spec, cfg, cell, np.random.default_rng(0))
+        got = cell_batch(spec, cfg, cell, np.random.default_rng(0), "cpu")
         want = base.recsys_input_specs(cfg, cell)
         assert {k: tuple(v.shape) for k, v in got.items()} == \
             {k: tuple(v.shape) for k, v in want.items()}, name
@@ -341,8 +343,13 @@ def test_step_fns_serve_retrieve_and_name_training():
     s, i = fn(model, rb)
     ws, wi = R.retrieval_topk(model, rb, k=100)
     assert torch.equal(s, ws) and torch.equal(i, wi)
-    with pytest.raises(NotImplementedError, match="A.13.4"):
-        base.STEP_FNS["recsys"](cfg, spec.shapes["train_batch"])
+    # the train cell takes a train step (tests/test_torch_train.py)
+    fn, is_train = base.STEP_FNS["recsys"](cfg, spec.shapes["train_batch"])
+    tb, _ = _batch("din", cfg, "train_batch")
+    opt = adamw_init(model.tree())
+    _, opt, metrics = fn(model, opt, tb)
+    assert is_train and int(opt["step"]) == 1
+    assert float(metrics["loss"]) == float(metrics["bce"])
 
 
 @pytest.mark.parametrize("arch", RECSYS)
@@ -355,12 +362,12 @@ def test_smoke_recsys_serve_and_retrieval(arch):
     rng = np.random.default_rng(11)
     serve_cell = spec.shapes["serve_p99"]
     step_fn, _ = base.STEP_FNS["recsys"](cfg, serve_cell, None)
-    probs = step_fn(model, smoke_batch(spec, cfg, serve_cell, rng))
+    probs = step_fn(model, smoke_batch(spec, cfg, serve_cell, rng, "cpu"))
     assert probs.shape == (8,) and bool(torch.isfinite(probs).all())
     assert float(probs.min()) >= 0 and float(probs.max()) <= 1
     retr_cell = spec.shapes["retrieval_cand"]
     step_fn, _ = base.STEP_FNS["recsys"](cfg, retr_cell, None)
-    batch = smoke_batch(spec, cfg, retr_cell, rng)
+    batch = smoke_batch(spec, cfg, retr_cell, rng, "cpu")
     batch = {k: (v[:1] if k not in ("cand_items", "cand_cates") else v) for k, v in batch.items()}
     scores, ids = step_fn(model, batch)
     assert scores.shape[0] <= 100 and bool(torch.isfinite(scores).all())

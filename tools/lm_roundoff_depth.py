@@ -20,13 +20,24 @@ prompts of ``--seq`` tokens from ``--seed``:
   * ``sens`` (reference only): ``trunk``'s change when the embedding is
     scaled by 1 + 1e-7, over its max.
 
+With ``--grad`` it prints instead, per depth, the training gradient of
+one sequence of ``--seq`` tokens in the architecture's own dtypes (fp32
+weights, its activation dtype): the global norm of ``loss_fn``'s gradient
+in the reference (``jax.value_and_grad``) and in the port (autograd), the
+loss of each, and each one's losses over ``--steps`` AdamW steps (lr
+``--lr``, no warm-up) on that sequence: ``repro.optim.adamw`` and the
+port's ``make_train_step``.
+
 No card is needed.  Usage::
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/lm_roundoff_depth.py \\
         [--arch smollm-135m:1,2,4,8,16,30] [--arch starcoder2-3b:1,2,4] \\
         [--seq 64] [--seed 0]
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tools/lm_roundoff_depth.py \\
+        --grad --arch smollm-135m:2,30 --seq 512 [--steps 5] [--lr 3e-3]
 
-(about 2 minutes and 8 GB of host memory with the defaults).
+(about 2 minutes and 8 GB of host memory with the defaults; ``--grad`` as
+shown about 4 minutes and 6 GB).
 """
 
 from __future__ import annotations
@@ -47,6 +58,10 @@ def main() -> int:
                     help="<arch>:<depth,depth,...> (repeatable)")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--grad", action="store_true",
+                    help="gradient norms and AdamW losses per depth")
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--lr", type=float, default=3e-3)
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -65,6 +80,9 @@ def main() -> int:
         a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
         return float(np.abs(a - b).max() / np.abs(b).max())
 
+    if args.grad:
+        return grad_rows(args, jax, jnp, np, torch, ref_configs, RT,
+                         configs, T, tree_map)
     rows = []
     for item in args.arch or DEFAULT_ARCHS:
         arch, depths = item.split(":")
@@ -123,6 +141,79 @@ def main() -> int:
                   f"{row['port_bf16']:.3e}; sens ref {row['ref_sens']:.3e}",
                   flush=True)
     print(json.dumps({"seq": args.seq, "seed": args.seed, "rows": rows}))
+    return 0
+
+
+def grad_rows(args, jax, jnp, np, torch, ref_configs, RT, configs, T,
+              tree_map) -> int:
+    """The ``--grad`` table (module docstring)."""
+    from repro.optim import adamw as RA
+    from repro_torch.optim import AdamWConfig, adamw_init, global_norm
+    from repro_torch.runtime.trainer import make_train_step, value_and_grad
+
+    rows = []
+    for item in args.arch or ("smollm-135m:2,30",):
+        arch, depths = item.split(":")
+        depths = sorted(int(d) for d in depths.split(","))
+        top = depths[-1]
+        ref_full = dataclasses.replace(ref_configs.get(arch).make_config(),
+                                       n_layers=top)
+        full = dataclasses.replace(configs.get(arch).make_config(),
+                                   n_layers=top)
+        params = RT.init(ref_full, jax.random.PRNGKey(args.seed))
+        model = T.init(full, torch.Generator().manual_seed(args.seed))
+        T.load_reference_params(model, jax.tree.map(np.asarray, params))
+        rng = np.random.default_rng(args.seed + 1)
+        toks = rng.integers(0, full.vocab, (1, args.seq + 1)).astype(np.int32)
+        x, y = toks[:, :-1], toks[:, 1:]
+        ocfg = RA.AdamWConfig(lr=args.lr, warmup_steps=0,
+                              total_steps=args.steps)
+        pcfg = AdamWConfig(lr=args.lr, warmup_steps=0, total_steps=args.steps)
+        for n in depths:
+            rp = dict(params, dense_layers=jax.tree.map(lambda a: a[:n],
+                                                        params["dense_layers"]))
+            rc = dataclasses.replace(ref_full, n_layers=n)
+            tree = model.tree()
+            tree["dense_layers"] = tree_map(lambda a: a[:n], tree["dense_layers"])
+            m = T.LM(dataclasses.replace(full, n_layers=n), tree)
+            vg = jax.jit(jax.value_and_grad(
+                lambda p: RT.loss_fn(p, jnp.asarray(x), jnp.asarray(y), rc)[0]))
+            loss, g = vg(rp)
+            row = {"arch": arch, "layers": n, "dtype": str(rc.dtype),
+                   "ref_loss": float(loss),
+                   "ref_grad_norm": float(RA.global_norm(g))}
+            lm_loss = lambda mm, b: T.loss_fn(mm, b["x"], b["y"])
+            batch = {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
+            (pl, _), pg = value_and_grad(lm_loss, m, batch)
+            row["port_loss"] = float(pl)
+            row["port_grad_norm"] = float(global_norm(pg))
+            del pg
+            # the port's AdamW steps, on a copy (the depths share leaves)
+            mc = T.LM(m.cfg, tree_map(lambda a: a.clone(), m.tree()))
+            oc, pstep, plosses = adamw_init(mc.tree()), make_train_step(
+                lm_loss, pcfg), []
+            for _ in range(args.steps):
+                mc, oc, met = pstep(mc, oc, batch)
+                plosses.append(float(met["loss"]))
+            row["port_adamw_losses"] = plosses
+            del mc, oc
+            # the reference's own AdamW steps on this one sequence
+            p, opt, losses = rp, RA.adamw_init(rp), []
+            step = jax.jit(lambda p, o: (lambda lg: (lg[0],) + RA.adamw_update(
+                p, lg[1], o, ocfg)[:2])(vg(p)))
+            for _ in range(args.steps):
+                l, p, opt = step(p, opt)
+                losses.append(float(l))
+            row["ref_adamw_losses"] = losses
+            rows.append(row)
+            print(f"{arch} layers {n:2d} ({row['dtype']} activations): grad "
+                  f"norm ref {row['ref_grad_norm']:.4e} port "
+                  f"{row['port_grad_norm']:.4e}; loss ref {row['ref_loss']:.5f} "
+                  f"port {row['port_loss']:.5f}; AdamW losses ref "
+                  f"{[round(v, 4) for v in losses]} port "
+                  f"{[round(v, 4) for v in plosses]}", flush=True)
+    print(json.dumps({"seq": args.seq, "seed": args.seed, "lr": args.lr,
+                      "rows": rows}))
     return 0
 
 
