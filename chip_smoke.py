@@ -339,6 +339,25 @@ torch version on the card:
              edges/s, peak (ogb_products below 40 GiB); full_graph_sm's
              loss and gradients against the host CPU (1e-4 relative,
              1e-3).
+  mesh       last: meshes and sharding plans.  The process group starts:
+             one rank a card, spawned, with 2 or more cards; else a world of
+             1 over NCCL in this process.  smollm-135m at its published
+             widths, on the train phase's weights (--seed) and first batch
+             (4 x 4,096): one train step (``make_train_step`` with
+             ``lm_grads_like_params``) unplanned, and one on a
+             ``make_host_mesh((world, 1))`` mesh under ``lm_dense_plan``
+             (``DTensor`` parameters, batch and optimizer state), its loss,
+             every gradient and the parameters after the update bitwise the
+             unplanned step's on a world of 1 (within 2e-2 of each leaf's
+             max |g| with more ranks); the planned step again, timed.
+             dlrm-rm2's 26 tables of 2**20 x 64 under ``recsys_plan``:
+             ``lookup_stacked`` on ``serve_bulk``'s 262,144 rows (the EP
+             path) bitwise the plain gather.  With 2 or more cards only:
+             ``pipeline_2stage`` on a ("pod", "data") mesh bitwise the
+             sequential layers on each microbatch (cuBLAS rounds a GEMM
+             of other rows otherwise); the process-group compressed all-reduce
+             bitwise its list form; ``restore(shardings=)`` onto half the
+             ranks equal to the tensor saved.  No B kernel launches.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed phase raises and the script exits nonzero without that
@@ -436,6 +455,10 @@ TRAIN_GRAD_FLOOR = 1e-3         # a leaf's bound floor: of the largest |g|
 TRAIN_DP_RANKS = 8              # compressed DP: logical ranks on the card
 TRAIN_DP_STEPS = 4              # ... steps per bits (None, 8, 4)
 TRAIN_DP_ALLREDUCE_TOL = 0.05   # int8 all-reduce: of max |exact mean|
+MESH_LM_TOL = 2e-2              # mesh phase, 2+ ranks: loss rel, max |g|
+MESH_PIPE = (4, 2048, 4, 512)   # ... pipeline: layers, width, micro, rows
+MESH_AR_FLOATS = 1 << 24        # ... compressed all-reduce: floats a rank
+MESH_INPUTS: dict = {}          # the train phase's first smollm batch
 # examples phase: (name, command, a line its output must hold)
 EXAMPLES = (
     ("quickstart", ["examples/quickstart_torch.py"],
@@ -2486,6 +2509,14 @@ def grad_errs(got: list, want: list) -> tuple:
     return worst
 
 
+def train_lm_store(seed: int, cfg, np):
+    """The train phase's smollm token store, drawn from --seed."""
+    from repro_torch.data.pipeline import TokenStore
+    rng = np.random.default_rng(seed + 43)
+    toks = ((rng.zipf(LM_ZIPF, TRAIN_LM_STORE) - 1) % cfg.vocab).astype(np.uint32)
+    return TokenStore.build(toks, codec="bp128", block=LM_STORE_BLOCK)
+
+
 def train_phase(dev, seed, graph_job, smi, np, torch) -> dict:
     """The train phase (module docstring): smollm-135m, the four recsys
     archs and EGNN take train steps at full width on ``dev``; compressed
@@ -2498,7 +2529,7 @@ def train_phase(dev, seed, graph_job, smi, np, torch) -> dict:
     from repro_torch import configs
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs.base import STEP_FNS
-    from repro_torch.data.pipeline import TokenStore, lm_batch_iter
+    from repro_torch.data.pipeline import lm_batch_iter
     from repro_torch.distributed import collectives as C
     from repro_torch.launch.batches import cell_batch, subgraph_batch
     from repro_torch.models import egnn as E
@@ -2555,11 +2586,9 @@ def train_phase(dev, seed, graph_job, smi, np, torch) -> dict:
     cell = spec.shapes["train_4k"]
     cfg = spec.config_for_cell(spec.make_config(), cell)
     seq = cell.dims["seq"]
-    rng = np.random.default_rng(seed + 43)
-    toks = ((rng.zipf(LM_ZIPF, TRAIN_LM_STORE) - 1) % cfg.vocab).astype(np.uint32)
-    store = TokenStore.build(toks, codec="bp128", block=LM_STORE_BLOCK)
-    del toks
+    store = train_lm_store(seed, cfg, np)
     batches = lm_batch_iter(store, TRAIN_LM_BATCH, seq)
+    MESH_INPUTS["lm_batch"] = batches(0)[0]
     ocfg = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=TRAIN_LM_STEPS)
 
     def lm_loss(m, b):
@@ -2925,6 +2954,290 @@ def train_phase(dev, seed, graph_job, smi, np, torch) -> dict:
         part(f"egnn {name}")
     out["seconds"] = secs
     return out
+
+
+def _mesh_rank(rank: int, world: int, port: int, src: str, seed: int,
+               batch: dict, tmp: str) -> None:
+    """A spawned rank of the mesh phase; rank 0 writes the figures."""
+    sys.path.insert(0, src)
+    import numpy as np
+    import torch
+    res = mesh_work(rank, world, port, seed, batch, tmp, np, torch)
+    if rank == 0:
+        with open(os.path.join(tmp, "mesh.json"), "w") as f:
+            json.dump(res, f)
+
+
+def mesh_work(rank, world, port, seed, batch, tmp, np, torch) -> dict:
+    """The mesh phase on one rank of a world of ``world`` (NCCL, one card
+    a rank).  Raises on any failed check; returns the figures."""
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import lm_grads_like_params
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import embedding as E
+    from repro_torch.models import transformer as T
+    from repro_torch.models.specs import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.trainer import make_train_step, to_device
+
+    def say(msg):
+        if rank == 0:
+            log(msg)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    K.reset_launches()
+    M.init_world("nccl", rank=rank, world_size=world, port=port)
+    out = {"world": world}
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        host_mesh = M.make_host_mesh((world, 1))
+        say(f"mesh: world {world} (NCCL), smollm on {host_mesh}")
+        # ---- smollm-135m: one step planned, one unplanned ---------------- #
+        spec = configs.get(TRAIN_LM)
+        cell = spec.shapes["train_4k"]
+        cfg = spec.config_for_cell(spec.make_config(), cell)
+        plan = spec.plan_for(cfg, cell)
+        b = to_device(batch, dev)
+        ocfg = AdamWConfig(lr=3e-3, warmup_steps=0, total_steps=TRAIN_LM_STEPS)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        model = T.init(cfg, gen)
+        if world > 1:
+            # as the train phase's card-vs-CPU check: at the reference's
+            # init wq and wk's gradients come from near-tied scores, which
+            # another split of the batch's round-off flips
+            attn_fan_in(model.tree(), cfg, torch)
+        twin = T.LM(cfg, tree_map(lambda t: t.clone(), model.tree()))
+        kept = {}
+
+        def step_keeping(name):
+            layout = lm_grads_like_params(cfg)
+
+            def keep(grads):
+                grads = layout(grads)
+                kept[name] = [full(g).clone() for g in tree_leaves(grads)]
+                return grads
+            return make_train_step(
+                lambda m, bb: T.loss_fn(m, bb["tokens"], bb["labels"]), ocfg,
+                grad_transform=keep)
+
+        if world > 1:           # a fresh process: warm the unplanned step
+            warm = T.LM(cfg, tree_map(lambda t: t.clone(), model.tree()))
+            step_keeping("warm")(warm, adamw_init(warm.tree()), b)
+            del warm, kept["warm"]
+        opt = adamw_init(model.tree())
+        (_, _, m0), plain_ms = timed(
+            lambda: step_keeping("plain")(model, opt, b))
+        with shlib.plan_scope(host_mesh, plan):
+            dm = shlib.distribute_model(twin, T.axes(cfg))
+            db = shlib.distribute_tree(b, spec.batch_axes(cfg, cell))
+            dopt = adamw_init(dm.tree())
+            step = step_keeping("planned")
+            (_, _, m1), planned_ms = timed(lambda: step(dm, dopt, db))
+            loss0, loss1 = float(m0["loss"]), float(full(m1["loss"]))
+            grads0, grads1 = kept["plain"], kept["planned"]
+            after = [full(p).clone() for p in tree_leaves(dm.tree())]
+            _, again_ms = timed(lambda: step(dm, dopt, db))
+        del twin, dm, dopt, db, kept
+        if not all(p.device == dev for p in after):
+            raise AssertionError("mesh: a planned parameter left the card")
+        if world == 1:
+            same = (loss0 == loss1 and all(torch.equal(x, y) for x, y in
+                                           zip(grads0, grads1))
+                    and all(torch.equal(x, y) for x, y in
+                            zip(tree_leaves(model.tree()), after)))
+            if not same:
+                raise AssertionError("mesh: the planned smollm step is not "
+                                     "bitwise the unplanned one")
+            check = "bitwise equal (loss, every gradient, the parameters after)"
+        else:
+            errs = [float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+                    for x, y in zip(grads1, grads0)]
+            rel = abs(loss1 - loss0) / abs(loss0)
+            if max(errs + [rel]) > MESH_LM_TOL:
+                raise AssertionError(f"mesh: planned vs unplanned: loss rel "
+                                     f"{rel}, grads {max(errs)}")
+            check = (f"loss rel {rel:.3e}, grads {max(errs):.3e} of each "
+                     f"leaf's max |g| (limit {MESH_LM_TOL})")
+        del grads0, grads1, after, model, opt
+        out["lm"] = {"plan": plan.name, "loss": loss1, "plain_step_ms": plain_ms,
+                     "planned_step_ms": planned_ms,
+                     "planned_step_again_ms": again_ms, "check": check}
+        say(f"{TRAIN_LM} train_4k ({' x '.join(map(str, b['tokens'].shape))}) "
+            f"under {plan.name} on ({world}, 1): loss {loss1:.6f}, {check}; "
+            f"step ms unplanned {plain_ms:.1f}, planned {planned_ms:.1f} "
+            f"(first), {again_ms:.1f} (again)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- dlrm-rm2's tables: the EP lookup ----------------------------- #
+        rspec = configs.get("dlrm-rm2")
+        rcell = rspec.shapes["serve_bulk"]
+        rcfg = rspec.make_config()
+        ep_mesh = (M.make_host_mesh((world // 2, 2)) if world % 2 == 0
+                   else host_mesh)
+        gen.manual_seed(seed + 7)
+        tables = torch.randn((rcfg.n_sparse, rcfg.table_rows, rcfg.embed_dim),
+                             generator=gen, device=dev)
+        ids = torch.as_tensor(np.random.default_rng(seed + 8).integers(
+            0, rcfg.table_rows, (rcell.dims["batch"], rcfg.n_sparse)),
+            dtype=torch.int32, device=dev)
+        plain, plain_ms = timed(lambda: E.lookup_stacked(tables, ids))
+        with shlib.plan_scope(ep_mesh, rspec.plan_for(rcfg, rcell)):
+            dt = shlib.distribute(tables, (None, "table_rows", None))
+            di = shlib.distribute(ids, ("batch", None))
+            del tables
+            got, ep_ms = timed(lambda: E.lookup_stacked(dt, di))
+            got = full(got)
+            _, ep_again_ms = timed(lambda: E.lookup_stacked(dt, di))
+        if not torch.equal(got, plain):
+            raise AssertionError("mesh: dlrm-rm2's EP lookup differs from the "
+                                 "plain gather")
+        out["ep_lookup"] = {"rows": rcell.dims["batch"], "plain_ms": plain_ms,
+                            "ep_ms": ep_ms, "ep_again_ms": ep_again_ms,
+                            "mesh": list(ep_mesh.shape)}
+        say(f"dlrm-rm2 lookup_stacked, {rcell.dims['batch']} rows x "
+            f"{rcfg.n_sparse} tables of {rcfg.table_rows} x {rcfg.embed_dim} "
+            f"under recsys_ep on {tuple(ep_mesh.shape)}: bitwise the plain "
+            f"gather; ms EP {ep_ms:.2f} (first), {ep_again_ms:.2f} (again), "
+            f"plain {plain_ms:.2f}")
+        del dt, di, got, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        if world == 1:
+            say("mesh: pipeline_2stage, the process-group compressed "
+                "all-reduce and the elastic restore need 2 cards: they ran in "
+                "tests/test_torch_distribution.py on gloo ranks and in the "
+                "4-card run of PERF.md")
+        else:
+            out.update(mesh_cross_card(rank, world, seed, tmp, dev, say, timed,
+                                       full, np, torch))
+        launched = {k: v for k, v in K.LAUNCHES.items() if v}
+        if launched:
+            raise AssertionError(f"the mesh phase launched B kernels: {launched}")
+        out["launches"] = launched
+    finally:
+        M.shutdown_world()
+    return out
+
+
+def mesh_cross_card(rank, world, seed, tmp, dev, say, timed, full, np,
+                    torch) -> dict:
+    """The mesh phase's checks that exist only across cards."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.distributed.pipeline import pipeline_2stage
+    from repro_torch.launch import mesh as M
+    out = {}
+    # pipeline: 2 stages over "pod", the layers as the sequential loop
+    n_layers, width, n_micro, rows = MESH_PIPE
+    pmesh = M.make_host_mesh((2, world // 2), ("pod", "data"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 9)
+    ws = torch.randn((n_layers, width, width), generator=g, device=dev) / width ** 0.5
+    x = torch.randn((n_micro, rows, width), generator=g, device=dev)
+
+    def layer(w, h):
+        return torch.tanh(h @ w)
+    got, first_ms = timed(lambda: pipeline_2stage(layer, ws, x, pmesh))
+    _, pipe_ms = timed(lambda: pipeline_2stage(layer, ws, x, pmesh))
+
+    def sequential(h):             # one microbatch, the stages' shapes
+        for li in range(n_layers):
+            h = layer(ws[li], h)
+        return h
+    ref = torch.stack([sequential(xm) for xm in x])
+    if not torch.equal(got, ref):
+        raise AssertionError(f"mesh: pipeline_2stage differs from the "
+                             f"sequential layers by {(got - ref).abs().max()}")
+    _, seq_ms = timed(lambda: [sequential(xm) for xm in x])
+    out["pipeline"] = {"layers": n_layers, "width": width, "micro": n_micro,
+                       "rows": rows, "first_ms": first_ms, "ms": pipe_ms,
+                       "sequential_ms": seq_ms}
+    say(f"pipeline_2stage on (2, {world // 2}) ('pod', 'data'): {n_layers} "
+        f"layers of {width} x {width}, {n_micro} microbatches of {rows}: "
+        f"bitwise the sequential layers; ms {first_ms:.1f} (first), "
+        f"{pipe_ms:.1f} (again), sequential on one card {seq_ms:.1f}")
+    # the compressed all-reduce: process group against the list form
+    xs = [torch.as_tensor(np.random.default_rng([seed, r]).standard_normal(
+        MESH_AR_FLOATS, dtype=np.float32), device=dev) for r in range(world)]
+    (red, res), first_ms = timed(lambda: C.compressed_allreduce_flat_group(
+        xs[rank], None, 8))
+    _, ar_ms = timed(lambda: C.compressed_allreduce_flat_group(xs[rank], None, 8))
+    reds, resids = C.compressed_allreduce_flat(xs, 8)
+    if not (torch.equal(red, reds[rank]) and torch.equal(res, resids[rank])):
+        raise AssertionError("mesh: the process-group compressed all-reduce "
+                             "differs from the list form")
+    out["allreduce"] = {"floats": MESH_AR_FLOATS, "first_ms": first_ms,
+                        "ms": ar_ms,
+                        "wire_bytes": C.wire_bytes(MESH_AR_FLOATS, world, 8)}
+    say(f"compressed_allreduce_flat_group, int8, {MESH_AR_FLOATS} floats a "
+        f"rank over {world} ranks: bitwise the list form; ms {first_ms:.1f} "
+        f"(first), {ar_ms:.1f} (again)")
+    del xs, reds, resids
+    # the elastic restore: saved by every rank, restored onto half of them
+    from torch.distributed.tensor import Replicate, Shard
+    full_x = torch.arange(world * 4 * 64, dtype=torch.float32,
+                          device=dev).reshape(world * 4, 64)
+    wmesh = M.make_host_mesh((world, 1))
+    half = M.make_host_mesh((world // 2, 1))
+    ck = Checkpointer(os.path.join(tmp, "elastic"))
+    ck.save(1, {"x": shlib.from_full(full_x, wmesh, (Shard(0), Replicate()))},
+            {"cursor": 5})
+    state, step, extra = ck.restore(
+        {"x": full_x}, shardings={"x": (half, (Shard(0), Replicate()))})
+    if state["x"] is not None:
+        if not (torch.equal(state["x"].full_tensor(), full_x) and step == 1
+                and extra == {"cursor": 5}):
+            raise AssertionError("mesh: the elastic restore differs")
+    out["elastic"] = {"saved_by": world, "restored_by": world // 2}
+    say(f"checkpoint saved by {world} ranks, restored onto {world // 2}: equal")
+    return out
+
+
+def mesh_phase(seed, smi, np, torch) -> dict:
+    """The mesh phase (module docstring), last: one rank a card, spawned,
+    with 2 or more cards, else a world of 1 here."""
+    import tempfile
+
+    import torch.multiprocessing as tmp_mp
+
+    from repro_torch.launch.mesh import free_port
+    if "lm_batch" not in MESH_INPUTS:           # the phase run alone
+        from repro_torch import configs
+        spec = configs.get(TRAIN_LM)
+        cell = spec.shapes["train_4k"]
+        from repro_torch.data.pipeline import lm_batch_iter
+        MESH_INPUTS["lm_batch"] = lm_batch_iter(
+            train_lm_store(seed, spec.make_config(), np), TRAIN_LM_BATCH,
+            cell.dims["seq"])(0)[0]
+    batch = MESH_INPUTS["lm_batch"]
+    world = torch.cuda.device_count()
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    log(f"== mesh: world {world if world >= 2 else 1}; {smi}")
+    with tempfile.TemporaryDirectory() as tmp:
+        if world >= 2:
+            gc.collect()
+            torch.cuda.empty_cache()
+            tmp_mp.spawn(_mesh_rank, args=(world, free_port(), src, seed,
+                                           batch, tmp), nprocs=world,
+                         join=True)
+            with open(os.path.join(tmp, "mesh.json")) as f:
+                return json.load(f)
+        return mesh_work(0, 1, free_port(), seed, batch, tmp, np, torch)
 
 
 def main() -> int:
@@ -4400,13 +4713,21 @@ def main() -> int:
                              f"{train['launches']}")
     log("train launched no B kernel (every count 0)")
     phase_done("train")
+
+    # ---- meshes and sharding plans, last ---------------------------------- #
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(args.seed, smi, np, torch)
+    log("mesh launched no B kernel (every count 0)")
+    phase_done("mesh")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"phases_s": phase_s, "ranked": {
         m: {k: v for k, v in r.items() if k != "recent"}
         for m, r in ranked.items()}, "mutation": mut, "stream": stream,
         "codecs": codecs, "sharded": sharded, "serve": serve,
-        "examples": examples, "lm": lm, "recsys_gnn": rg, "train": train}),
+        "examples": examples, "lm": lm, "recsys_gnn": rg, "train": train,
+        "mesh": mesh}),
         flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,8 +34,27 @@ import numpy as np
 import torch
 
 
-def _flatten_with_paths(tree, prefix: str = "") -> dict:
+def _is_sharding(x) -> bool:
+    """A ``(mesh, placements)`` leaf of a shardings tree."""
+    return (isinstance(x, tuple) and len(x) == 2
+            and hasattr(x[0], "mesh_dim_names"))
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _flatten_with_paths(tree, prefix: str = "", leaf=None) -> dict:
     """{"a/b/0": leaf} in the walk's order (dict keys sorted)."""
+    if leaf is not None and leaf(tree):
+        return {prefix: tree}
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (tuple, list)):
@@ -44,7 +63,8 @@ def _flatten_with_paths(tree, prefix: str = "") -> dict:
         return {prefix: tree}
     out = {}
     for k, v in items:
-        out.update(_flatten_with_paths(v, f"{prefix}/{k}" if prefix else k))
+        out.update(_flatten_with_paths(v, f"{prefix}/{k}" if prefix else k,
+                                       leaf))
     return out
 
 
@@ -63,6 +83,8 @@ def _unflatten_like(tree, leaves: dict, prefix: str = ""):
 def _to_numpy(t) -> np.ndarray:
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
+    if hasattr(t, "full_tensor"):           # a DTensor: the whole tensor
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:           # ml_dtypes' bytes, written as |V2
         return t.view(torch.int16).numpy().view(np.uint16).view("V2")
@@ -107,13 +129,23 @@ class Checkpointer:
     keep: int = 3
 
     def save(self, step: int, state, extra: dict | None = None) -> str:
-        os.makedirs(self.directory, exist_ok=True)
+        """Write ``state`` as step ``step``.  A ``DTensor`` leaf is written
+        whole (the same bytes and keys as an unsharded save); with a
+        process group every rank calls ``save`` (the gathers are
+        collectives), rank 0 writes, and all wait for it."""
+        arrays = {k: _to_numpy(v) for k, v in _flatten_with_paths(state).items()}
         final = os.path.join(self.directory, f"step_{step:06d}")
+        if _rank() == 0:
+            self._write(final, step, arrays, extra)
+        _barrier()
+        return final
+
+    def _write(self, final: str, step: int, arrays: dict, extra) -> None:
+        os.makedirs(self.directory, exist_ok=True)
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        arrays = {k: _to_numpy(v) for k, v in _flatten_with_paths(state).items()}
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         manifest = {
             "step": step,
@@ -131,7 +163,6 @@ class Checkpointer:
             shutil.rmtree(final)
         os.rename(tmp, final)                       # atomic publish
         self._gc()
-        return final
 
     def _gc(self):
         for s in _steps(self.directory)[: -self.keep]:
@@ -150,11 +181,19 @@ class Checkpointer:
             out[k] = blob
         return out
 
-    def restore(self, state_template, step: int | None = None):
+    def restore(self, state_template, step: int | None = None,
+                shardings=None):
         """Restore into the structure of ``state_template`` (new tensors of
         each template leaf's dtype, on its device).  Skips corrupted
         checkpoints (falls back to older steps).  Returns (state, step,
-        extra)."""
+        extra).
+
+        shardings (optional): a tree like the template of ``(mesh,
+        placements)`` leaves (``sharding.sharding_for_axes_tree``): each
+        leaf comes back a ``DTensor`` on that mesh, every rank keeping its
+        shard, whatever mesh wrote it (the elastic reshard); a rank outside
+        the mesh gets None.  A ``DTensor`` template leaf with no entry
+        comes back laid out as the template."""
         step = step if step is not None else latest_step(self.directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -168,11 +207,19 @@ class Checkpointer:
                 last_err = e
         else:
             raise IOError(f"no intact checkpoint found: {last_err}")
+        shard_of = (_flatten_with_paths(shardings, leaf=_is_sharding)
+                    if shardings is not None else {})
         leaves = {}
         for k, tmpl in _flatten_with_paths(state_template).items():
             arr = arrays[k]
             assert tuple(arr.shape) == tuple(tmpl.shape), (k, arr.shape, tmpl.shape)
             leaves[k] = _to_tensor(arr, tmpl)
+            if k not in shard_of and hasattr(tmpl, "placements"):
+                shard_of[k] = (tmpl.device_mesh, tuple(tmpl.placements))
+            if k in shard_of:
+                from ..distributed.sharding import from_full
+                mesh, pl = shard_of[k]
+                leaves[k] = from_full(leaves[k], mesh, pl)
         with open(os.path.join(path, "extra.json")) as f:
             extra = json.load(f)
         return _unflatten_like(state_template, leaves), s, extra

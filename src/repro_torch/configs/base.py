@@ -3,9 +3,10 @@ JAX package's ``configs/base.py``).
 
 Every ported architecture contributes an ``ArchSpec`` (one module per arch,
 ``ARCH`` symbol).  A *cell* is (arch x shape); ``input_specs`` returns
-``device="meta"`` stand-ins (no allocation) for each input leaf.  The
-sharding fields, ``plan_for`` and ``batch_axes``, are ``None`` until the
-sharding slice ports the plans (ROADMAP.md, step A.13.5).
+``device="meta"`` stand-ins (no allocation) for each input leaf,
+``batch_axes`` the logical sharding axes of each input leaf and
+``plan_for`` the cell's sharding plan: everything the dry-run needs to
+run ``step_fn`` on the production meshes.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+
+from ..distributed import sharding as shlib
 
 I32 = torch.int32
 F32 = torch.float32
@@ -39,9 +42,9 @@ class ArchSpec:
     make_config: Callable[[], Any]
     make_smoke_config: Callable[[], Any]
     shapes: dict
-    plan_for: Optional[Callable]   # None until the sharding slice
+    plan_for: Callable[[Any, ShapeCell], shlib.Plan]
     input_specs: Callable[[Any, ShapeCell], dict]
-    batch_axes: Optional[Callable]  # None until the sharding slice
+    batch_axes: Callable[[Any, ShapeCell], dict]
     notes: str = ""
     # per-cell config adaptation (e.g. egnn d_feat/classes differ per graph)
     config_for_cell: Callable[[Any, ShapeCell], Any] = lambda cfg, cell: cfg
@@ -84,9 +87,44 @@ def lm_input_specs(cfg, cell: ShapeCell) -> dict:
     }
 
 
+def lm_batch_axes(cfg, cell: ShapeCell) -> dict:
+    from ..models import transformer as T
+    if cell.kind == "train":
+        return {"tokens": ("batch", None), "labels": ("batch", None)}
+    if cell.kind == "prefill":
+        return {"tokens": ("batch", None)}
+    return {
+        "token": ("batch",),
+        "pos": (),
+        "cache": T.cache_axes(cfg),
+    }
+
+
+def lm_plan_for(dense: bool):
+    def plan(cfg, cell: ShapeCell):
+        if cell.kind in ("decode",):
+            return shlib.lm_serve_plan(dense=dense)
+        if dense:
+            return shlib.lm_dense_plan()
+        expert_parallel = cfg.n_experts >= 16
+        # the reference measured capacity-parallel worse than TP on its
+        # mixtral train cell; kept as an option
+        return shlib.lm_moe_plan(expert_parallel, capacity_parallel=False)
+    return plan
+
+
 # --------------------------------------------------------------------------- #
 # step functions
 # --------------------------------------------------------------------------- #
+
+
+def lm_grads_like_params(cfg):
+    """The LM train step's ``grad_transform``: each gradient takes its
+    parameter's layout under the active plan, so a pending sum reduces
+    into each rank's shard (reduce-scatter), not a full all-reduce."""
+    from ..models import transformer as T
+    ax = T.axes(cfg)
+    return lambda grads: tree_map2(lambda g, a: shlib.shard(g, *a), grads, ax)
 
 
 def lm_step_fn(cfg, cell: ShapeCell, opt_cfg=None):
@@ -102,7 +140,8 @@ def lm_step_fn(cfg, cell: ShapeCell, opt_cfg=None):
         def loss(model, batch):
             return T.loss_fn(model, batch["tokens"], batch["labels"])
 
-        return make_train_step(loss, opt_cfg), True
+        return make_train_step(loss, opt_cfg,
+                               grad_transform=lm_grads_like_params(cfg)), True
     if cell.kind == "prefill":
         def prefill(model, batch):
             return T.prefill(model, batch["tokens"])
@@ -156,6 +195,13 @@ RECSYS_SHAPES = {
 }
 
 
+def tree_map2(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map2(fn, tree[k], other[k]) for k in sorted(tree)}
+    return fn(tree, other)
+
+
 def recsys_input_specs(cfg, cell: ShapeCell) -> dict:
     b = cell.dims["batch"]
     if cfg.model in ("dlrm", "wide_deep"):
@@ -178,3 +224,18 @@ def recsys_input_specs(cfg, cell: ShapeCell) -> dict:
         if cfg.model in ("din", "dien"):
             specs["cand_cates"] = sds((c,), I32)
     return specs
+
+
+def recsys_batch_axes(cfg, cell: ShapeCell) -> dict:
+    specs = recsys_input_specs(cfg, cell)
+    out = {}
+    for k, v in specs.items():
+        if k.startswith("cand_"):
+            out[k] = ("candidates",) + (None,) * (len(v.shape) - 1)
+        else:
+            out[k] = ("batch",) + (None,) * (len(v.shape) - 1)
+    return out
+
+
+def recsys_plan_for(cfg, cell: ShapeCell):
+    return shlib.recsys_plan()

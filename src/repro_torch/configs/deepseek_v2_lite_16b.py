@@ -6,7 +6,7 @@ routed experts top-6 + 2 shared, d_ff_expert=1408, first layer dense
 import torch
 
 from ..models.transformer import LMConfig
-from .base import ArchSpec, lm_input_specs, lm_shapes
+from .base import ArchSpec, lm_batch_axes, lm_input_specs, lm_plan_for, lm_shapes
 
 
 def make_config() -> LMConfig:
@@ -33,7 +33,8 @@ ARCH = ArchSpec(
     arch_id="deepseek-v2-lite-16b", family="lm",
     make_config=make_config, make_smoke_config=make_smoke_config,
     shapes=lm_shapes(long_ok=True),
-    plan_for=None, input_specs=lm_input_specs, batch_axes=None,
+    plan_for=lm_plan_for(dense=False), input_specs=lm_input_specs,
+    batch_axes=lm_batch_axes,
     notes="assignment lists '2 shared+160 routed' alongside 'MoE 64e top-6'; "
           "the 64-routed figure matches V2-Lite (160 belongs to full V2) and "
           "is used here.",

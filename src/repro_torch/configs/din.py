@@ -2,7 +2,8 @@
 attention MLP 80-40, final MLP 200-80."""
 
 from ..models.recsys import RecConfig
-from .base import ArchSpec, RECSYS_SHAPES, recsys_input_specs
+from .base import (ArchSpec, RECSYS_SHAPES, recsys_batch_axes,
+                   recsys_input_specs, recsys_plan_for)
 
 
 def make_config() -> RecConfig:
@@ -23,6 +24,6 @@ def make_smoke_config() -> RecConfig:
 ARCH = ArchSpec(
     arch_id="din", family="recsys",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=RECSYS_SHAPES, plan_for=None,
-    input_specs=recsys_input_specs, batch_axes=None,
+    shapes=RECSYS_SHAPES, plan_for=recsys_plan_for,
+    input_specs=recsys_input_specs, batch_axes=recsys_batch_axes,
 )

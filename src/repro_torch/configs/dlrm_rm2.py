@@ -3,7 +3,8 @@ bot MLP 13-512-256-64, top MLP 512-512-256-1, dot interaction.  Tables:
 26 x 2^20 rows (1.7B embedding params), row-sharded over "model" (EP)."""
 
 from ..models.recsys import RecConfig
-from .base import ArchSpec, RECSYS_SHAPES, recsys_input_specs
+from .base import (ArchSpec, RECSYS_SHAPES, recsys_batch_axes,
+                   recsys_input_specs, recsys_plan_for)
 
 
 def make_config() -> RecConfig:
@@ -21,8 +22,8 @@ def make_smoke_config() -> RecConfig:
 ARCH = ArchSpec(
     arch_id="dlrm-rm2", family="recsys",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=RECSYS_SHAPES, plan_for=None,
-    input_specs=recsys_input_specs, batch_axes=None,
+    shapes=RECSYS_SHAPES, plan_for=recsys_plan_for,
+    input_specs=recsys_input_specs, batch_axes=recsys_batch_axes,
     notes="multi-hot id bags in the input pipeline are sorted -> d-gapped -> "
           "Group-compressed (paper integration point)",
 )

@@ -5,12 +5,12 @@ sampled-subgraph training (reddit-like, real CSR fanout sampler), full-batch
 large (ogb-products-like), and batched small graphs (molecule regression).
 Message passing is a scatter-sum (``index_add_``) over an edge index; edge arrays are padded to
 multiples of 512 so they shard evenly over the production meshes; padding
-edges point at a sentinel node.  The sharding plan and the batch axes
-wait for the sharding slice (ROADMAP.md, step A.13.5)."""
+edges point at a sentinel node."""
 
 import dataclasses
 
 from ..models.egnn import EGNNConfig
+from ..distributed import sharding as shlib
 from .base import ArchSpec, ShapeCell, sds, I32, F32
 
 
@@ -74,11 +74,29 @@ def input_specs(cfg: EGNNConfig, cell: ShapeCell) -> dict:
     return specs
 
 
+def batch_axes(cfg: EGNNConfig, cell: ShapeCell) -> dict:
+    ax = {
+        "feats": ("nodes", None), "coords": ("nodes", None),
+        "src": ("edges",), "dst": ("edges",),
+    }
+    if cell.dims["task"] == "node_class":
+        ax["labels"] = ("nodes",)
+        ax["label_mask"] = ("nodes",)
+    else:
+        ax["graph_id"] = ("nodes",)
+        ax["targets"] = ("batch",)
+    return ax
+
+
+def plan_for(cfg: EGNNConfig, cell: ShapeCell) -> shlib.Plan:
+    return shlib.gnn_plan()
+
+
 ARCH = ArchSpec(
     arch_id="egnn", family="gnn",
     make_config=make_config, make_smoke_config=make_smoke_config,
-    shapes=SHAPES, plan_for=None,
-    input_specs=input_specs, batch_axes=None,
+    shapes=SHAPES, plan_for=plan_for,
+    input_specs=input_specs, batch_axes=batch_axes,
     config_for_cell=config_for_cell,
     notes="paper technique applies to the adjacency store (d-gapped CSR "
           "columns, Group-compressed in the data pipeline), not the model "

@@ -5,7 +5,7 @@ long_500k runs: the sliding window caps the KV cache at 4096."""
 import torch
 
 from ..models.transformer import LMConfig
-from .base import ArchSpec, lm_input_specs, lm_shapes
+from .base import ArchSpec, lm_batch_axes, lm_input_specs, lm_plan_for, lm_shapes
 
 
 def make_config() -> LMConfig:
@@ -32,5 +32,6 @@ ARCH = ArchSpec(
     arch_id="mixtral-8x22b", family="lm",
     make_config=make_config, make_smoke_config=make_smoke_config,
     shapes=lm_shapes(long_ok=True),
-    plan_for=None, input_specs=lm_input_specs, batch_axes=None,
+    plan_for=lm_plan_for(dense=False), input_specs=lm_input_specs,
+    batch_axes=lm_batch_axes,
 )

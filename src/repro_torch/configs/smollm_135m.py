@@ -4,7 +4,7 @@ d_ff=1536 vocab=49152, llama-arch.  long_500k skipped (full attention)."""
 import torch
 
 from ..models.transformer import LMConfig
-from .base import ArchSpec, lm_input_specs, lm_shapes
+from .base import ArchSpec, lm_batch_axes, lm_input_specs, lm_plan_for, lm_shapes
 
 
 def make_config() -> LMConfig:
@@ -27,5 +27,6 @@ ARCH = ArchSpec(
     arch_id="smollm-135m", family="lm",
     make_config=make_config, make_smoke_config=make_smoke_config,
     shapes=lm_shapes(long_ok=False),
-    plan_for=None, input_specs=lm_input_specs, batch_axes=None,
+    plan_for=lm_plan_for(dense=True), input_specs=lm_input_specs,
+    batch_axes=lm_batch_axes,
 )

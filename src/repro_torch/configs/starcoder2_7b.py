@@ -4,7 +4,7 @@ d_ff=18432 vocab=49152, RoPE.  long_500k skipped (pure full attention)."""
 import torch
 
 from ..models.transformer import LMConfig
-from .base import ArchSpec, lm_input_specs, lm_shapes
+from .base import ArchSpec, lm_batch_axes, lm_input_specs, lm_plan_for, lm_shapes
 
 
 def make_config() -> LMConfig:
@@ -27,5 +27,6 @@ ARCH = ArchSpec(
     arch_id="starcoder2-7b", family="lm",
     make_config=make_config, make_smoke_config=make_smoke_config,
     shapes=lm_shapes(long_ok=False),
-    plan_for=None, input_specs=lm_input_specs, batch_axes=None,
+    plan_for=lm_plan_for(dense=True), input_specs=lm_input_specs,
+    batch_axes=lm_batch_axes,
 )

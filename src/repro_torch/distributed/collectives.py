@@ -13,11 +13,13 @@ with the same LSB-first shift+mask scheme as kernels/bitpack.  Error
 feedback (1-bit-Adam style): callers keep a residual per rank;
 quantization error is re-injected next step.
 
-The reference runs inside ``shard_map``, one device a rank.  Here the R
-ranks are a list of R per-rank tensors in one process, each rank's
+The reference runs inside ``shard_map``, one device a rank.  The port has
+two forms.  Over a process group (``*_group``), one process a rank: phase
+1 is ``all_to_all_single``, phase 2 ``all_gather``.  Over a list of R
+per-rank tensors in one process (what one card runs), each rank's
 arithmetic the reference's; its ``all_to_all`` and ``all_gather`` become
-list transposes, with no ``torch.distributed`` process group (as
-``merge_topk_stats`` merges shards).  Ranks are logical on one card, or
+list transposes (as ``merge_topk_stats`` merges shards).  The two forms
+give the same bits.  Ranks are logical on one card, or
 one rank a card when ``mesh`` lists a device a rank
 (``launch.mesh.serving_mesh``): a payload then moves to the receiving
 rank's card.  Wire words are integers and ``torch.round`` rounds half to
@@ -138,6 +140,84 @@ def compressed_allreduce_flat(xs: list, bits: int = 8, mesh=None):
                  for w, s2 in gathered]
         outs.append(torch.cat(parts)[:n])
     return outs, [x[:n] for x in resid]
+
+
+def mesh_group(mesh, axes):
+    """The process group of this rank along ``axes`` of a ``DeviceMesh``
+    (the reference's manual axes of ``shard_map``; axes absent from the
+    mesh drop out).  Several axes make one group per coordinate of the
+    others, every rank creating every group, as ``new_group`` asks."""
+    import torch.distributed as dist
+    names = list(mesh.mesh_dim_names)
+    axes = [a for a in axes if a in names]
+    if not axes:
+        raise ValueError(f"none of {axes} is an axis of the mesh {names}")
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    idx = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in idx]
+    n = int(np.prod([mesh.size(i) for i in idx]))
+    mine = None
+    for row in mesh.mesh.permute(rest + idx).reshape(-1, n).tolist():
+        g = dist.new_group(row)
+        if dist.get_rank() in row:
+            mine = g
+    return mine
+
+
+def compressed_allreduce_flat_group(x: torch.Tensor, group=None, bits: int = 8):
+    """The process-group form of :func:`compressed_allreduce_flat`: each
+    rank of ``group`` (default: the world) calls it with its own flat fp32
+    ``x`` and gets (reduced (n,), its residual (n,)), bit for bit what the
+    list form gives that rank.  Phase 1 moves the words and their scales
+    with ``all_to_all_single``, phase 2 with ``all_gather``."""
+    import torch.distributed as dist
+    r = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    n = x.shape[0]
+    xp = _pad_to(x.to(torch.float32), r * BLOCK)
+    chunk = xp.shape[0] // r
+    # phase 1: quantize; row j of the words goes to rank j
+    q, s = _quantize(xp, bits)
+    resid = xp - _dequantize(q, s)
+    qr = q.reshape(r, chunk)
+    payload = torch.stack([pack4(row) for row in qr]) if bits == 4 else qr
+    got = torch.empty_like(payload)
+    dist.all_to_all_single(got, payload.contiguous(), group=group)
+    sc = s.reshape(r, chunk // BLOCK).contiguous()
+    got_s = torch.empty_like(sc)
+    dist.all_to_all_single(got_s, sc, group=group)
+    if bits == 4:
+        got = torch.stack([unpack4(w, chunk) for w in got])
+    part = torch.stack([_dequantize(g, gs) for g, gs in zip(got, got_s)]
+                       ).sum(dim=0) / r                      # mean
+    # phase 2: requantize the reduced chunk; all_gather
+    q2, s2 = _quantize(part, bits)
+    sl = slice(me * chunk, (me + 1) * chunk)
+    resid[sl] = resid[sl] + (part - _dequantize(q2, s2)) * r
+    w2 = pack4(q2) if bits == 4 else q2
+    all_w = [torch.empty_like(w2) for _ in range(r)]
+    all_s = [torch.empty_like(s2) for _ in range(r)]
+    dist.all_gather(all_w, w2, group=group)
+    dist.all_gather(all_s, s2, group=group)
+    out = torch.cat([_dequantize(unpack4(w, chunk) if bits == 4 else w, sc2)
+                     for w, sc2 in zip(all_w, all_s)])
+    return out[:n], resid[:n]
+
+
+def compressed_psum_mean_group(tree, group=None, bits: int = 8,
+                               error_feedback=None):
+    """The process-group form of :func:`compressed_psum_mean`: this rank's
+    tree (and its residual tree, or None) -> (the mean tree, its new
+    residual tree), as the reference's, which runs inside ``shard_map``."""
+    sizes = [int(l.numel()) for l in tree_leaves(tree)]
+    flat = torch.cat([l.to(torch.float32).reshape(-1) for l in tree_leaves(tree)])
+    if error_feedback is not None:
+        flat = flat + torch.cat([e.to(torch.float32).reshape(-1)
+                                 for e in tree_leaves(error_feedback)])
+    red, ef = compressed_allreduce_flat_group(flat, group, bits)
+    return (_split_like(tree, red, sizes, cast=True),
+            _split_like(tree, ef, sizes, cast=False))
 
 
 def compressed_psum_mean(trees: list, bits: int = 8, error_feedback=None,

@@ -18,8 +18,13 @@ every architecture with a serving cell (``repro_torch.configs.ARCHS``):
 the LMs and the four recsys models.  EGNN has only train cells and raises,
 naming ``launch.train``; the reference fails there too (an ``IndexError``
 without ``--shape``, an ``AttributeError`` with one).  ``--shape`` picks the cell (default: the arch's first serving
-cell); as in the reference it picks no plan or mesh until the sharding
-slice (A.13.5), and ``--multi-pod`` waits for it.
+cell).  As in the reference, the arch's cell runs on a mesh under its
+``plan_for``: the process group starts (NCCL on the card, gloo on the
+CPU; ``torchrun``'s world, else a world of 1), a ``(world, 1)`` host mesh
+below 256 ranks or with ``--smoke``, the production mesh from 256 up or
+with ``--multi-pod`` (which raises on a smaller world); on more than one
+rank the parameters and the inputs are ``DTensor``s laid out by the plan
+(a world of 1 runs unplanned, on plain tensors).
 """
 
 from __future__ import annotations
@@ -104,24 +109,22 @@ def serve_index(args) -> None:
         print("index serve smoke ok")
 
 
-def serve_lm(args, spec, cell) -> None:
+def serve_lm(args, spec, cell, cfg, dev) -> None:
     """Prefill a batch of seeded prompts, then batched greedy decode against
     the KV cache, as the reference's LM branch does; prints its line."""
     import torch
 
-    from ..index.device import resolve_device
+    from ..distributed import sharding as shlib
     from ..models import transformer
 
-    cfg = spec.config_for_cell(
-        spec.make_smoke_config() if args.smoke else spec.make_config(), cell)
-    dev = resolve_device(args.torch_device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    model = transformer.init(cfg, gen)
+    model = shlib.distribute_model(transformer.init(cfg, gen),
+                                   transformer.axes(cfg))
     b, s = 2, 32
-    prompts = torch.as_tensor(
+    prompts = shlib.distribute(torch.as_tensor(
         np.random.default_rng(0).integers(0, cfg.vocab, (b, s)),
-        dtype=torch.int32, device=dev)
+        dtype=torch.int32, device=dev), ("batch", None))
     logits, cache = transformer.prefill(model, prompts)
     if not cfg.window:
         cache = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (args.tokens,) + v.shape[3:])], dim=2)
@@ -136,29 +139,26 @@ def serve_lm(args, spec, cell) -> None:
     print(f"decoded {args.tokens} steps x batch {b} in {(time.perf_counter()-t0)*1e3:.1f} ms")
 
 
-def serve_recsys(args, spec, cell) -> None:
+def serve_recsys(args, spec, cell, cfg, dev) -> None:
     """One step of a recsys cell (``serve``: probabilities; ``retrieval``:
     the top 100) on a seeded batch, as the reference's recsys branch runs
     it; prints its line."""
     import torch
 
     from ..configs.base import STEP_FNS
-    from ..index.device import resolve_device
+    from ..distributed import sharding as shlib
     from ..models import recsys
     from .batches import smoke_batch
 
-    cfg = spec.config_for_cell(
-        spec.make_smoke_config() if args.smoke else spec.make_config(), cell)
-    dev = resolve_device(args.torch_device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    model = recsys.init(cfg, gen)
+    model = shlib.distribute_model(recsys.init(cfg, gen), recsys.axes(cfg))
     step_fn, _ = STEP_FNS["recsys"](cfg, cell, None)
     # the reference's module-global generator, seeded 11, at its first draw
     batch = smoke_batch(spec, cfg, cell, np.random.default_rng(11), dev)
     if cell.kind == "retrieval":
         batch = {k: (v[:1] if not k.startswith("cand_") else v) for k, v in batch.items()}
-    out = step_fn(model, batch)
+    out = step_fn(model, shlib.distribute_tree(batch, spec.batch_axes(cfg, cell)))
     out0 = out[0] if isinstance(out, tuple) else out
     print(f"{cell.name}: output {tuple(out0.shape)} ok")
 
@@ -180,6 +180,8 @@ def main(argv=None) -> None:
                     help="serve the inverted index (async admission + "
                          "dynamic batching)")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="--arch: the 2x16x16 production mesh (512 ranks)")
     ap.add_argument("--tokens", type=int, default=8)
     ap.add_argument("--dataset", default="gov2")
     ap.add_argument("--seed", type=int, default=0)
@@ -227,10 +229,23 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             f"{cell.name} is a train cell: train it with python -m "
             f"repro_torch.launch.train --arch {args.arch} --shape {cell.name}")
-    if spec.family == "lm":
-        serve_lm(args, spec, cell)
-    else:
-        serve_recsys(args, spec, cell)
+    import torch.distributed as dist
+
+    from ..index.device import resolve_device
+    from .mesh import launch_mesh, launch_scope, shutdown_world
+    resolve_device(args.torch_device)
+    owned = not dist.is_initialized()
+    try:
+        mesh, dev = launch_mesh(args.torch_device, multi_pod=args.multi_pod,
+                                smoke=args.smoke)
+        cfg = spec.config_for_cell(
+            spec.make_smoke_config() if args.smoke else spec.make_config(), cell)
+        with launch_scope(mesh, spec.plan_for(cfg, cell)):
+            (serve_lm if spec.family == "lm" else serve_recsys)(
+                args, spec, cell, cfg, dev)
+    finally:
+        if owned:
+            shutdown_world()
 
 
 if __name__ == "__main__":

@@ -13,8 +13,17 @@ data cursor, so a resumed run replays it), with AdamW
 (``--lr``, cosine over ``--steps``), a checkpoint every quarter of the run
 in ``--ckpt`` (default: a fresh temporary directory, removed at exit; an
 existing directory resumes from its newest intact step), and prints the
-reference's ``final loss ...``.  One device, no mesh and no sharding plan:
-those, and ``--multi-pod``, wait for ROADMAP.md step A.13.5.
+reference's ``final loss ...``.
+
+The mesh and the plan are the reference's: the process group starts
+(NCCL on the card, gloo on the CPU; ``torchrun``'s world, else a world of
+1), a ``(world, 1)`` host mesh below 256 ranks or the production mesh from
+256 up (``--multi-pod``: the 2x16x16 one, which raises on a smaller
+world), and on more than one rank the arch's ``plan_for`` lays out the
+parameters, the optimizer state and each batch (``DTensor``s) for the
+whole run (a world of 1 runs unplanned, on plain tensors):
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch smollm-135m --smoke --steps 4
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def main(argv=None) -> None:
@@ -33,7 +43,9 @@ def main(argv=None) -> None:
     from ..models import egnn, recsys, transformer
     from ..optim import AdamWConfig, adamw_init
     from ..runtime import train_loop as TL
+    from ..distributed import sharding as shlib
     from .batches import smoke_batch
+    from .mesh import launch_mesh, launch_scope, shutdown_world
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(configs.ARCHS))
@@ -49,10 +61,6 @@ def main(argv=None) -> None:
                     help="torch device (default: the card; 'cpu' runs on the "
                          "host)")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: meshes and sharding plans are not ported yet "
-            "(ROADMAP.md, step A.13.5)")
 
     spec = configs.get(args.arch)
     train_cells = [c for c in spec.shapes.values() if c.kind == "train"]
@@ -60,24 +68,37 @@ def main(argv=None) -> None:
     assert cell.kind == "train", f"{cell.name} is a serving shape; use launch.serve"
     cfg = spec.config_for_cell(
         spec.make_smoke_config() if args.smoke else spec.make_config(), cell)
-    dev = resolve_device(args.torch_device)
-    ocfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
-    mod = {"lm": transformer, "gnn": egnn, "recsys": recsys}[spec.family]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    model = mod.init(cfg, gen)
-    step, is_train = STEP_FNS[spec.family](cfg, cell, ocfg)
+    resolve_device(args.torch_device)
+    owned = not dist.is_initialized()
+    try:
+        mesh, dev = launch_mesh(args.torch_device, multi_pod=args.multi_pod,
+                                smoke=args.smoke)
+        plan = spec.plan_for(cfg, cell)
+        ocfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
+        mod = {"lm": transformer, "gnn": egnn, "recsys": recsys}[spec.family]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        step, is_train = STEP_FNS[spec.family](cfg, cell, ocfg)
+        with launch_scope(mesh, plan), \
+                tempfile.TemporaryDirectory() as tmp:
+            model = shlib.distribute_model(mod.init(cfg, gen), mod.axes(cfg))
+            b_axes = spec.batch_axes(cfg, cell)
 
-    def batch_iter(cursor):
-        rng = np.random.default_rng([11, cursor])
-        return smoke_batch(spec, cfg, cell, rng, dev), cursor + 1
+            def batch_iter(cursor):
+                rng = np.random.default_rng([11, cursor])
+                batch = smoke_batch(spec, cfg, cell, rng, dev)
+                return shlib.distribute_tree(batch, b_axes), cursor + 1
 
-    with tempfile.TemporaryDirectory() as tmp:
-        loop = TL.LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt or tmp,
-                             ckpt_every=max(args.steps // 4, 1), log_every=10)
-        model, opt, info = TL.run(step, model, adamw_init(model.tree()),
-                                  batch_iter, loop)
-    print(f"final loss {info['metrics'][-1]['loss']:.4f}")
+            loop = TL.LoopConfig(total_steps=args.steps,
+                                 ckpt_dir=args.ckpt or tmp,
+                                 ckpt_every=max(args.steps // 4, 1),
+                                 log_every=10)
+            model, opt, info = TL.run(step, model, adamw_init(model.tree()),
+                                      batch_iter, loop)
+        print(f"final loss {info['metrics'][-1]['loss']:.4f}")
+    finally:
+        if owned:
+            shutdown_world()
 
 
 if __name__ == "__main__":

@@ -14,8 +14,8 @@ train (``runtime.trainer``).
   * ``transformer``: ``LMConfig``, the ``LM`` module, ``trunk``,
     ``loss_fn`` (the chunked cross entropy), ``prefill`` and
     ``decode_step``.
-  * ``embedding``: table lookups and EmbeddingBag, the plain path (the
-    expert-parallel one waits for ROADMAP.md step A.13.5).
+  * ``embedding``: table lookups and EmbeddingBag, the plain path and the
+    expert-parallel one (rows over "model" under a plan).
   * ``recsys``: DLRM, Wide&Deep, DIN and DIEN: ``forward``, ``serve``,
     ``loss_fn`` and ``retrieval_topk``, in row chunks.
   * ``egnn``: the EGNN forward and its two losses, in edge chunks.
@@ -24,7 +24,10 @@ train (``runtime.trainer``).
 No Pallas kernel of the reference sits on these paths: its attention, MoE,
 lookups, GRU scan and message passing are plain ``jnp``, so the port's are
 plain torch.  Under autograd the models recompute in backward where the
-reference runs ``jax.checkpoint`` (``specs.grad_on``).
+reference runs ``jax.checkpoint`` (``specs.grad_on``).  Under a sharding
+plan (``distributed.sharding.plan_scope``) the same code runs on
+``DTensor`` parameters and inputs, laid out by the reference's
+``shard(...)`` calls.
 """
 
 from . import (attention, common, egnn, embedding, moe, recsys, sampler,

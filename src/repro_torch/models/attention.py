@@ -5,8 +5,10 @@ Counterpart of the JAX package's ``models/attention.py``, which is plain
 ``jnp`` under ``lax.scan`` (no Pallas kernel); here plain torch with a
 Python loop over the same chunks in the same order, every score and
 softmax sum in fp32, so the port stays within float tolerance of the
-reference.  The reference's ``shard(...)`` constraints are dropped until the
-sharding slice.
+reference.  Under a plan the score block and the ``(m, l, acc)`` carry
+take the reference's layouts (``shard``: batch, query sequence, kv
+heads), the products are ``sharding.einsum``'s, and a kv chunk slice
+gathers the keys and values of a sequence split over "model".
 
 Two forms of one kv-chunk step, with the same values: serving scales,
 masks and exponentiates the fp32 score block in place; under autograd
@@ -20,8 +22,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from ..distributed import sharding as shlib
+from ..distributed.sharding import checkpoint, einsum, shard
 from .specs import grad_on
 
 NEG_INF = -1e30
@@ -35,12 +38,31 @@ def _scale(d: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(d)))
 
 
+def _split_heads(x, kh: int):
+    """x (..., H, D) -> (..., KH, H/KH, D).  Under a plan, heads split over
+    mesh axes that KH does not divide are gathered first (GQA groups stay
+    whole on a rank)."""
+    if shlib.is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        hd, mesh = x.ndim - 2, x.device_mesh
+        n = 1
+        for m, p in enumerate(x.placements):
+            if isinstance(p, Shard) and p.dim == hd:
+                n *= mesh.size(m)
+        if kh % n:
+            x = x.redistribute(mesh, tuple(
+                Replicate() if isinstance(p, Shard) and p.dim == hd else p
+                for p in x.placements))
+    return x.reshape(*x.shape[:-2], kh, x.shape[-2] // kh, x.shape[-1])
+
+
 def _kv_step(m, l, acc, qf, kblk, vblk, mask, scale: float, inplace: bool):
     """One kv chunk of the online softmax: the carry ``(m, l, acc)`` after
     the chunk.  ``inplace``: the fp32 score block (B, Sq, KH, G, kv_chunk),
     the largest tensor of prefill, is scaled, masked and exponentiated in
     place (serving); else out of place (autograd saves ``s`` for ``amax``)."""
-    s = torch.einsum("bqkgd,bskd->bqkgs", qf, kblk.to(torch.float32))
+    s = einsum("bqkgd,bskd->bqkgs", qf, kblk.to(torch.float32))
+    s = shard(s, "batch", "act_seq_attn", "act_heads", None, None)
     keep = mask[None, :, None, None, :]
     if inplace:
         s.mul_(scale).masked_fill_(~keep, NEG_INF)
@@ -51,7 +73,7 @@ def _kv_step(m, l, acc, qf, kblk, vblk, mask, scale: float, inplace: bool):
          else torch.exp(s - m_new[..., None]))
     corr = torch.exp(m - m_new)
     l = l * corr + p.sum(dim=-1)
-    acc = acc * corr[..., None] + torch.einsum(
+    acc = acc * corr[..., None] + einsum(
         "bqkgs,bskd->bqkgd", p, vblk.to(torch.float32))
     return m_new, l, acc
 
@@ -70,16 +92,19 @@ def _chunk_attn(q, k, v, q0: int, causal: bool, window, kv_chunk: int):
     dev = q.device
     scale = _scale(d)
     train = grad_on(q, k, v)
-    qf = q.to(torch.float32).reshape(b, sq, kh, g, d)
+    qf = _split_heads(q.to(torch.float32), kh)
     nchunks = -(-skv // kv_chunk)
     pad = nchunks * kv_chunk - skv
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     qpos = q0 + torch.arange(sq, device=dev)
-    m = torch.full((b, sq, kh, g), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, sq, kh, g), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, sq, kh, g, dv), dtype=torch.float32, device=dev)
+    m = shard(torch.full((b, sq, kh, g), NEG_INF, dtype=torch.float32, device=dev),
+              "batch", "act_seq_attn", "act_heads", None)
+    l = shard(torch.zeros((b, sq, kh, g), dtype=torch.float32, device=dev),
+              "batch", "act_seq_attn", "act_heads", None)
+    acc = shard(torch.zeros((b, sq, kh, g, dv), dtype=torch.float32, device=dev),
+                "batch", "act_seq_attn", "act_heads", None, None)
     for ci in range(nchunks):
         kblk = k[:, ci * kv_chunk:(ci + 1) * kv_chunk]
         vblk = v[:, ci * kv_chunk:(ci + 1) * kv_chunk]
@@ -91,7 +116,7 @@ def _chunk_attn(q, k, v, q0: int, causal: bool, window, kv_chunk: int):
             mask = mask & (kpos[None, :] > qpos[:, None] - window)
         if train:
             m, l, acc = checkpoint(_kv_step, m, l, acc, qf, kblk, vblk, mask,
-                                   scale, False, use_reentrant=False)
+                                   scale, False)
         else:
             m, l, acc = _kv_step(m, l, acc, qf, kblk, vblk, mask, scale, True)
     out = acc / torch.clamp(l[..., None], min=1e-30)
@@ -123,15 +148,15 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=None):
     skv, kh = k_cache.shape[1], k_cache.shape[2]
     dv = v_cache.shape[-1]
     g = h // kh
-    qf = q.to(torch.float32).reshape(b, kh, g, d)
-    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.to(torch.float32)) * _scale(d)
+    qf = _split_heads(q.to(torch.float32), kh).reshape(b, kh, g, d)
+    s = einsum("bkgd,bskd->bkgs", qf, k_cache.to(torch.float32)) * _scale(d)
     kpos = torch.arange(skv, device=q.device)
     mask = kpos < cache_len
     if window is not None:
         mask = mask & (kpos >= cache_len - window)
     s = torch.where(mask[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    out = einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
     return out.reshape(b, 1, h, dv).to(q.dtype)
 
 
@@ -154,13 +179,13 @@ def mla_decode_attention(q_nope, q_rope, latent_cache, rope_cache, cache_len: in
     lat = latent_cache.to(torch.float32)
     rop = rope_cache.to(torch.float32)
     # absorb key up-projection into the query: q_abs (B,H,L)
-    q_abs = torch.einsum("bhd,hld->bhl", qn, w_uk.to(torch.float32))
-    s = torch.einsum("bhl,bsl->bhs", q_abs, lat)
-    s = s + torch.einsum("bhd,bsd->bhs", qr, rop)
+    q_abs = einsum("bhd,hld->bhl", qn, w_uk.to(torch.float32))
+    s = einsum("bhl,bsl->bhs", q_abs, lat)
+    s = s + einsum("bhd,bsd->bhs", qr, rop)
     s = s * scale
     mask = torch.arange(lat.shape[1], device=lat.device) < cache_len
     s = torch.where(mask[None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhs,bsl->bhl", p, lat)                 # attend over latents
-    out = torch.einsum("bhl,hld->bhd", o_lat, w_uv.to(torch.float32))
+    o_lat = einsum("bhs,bsl->bhl", p, lat)                 # attend over latents
+    out = einsum("bhl,hld->bhd", o_lat, w_uv.to(torch.float32))
     return out[:, None].to(q_nope.dtype)

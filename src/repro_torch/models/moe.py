@@ -7,8 +7,10 @@ prefill, one batch row in decode).  Per group: top-k -> stable sort of the
 S*k expert assignments -> capacity-clipped gather indices (E, C).  Expert
 compute is a batched einsum (G, E, C, D) x (E, D, F).  Every group routes
 in one batched call (the reference maps ``route_group`` over the groups
-with ``vmap``); the reference's ``shard(...)`` constraints wait for the
-sharding slice.
+with ``vmap``).  Under a plan the experts (EP), their hidden dim (TP) or
+the capacity (CP) split over "model" (``shard``), and the routing, the
+gather and the combine (sorts, scatters, ``index_add_``: no ``DTensor``
+rule) run on each rank's own groups (``sharding.run_local``).
 
 Plain torch, as the reference is plain ``jnp`` (no Pallas kernel): routing
 in fp32; the gather, the expert products, ``y * wgt`` and the combine in
@@ -21,6 +23,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed import sharding as shlib
+from ..distributed.sharding import einsum, shard
 
 
 def route_group(x: torch.Tensor, router_w: torch.Tensor, *, top_k: int,
@@ -74,25 +79,74 @@ def route_group(x: torch.Tensor, router_w: torch.Tensor, *, top_k: int,
     return idx, wgt, aux
 
 
-def moe_ffn(x: torch.Tensor, router_w, w1, w3, w2, *, top_k: int,
-            capacity_factor: float = 1.25):
-    """x (G, S, D); experts w1/w3 (E, D, F), w2 (E, F, D). Returns (G,S,D), aux."""
+def _dispatch(x, router_w, top_k: int, cap: int):
+    """Route each group and gather its tokens: (gathered (G, E, C, D),
+    idx (G, E*C) int64, wgt (G, E*C), aux (G,))."""
     g, s, d = x.shape
     e = router_w.shape[-1]
-    cap = max(1, int(-(-s * top_k * capacity_factor // e)))
     idx, wgt, aux = route_group(x, router_w, top_k=top_k, capacity=cap)
     idx = idx.to(torch.int64)
     xpad = torch.cat([x, x.new_zeros(g, 1, d)], dim=1)          # sentinel row
     rows = torch.arange(g, device=x.device)[:, None]
-    gathered = xpad[rows, idx].reshape(g, e, cap, d)             # (G, E, C, D)
-    h1 = torch.einsum("gecd,edf->gecf", gathered, w1.to(gathered.dtype))
-    h3 = torch.einsum("gecd,edf->gecf", gathered, w3.to(gathered.dtype))
-    h = F.silu(h1) * h3
-    del h1, h3
-    y = torch.einsum("gecf,efd->gecd", h, w2.to(h.dtype))
+    return xpad[rows, idx].reshape(g, e, cap, d), idx, wgt, aux
+
+
+def _combine(y, wgt, idx, s: int):
+    """Each group's expert outputs y (G, E, C, D), weighted by wgt
+    (G, E*C), summed into its token rows: (G, S, D)."""
+    g, e, cap, d = y.shape
     y = y.reshape(g, e * cap, d) * wgt[:, :, None].to(y.dtype)
+    rows = torch.arange(g, device=y.device)[:, None]
     # a token's k outputs sum in another order than XLA's (on the card in
     # no fixed order): the outputs agree within float tolerance
-    out = torch.zeros((g * (s + 1), d), dtype=y.dtype, device=x.device)
+    out = torch.zeros((g * (s + 1), d), dtype=y.dtype, device=y.device)
     out.index_add_(0, (rows * (s + 1) + idx).reshape(-1), y.reshape(-1, d))
-    return out.view(g, s + 1, d)[:, :s], aux.mean()
+    return out.view(g, s + 1, d)[:, :s]
+
+
+def _group_placements(mesh, g: int):
+    """Groups (dim 0) split over the plan's batch axes (where ``g``
+    splits), the rest whole; and the gradient placements of a weight
+    every group uses."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    spec = shlib.spec_for(("batch",), dims=(g,))
+    rows = shlib.placements(spec, mesh)
+    return rows, tuple(Partial() if isinstance(p, Shard) else Replicate()
+                       for p in rows)
+
+
+def moe_ffn(x: torch.Tensor, router_w, w1, w3, w2, *, top_k: int,
+            capacity_factor: float = 1.25):
+    """x (G, S, D); experts w1/w3 (E, D, F), w2 (E, F, D). Returns (G,S,D), aux.
+
+    Under a plan the routing, the token gather and the combine run on
+    each rank's groups (``run_local``: a group needs all of its tokens,
+    so the sequence is gathered first), and the expert products are the
+    sharded einsums of the plan's expert or expert-ffn axes."""
+    g, s, d = x.shape
+    e = router_w.shape[-1]
+    cap = max(1, int(-(-s * top_k * capacity_factor // e)))
+    planned = shlib.plan_active() and shlib.is_dtensor(x)
+    if planned:
+        from torch.distributed.tensor import Replicate
+        mesh = shlib.active_mesh()
+        rows, wgrad = _group_placements(mesh, g)
+        rep = (Replicate(),) * mesh.ndim
+        gathered, idx, wgt, aux = shlib.run_local(
+            lambda xl, rl: _dispatch(xl, rl, top_k, cap), (x, router_w),
+            (rows, rep), (list(rows),) * 4, (rows, wgrad))
+    else:
+        gathered, idx, wgt, aux = _dispatch(x, router_w, top_k, cap)
+    gathered = shard(gathered, "batch", "act_expert", "act_capacity", None)
+    h1 = einsum("gecd,edf->gecf", gathered, w1.to(gathered.dtype))
+    h3 = einsum("gecd,edf->gecf", gathered, w3.to(gathered.dtype))
+    h = shard(F.silu(h1) * h3, "batch", "act_expert", "act_capacity",
+              "act_ffn_expert")
+    del h1, h3
+    y = einsum("gecf,efd->gecd", h, w2.to(h.dtype))
+    if planned:
+        out = shlib.run_local(lambda yl, wl, il: _combine(yl, wl, il, s),
+                              (y, wgt, idx), (rows, rows, rows), list(rows))
+    else:
+        out = _combine(y, wgt, idx, s)
+    return out, aux.mean()

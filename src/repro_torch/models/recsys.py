@@ -8,14 +8,19 @@ serve_bulk (forward), retrieval_cand (1 query vs 10^6 candidates, batched
 scoring + global top-k, never a loop over candidates).
 
 Plain torch, as the reference is plain ``jnp``: the GRU's ``lax.scan``
-becomes a Python loop over the history's steps.  The reference's
-``shard(...)`` constraints do nothing without a sharding plan and wait for
-the sharding slice (A.13.5).
+becomes a Python loop over the history's steps.  Under a plan
+(``recsys_plan``) the tables' rows split over "model" (the EP lookups of
+``models/embedding.py``), the rows over the batch axes, the candidates of
+retrieval over "model" (``shard``); the retrieval top-k (a sort: no
+``DTensor`` rule) runs on each rank's local logits, then once on the
+ranks' kept ones, gathered.
 
-One card holds what the reference shards over a mesh by taking rows (and
-candidates) ``ROW_CHUNK`` at a time: a forward over more rows runs chunk
-by chunk, and ``retrieval_topk`` keeps each chunk's top k and merges them.
-Under autograd ``loss_fn`` takes ``TRAIN_ROW_CHUNK`` rows a pass, each
+A card holds what the reference holds whole by taking rows (and
+candidates) ``ROW_CHUNK`` at a time, under a plan ``ROW_CHUNK`` of each
+rank's own rows (``sharding.row_slice``: a pass over every rank's rows
+with no collective): a forward over more rows runs chunk by chunk, and
+``retrieval_topk`` keeps each chunk's top k and merges them.  Under
+autograd ``loss_fn`` takes ``TRAIN_ROW_CHUNK`` rows a pass, each
 recomputed in backward (``torch.utils.checkpoint``): dien's two scans
 save about 1 MB a row for backward.  Rows are independent, so each
 chunked pass computes the reference's function (its values may differ in
@@ -28,8 +33,9 @@ import dataclasses
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from ..distributed import sharding as shlib
+from ..distributed.sharding import checkpoint, matmul, shard
 from . import embedding as emb
 from .specs import (P, _Tree, abstract_params, axes_tree, grad_on,
                     init_params,
@@ -80,7 +86,7 @@ def _mlp_specs(d_in: int, dims: tuple) -> dict:
 
 def _mlp(p, x, n: int, final_act: bool = False):
     for i in range(n):
-        x = x @ p[f"w{i}"].to(x.dtype) + p[f"b{i}"].to(x.dtype)
+        x = matmul(x, p[f"w{i}"].to(x.dtype)) + p[f"b{i}"].to(x.dtype)
         if i < n - 1 or final_act:
             x = torch.relu(x)
     return x
@@ -97,8 +103,8 @@ def _gru_specs(d_in: int, d_h: int) -> dict:
 def _gru_cell(p, h, xt, a=None):
     """GRU step; a (B,1) in [0,1] scales the update gate (AUGRU, DIEN)."""
     d_h = h.shape[-1]
-    gx = xt @ p["wx"].to(xt.dtype)
-    gh = h @ p["wh"].to(h.dtype)
+    gx = matmul(xt, p["wx"].to(xt.dtype))
+    gh = matmul(h, p["wh"].to(h.dtype))
     zr_x, n_x = gx[..., : 2 * d_h], gx[..., 2 * d_h:]
     zr_h, n_h = gh[..., : 2 * d_h], gh[..., 2 * d_h:]
     zr = torch.sigmoid(zr_x + zr_h + p["b"][: 2 * d_h].to(h.dtype))
@@ -253,7 +259,7 @@ def _din_forward(params, batch, cfg: RecConfig):
 def _dien_forward(params, batch, cfg: RecConfig):
     hist, target, prof, mask = _hist_embed(params, batch, cfg)
     _, hs = _gru_scan(params["gru1"], hist, mask)                         # (B, L, H)
-    tproj = (target @ params["t_proj"].to(target.dtype))[:, None, :]      # (B,1,H)
+    tproj = matmul(target, params["t_proj"].to(target.dtype))[:, None, :]  # (B,1,H)
     feat = torch.cat([hs, tproj.expand(hs.shape)], dim=-1)
     scores = _mlp(params["attn"], feat, len(cfg.attn_mlp) + 1)[..., 0]
     # -1e30, not -inf: a history of length 0 gives weights 0, not NaN
@@ -279,14 +285,15 @@ FORWARDS = {
 
 def forward(model: RecModel, batch: dict) -> torch.Tensor:
     """Logits (B,) of a batch whose every leaf has B rows, ``ROW_CHUNK``
-    rows at a time."""
+    rows (under a plan: of each rank's own rows) at a time."""
     cfg, params = model.cfg, model.tree()
     fn = FORWARDS[cfg.model]
-    b = next(iter(batch.values())).shape[0]
+    b = shlib.local_rows(batch)
     if b <= ROW_CHUNK:
-        return fn(params, batch, cfg)
-    return torch.cat([fn(params, {k: v[i:i + ROW_CHUNK] for k, v in batch.items()}, cfg)
-                      for i in range(0, b, ROW_CHUNK)])
+        return shard(fn(params, batch, cfg), "batch")
+    return shlib.cat_rows(
+        [shard(fn(params, shlib.row_slice(batch, i, i + ROW_CHUNK), cfg), "batch")
+         for i in range(0, b, ROW_CHUNK)], like=next(iter(batch.values())))
 
 
 def _bce(logit: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -297,8 +304,8 @@ def _bce(logit: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(model: RecModel, batch: dict):
-    """The mean BCE loss; under autograd ``TRAIN_ROW_CHUNK`` rows a
-    recomputed pass."""
+    """The mean BCE loss; under autograd ``TRAIN_ROW_CHUNK`` rows (under
+    a plan: of each rank's own rows) a recomputed pass."""
     cfg, params = model.cfg, model.tree()
     if not grad_on(*tree_leaves(params)):
         loss = torch.mean(_bce(forward(model, batch), batch["label"]))
@@ -306,13 +313,11 @@ def loss_fn(model: RecModel, batch: dict):
     fn = FORWARDS[cfg.model]
 
     def chunk_sum(c):
-        return _bce(fn(params, c, cfg), c["label"]).sum()
+        return _bce(shard(fn(params, c, cfg), "batch"), c["label"]).sum()
 
     b = batch["label"].shape[0]
-    loss = sum(checkpoint(chunk_sum, {k: v[i:i + TRAIN_ROW_CHUNK]
-                                      for k, v in batch.items()},
-                          use_reentrant=False)
-               for i in range(0, b, TRAIN_ROW_CHUNK)) / b
+    loss = sum(checkpoint(chunk_sum, shlib.row_slice(batch, i, i + TRAIN_ROW_CHUNK))
+               for i in range(0, shlib.local_rows(batch), TRAIN_ROW_CHUNK)) / b
     return loss, {"bce": loss}
 
 
@@ -336,8 +341,9 @@ def _candidate_batch(batch: dict, cfg: RecConfig, lo: int, hi: int) -> dict:
         q["target_item"] = cand
         q["target_cate"] = batch["cand_cates"][lo:hi]
         return q
-    sparse = batch["sparse"].expand(c, cfg.n_sparse).clone()
-    sparse[:, 0] = cand
+    sparse = torch.cat([cand[:, None].to(batch["sparse"].dtype),
+                        batch["sparse"][:, 1:].expand(c, cfg.n_sparse - 1)],
+                       dim=1)
     if cfg.model == "dlrm":
         return {"dense": batch["dense"].expand(c, cfg.n_dense), "sparse": sparse}
     return {"sparse": sparse}
@@ -373,15 +379,71 @@ def retrieval_topk(model: RecModel, batch: dict, k: int = 100):
 
     Candidates are scored ``ROW_CHUNK`` at a time; each chunk keeps its top
     k, and one stable sort over the kept ones, in candidate order, gives
-    the global top k in the reference's order.
+    the global top k in the reference's order.  Under a plan the
+    candidates are split as a batch's rows (the layout the forward's
+    lookups give them), each rank scores its own so
+    (:func:`_planned_chunks`), and one more stable sort over the ranks'
+    kept ones, gathered in rank (so candidate) order, gives the top k.
     """
     cand = batch["cand_items"]                                            # (C,)
     c = cand.shape[0]
     k = min(k, c)
+    planned = shlib.plan_active() and shlib.is_dtensor(cand)
+    if planned:
+        mesh = cand.device_mesh
+        rows = shlib.placements(shlib.spec_for(("batch",), dims=(c,)), mesh)
+        batch = {kk: (shlib._as_dtensor(v, mesh).redistribute(mesh, rows)
+                      if kk.startswith("cand_") else v)
+                 for kk, v in batch.items()}
+        cand = batch["cand_items"]
     kept_s, kept_i = [], []
-    for lo, logit in _candidate_chunks(model, batch, 0, c):
+    for lo, logit in (_planned_chunks(model, batch) if planned
+                      else _candidate_chunks(model, batch, 0, c)):
         s, i = _top(logit, k)
         kept_s.append(s)
         kept_i.append(i + lo)
     scores, j = _top(torch.cat(kept_s), k)
-    return scores, cand[torch.cat(kept_i)[j]]
+    if not planned:
+        return scores, cand[torch.cat(kept_i)[j]]
+    from torch.distributed.tensor import DTensor, Replicate
+    ids = cand.to_local()[torch.cat(kept_i)[j] - _rank_first(cand)]
+    s_all, id_all = (DTensor.from_local(t, mesh, rows, run_check=False).full_tensor()
+                     for t in (scores, ids))
+    top, j = _top(s_all, k)
+    rep = (Replicate(),) * mesh.ndim
+    return tuple(DTensor.from_local(t, mesh, rep, run_check=False)
+                 for t in (top, id_all[j]))
+
+
+def _rank_first(x) -> int:
+    """The global row of this rank's first local row of ``x`` (rows split
+    evenly over the mesh axes that shard them, in mesh order)."""
+    from torch.distributed.tensor import Shard
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    off = 0
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            off = off * mesh.size(m) + coord[m]
+    return off * x.to_local().shape[0]
+
+
+def _planned_chunks(model: RecModel, batch: dict):
+    """Yields (first candidate, local logits) of this rank's candidates
+    under a plan (``cand_*`` split on their rows only), ``ROW_CHUNK`` of
+    its own candidates a pass: each pass is one sharded forward over every
+    rank's pass (the query's row broadcast over them, laid out as the
+    candidates), so a rank holds one pass's activations at a time."""
+    from torch.distributed.tensor import DTensor
+    cfg, params = model.cfg, model.tree()
+    fn = FORWARDS[cfg.model]
+    cand = batch["cand_items"]
+    mesh, pl = cand.device_mesh, tuple(cand.placements)
+    local = {kk: (v.to_local() if kk.startswith("cand_") else
+                  v.full_tensor() if shlib.is_dtensor(v) else v)
+             for kk, v in batch.items()}
+    first, n = _rank_first(cand), local["cand_items"].shape[0]
+    for i in range(0, n, ROW_CHUNK):
+        sub = {kk: DTensor.from_local(v, mesh, pl, run_check=False) for kk, v in
+               _candidate_batch(local, cfg, i, min(i + ROW_CHUNK, n)).items()}
+        logit = shard(fn(params, sub, cfg), "candidates")
+        yield first + i, logit.redistribute(mesh, pl).to_local()

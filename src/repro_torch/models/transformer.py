@@ -29,6 +29,14 @@ layers form the stack ``dense_layers`` and the rest ``moe_layers``, the
 cache index of an MoE layer is its global one, and ``trunk`` sums the
 layers' ``aux``.
 
+Under a sharding plan (``distributed.sharding.plan_scope``) the
+parameters and the tokens are ``DTensor``s and the reference's
+``shard(...)`` calls lay the activations out (batch, sequence, heads,
+vocab); every product is ``sharding.einsum`` (weights gathered at use,
+the ZeRO-3 all-gather), the embedding gather ``take_rows`` and the gold
+logit of the vocab-sharded cross entropy ``pick_last``: ``DTensor``'s own
+rules fail there (their docstrings; ``tools/dtensor_rules.py``).
+
 Training (``loss_fn``, the chunked cross entropy) recomputes where the
 reference does under ``jax.checkpoint``: each layer
 (``torch.utils.checkpoint``, once the parameters take gradients), each kv
@@ -43,8 +51,9 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import (checkpoint, einsum, pick_last, shard,
+                                     take_rows)
 from . import attention as attn_lib
 from . import moe as moe_lib
 from .common import apply_rope, rmsnorm
@@ -208,11 +217,12 @@ def axes(cfg: LMConfig) -> dict:
 
 def _gqa_attention(p, h, pos, cfg: LMConfig):
     c = lambda w: w.to(h.dtype)
-    q = torch.einsum("bsd,dhk->bshk", h, c(p["wq"]))
-    k = torch.einsum("bsd,dhk->bshk", h, c(p["wk"]))
-    v = torch.einsum("bsd,dhk->bshk", h, c(p["wv"]))
+    q = einsum("bsd,dhk->bshk", h, c(p["wq"]))
+    k = einsum("bsd,dhk->bshk", h, c(p["wk"]))
+    v = einsum("bsd,dhk->bshk", h, c(p["wv"]))
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    q = shard(q, "batch", "act_seq_attn", "act_heads", None)
     kv_out = (k, v)
     if cfg.expand_kv and cfg.n_kv != cfg.n_heads:
         rep = cfg.n_heads // cfg.n_kv
@@ -220,32 +230,34 @@ def _gqa_attention(p, h, pos, cfg: LMConfig):
         v = torch.repeat_interleave(v, rep, dim=2)
     o = attn_lib.full_attention(q, k, v, causal=True, window=cfg.window,
                                 q_chunk=cfg.q_chunk or 1 << 30, kv_chunk=cfg.kv_chunk)
-    return torch.einsum("bshk,hkd->bsd", o, c(p["wo"])), kv_out
+    return einsum("bshk,hkd->bsd", o, c(p["wo"])), kv_out
 
 
 def _mla_attention(p, h, pos, cfg: LMConfig):
     c = lambda w: w.to(h.dtype)
     b, s, _ = h.shape
-    q = torch.einsum("bsd,dhk->bshk", h, c(p["wq"]))
+    q = einsum("bsd,dhk->bshk", h, c(p["wq"]))
     q_nope, q_rope = q[..., : cfg.qk_nope], q[..., cfg.qk_nope:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
-    lat_all = torch.einsum("bsd,dl->bsl", h, c(p["w_dkv"]))
+    lat_all = einsum("bsd,dl->bsl", h, c(p["w_dkv"]))
     lat = rmsnorm(lat_all[..., : cfg.kv_lora], p["kv_norm"])
     k_rope = apply_rope(lat_all[..., None, cfg.kv_lora:], pos, cfg.rope_theta)  # (B,S,1,Dr)
-    k_nope = torch.einsum("bsl,hln->bshn", lat, c(p["w_uk"]))
-    v = torch.einsum("bsl,hlv->bshv", lat, c(p["w_uv"]))
+    k_nope = einsum("bsl,hln->bshn", lat, c(p["w_uk"]))
+    v = einsum("bsl,hlv->bshv", lat, c(p["w_uv"]))
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope.expand(b, s, cfg.n_heads, cfg.qk_rope)], dim=-1)
+    q_full = shard(q_full, "batch", "act_seq_attn", "act_heads", None)
     o = attn_lib.full_attention(q_full, k_full, v, causal=True, window=cfg.window,
                                 q_chunk=cfg.q_chunk or 1 << 30, kv_chunk=cfg.kv_chunk)
-    return torch.einsum("bshv,hvd->bsd", o, c(p["wo"])), (lat, k_rope[:, :, 0, :])
+    return einsum("bshv,hvd->bsd", o, c(p["wo"])), (lat, k_rope[:, :, 0, :])
 
 
 def _dense_ffn(p, h):
     c = lambda w: w.to(h.dtype)
-    gate = torch.nn.functional.silu(torch.einsum("bsd,df->bsf", h, c(p["w1"])))
-    up = torch.einsum("bsd,df->bsf", h, c(p["w3"]))
-    return torch.einsum("bsf,fd->bsd", gate * up, c(p["w2"]))
+    gate = torch.nn.functional.silu(einsum("bsd,df->bsf", h, c(p["w1"])))
+    up = einsum("bsd,df->bsf", h, c(p["w3"]))
+    hidden = shard(gate * up, "batch", "act_seq_ffn", "act_ffn")
+    return einsum("bsf,fd->bsd", hidden, c(p["w2"]))
 
 
 def _moe_ffn(p, h, cfg: LMConfig):
@@ -262,13 +274,14 @@ def _layer(p, x, pos, cfg: LMConfig, moe: bool, collect_cache: bool):
     h = rmsnorm(x, p["attn_norm"])
     attn_fn = _mla_attention if cfg.attn == "mla" else _gqa_attention
     a, kv = attn_fn(p["attn"], h, pos, cfg)
-    x = x + a
+    x = shard(x + a, "batch", "act_seq", "act_embed")
     h = rmsnorm(x, p["ffn_norm"])
     if moe:
         f, aux = _moe_ffn(p["ffn"], h, cfg)
     else:
         f, aux = _dense_ffn(p["ffn"], h), None
-    return x + f, aux, (kv if collect_cache else None)
+    x = shard(x + f, "batch", "act_seq", "act_embed")
+    return x, aux, (kv if collect_cache else None)
 
 
 def _layer_params(stack: dict, li: int) -> dict:
@@ -300,7 +313,7 @@ def _run_stack(stack: dict, n: int, x, pos, cfg: LMConfig, moe: bool,
         lp = _layer_params(stack, li)
         if train:
             x, aux, kv = checkpoint(_layer, lp, x, pos, cfg, moe,
-                                    collect_cache, use_reentrant=False)
+                                    collect_cache)
         else:
             x, aux, kv = _layer(lp, x, pos, cfg, moe, collect_cache)
         if aux is not None:
@@ -316,7 +329,8 @@ def trunk(model: LM, tokens: torch.Tensor, collect_cache: bool = False):
     per-name caches (L, B, S, ...), when ``collect_cache``)."""
     cfg, params = model.cfg, model.tree()
     s = tokens.shape[1]
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = take_rows(params["embed"], tokens.long()).to(cfg.dtype)
+    x = shard(x, "batch", "act_seq", "act_embed")
     pos = torch.arange(s, device=x.device)
     auxes, caches = [], {}
     for name, n, moe in _stacks(cfg):
@@ -332,9 +346,10 @@ def trunk(model: LM, tokens: torch.Tensor, collect_cache: bool = False):
 
 def _ce_sum(xs, ys, emb):
     """The summed cross entropy of one loss chunk: xs (B, C, D), ys (B, C)."""
-    logits = torch.einsum("bcd,vd->bcv", xs, emb.to(xs.dtype)).to(torch.float32)
+    logits = shard(einsum("bcd,vd->bcv", xs, emb.to(xs.dtype)),
+                   "batch", None, "vocab").to(torch.float32)
     lz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, ys[..., None].long())[..., 0]
+    gold = pick_last(logits, ys.long())
     return torch.sum(lz - gold)
 
 
@@ -352,7 +367,7 @@ def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor):
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, ck):
         xs, ys = x[:, i:i + ck], labels[:, i:i + ck]
-        tot = tot + (checkpoint(_ce_sum, xs, ys, emb, use_reentrant=False)
+        tot = tot + (checkpoint(_ce_sum, xs, ys, emb)
                      if train else _ce_sum(xs, ys, emb))
     loss = tot / (b * s)
     return loss + cfg.aux_weight * aux, {"ce": loss, "aux": aux}
@@ -382,13 +397,22 @@ def cache_spec(cfg: LMConfig, batch: int, cache_len: int) -> dict:
             for k, v in shapes.items()}
 
 
+def cache_axes(cfg: LMConfig) -> dict:
+    """The logical axes of the decode cache's leaves."""
+    if cfg.attn == "mla":
+        return {"lat": (None, "batch", "act_cache", None),
+                "rope": (None, "batch", "act_cache", None)}
+    return {"k": (None, "batch", "act_cache", "kv_heads", None),
+            "v": (None, "batch", "act_cache", "kv_heads", None)}
+
+
 @torch.no_grad()
 def prefill(model: LM, tokens: torch.Tensor):
     """Full-sequence forward; returns last-position logits + stacked caches."""
     cfg = model.cfg
     x, _, caches = trunk(model, tokens, collect_cache=True)
     last = x[:, -1, :]
-    logits = torch.einsum("bd,vd->bv", last, model.embed.to(x.dtype))
+    logits = einsum("bd,vd->bv", last, model.embed.to(x.dtype))
     stacked = _merge_cache_stacks(caches, cfg)
     if cfg.window:  # keep only the trailing window (ring layout, slot = pos % W)
         s = tokens.shape[1]
@@ -421,7 +445,8 @@ def decode_step(model: LM, cache: dict, token: torch.Tensor, pos: int):
     cfg, params = model.cfg, model.tree()
     pos = int(pos)
     b = token.shape[0]
-    x = params["embed"][token.long()].to(cfg.dtype)[:, None, :]
+    x = take_rows(params["embed"], token.long()).to(cfg.dtype)[:, None, :]
+    x = shard(x, "batch", None, "act_embed")
     w = cache[_cache_names(cfg)[0]].shape[2]
     slot = (pos % w) if cfg.window else pos
     # the reference's dynamic_update_slice clamps its start into the cache
@@ -434,10 +459,10 @@ def decode_step(model: LM, cache: dict, token: torch.Tensor, pos: int):
         c = lambda wgt: wgt.to(h.dtype)
         ap = lp["attn"]
         if cfg.attn == "mla":
-            q = torch.einsum("bsd,dhk->bshk", h, c(ap["wq"]))
+            q = einsum("bsd,dhk->bshk", h, c(ap["wq"]))
             q_nope, q_rope = q[..., : cfg.qk_nope], q[..., cfg.qk_nope:]
             q_rope = apply_rope(q_rope, pos_arr, cfg.rope_theta)
-            lat_all = torch.einsum("bsd,dl->bsl", h, c(ap["w_dkv"]))
+            lat_all = einsum("bsd,dl->bsl", h, c(ap["w_dkv"]))
             lat = rmsnorm(lat_all[..., : cfg.kv_lora], ap["kv_norm"])
             k_rope = apply_rope(lat_all[..., None, cfg.kv_lora:], pos_arr,
                                 cfg.rope_theta)[:, :, 0]
@@ -446,22 +471,22 @@ def decode_step(model: LM, cache: dict, token: torch.Tensor, pos: int):
             o = attn_lib.mla_decode_attention(
                 q_nope[:, 0], q_rope[:, 0], cache["lat"][gi], cache["rope"][gi],
                 min(pos + 1, w), ap["w_uk"].to(cfg.dtype), ap["w_uv"].to(cfg.dtype))
-            a = torch.einsum("bshv,hvd->bsd", o, c(ap["wo"]))
+            a = einsum("bshv,hvd->bsd", o, c(ap["wo"]))
         else:
-            q = apply_rope(torch.einsum("bsd,dhk->bshk", h, c(ap["wq"])), pos_arr,
+            q = apply_rope(einsum("bsd,dhk->bshk", h, c(ap["wq"])), pos_arr,
                            cfg.rope_theta)
-            k = apply_rope(torch.einsum("bsd,dhk->bshk", h, c(ap["wk"])), pos_arr,
+            k = apply_rope(einsum("bsd,dhk->bshk", h, c(ap["wk"])), pos_arr,
                            cfg.rope_theta)
-            v = torch.einsum("bsd,dhk->bshk", h, c(ap["wv"]))
+            v = einsum("bsd,dhk->bshk", h, c(ap["wv"]))
             cache["k"][gi, :, slot] = k[:, 0].to(cfg.dtype)
             cache["v"][gi, :, slot] = v[:, 0].to(cfg.dtype)
             o = attn_lib.decode_attention(q, cache["k"][gi], cache["v"][gi],
                                           min(pos + 1, w),
                                           window=None)  # ring layout already bounds SWA
-            a = torch.einsum("bshk,hkd->bsd", o, c(ap["wo"]))
+            a = einsum("bshk,hkd->bsd", o, c(ap["wo"]))
         x = x + a
         h2 = rmsnorm(x, lp["ffn_norm"])
         x = x + (_moe_ffn(lp["ffn"], h2, cfg)[0] if moe else _dense_ffn(lp["ffn"], h2))
     x = rmsnorm(x, params["final_norm"])
-    logits = torch.einsum("bd,vd->bv", x[:, 0], params["embed"].to(x.dtype))
-    return logits, cache
+    logits = einsum("bd,vd->bv", x[:, 0], params["embed"].to(x.dtype))
+    return shard(logits, "batch", "vocab"), cache

@@ -54,13 +54,14 @@ def _needs_master(params) -> bool:
 
 
 def adamw_init(params) -> dict:
-    """m/v in fp32 on each parameter's device; an fp32 ``master`` copy when
-    any parameter is low-precision (mixtral's bf16 weights)."""
+    """m/v in fp32 on each parameter's device (laid out as the parameter,
+    a ``DTensor``'s shards under a plan); an fp32 ``master`` copy when any
+    parameter is low-precision (mixtral's bf16 weights)."""
     opt = {
-        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params),
-        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params),
+        "m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                      params),
+        "v": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                      params),
         "step": torch.zeros((), dtype=torch.int32,
                             device=tree_leaves(params)[0].device),
     }

@@ -55,6 +55,11 @@ def _block_until_ready(t: torch.Tensor) -> None:
         torch.cuda.current_stream(t.device).synchronize()
 
 
+def _scalar(v) -> float:
+    """A metric as a float (a ``DTensor`` metric is read whole)."""
+    return float(v.full_tensor() if hasattr(v, "full_tensor") else v)
+
+
 def run(step_fn: Callable, model, opt, batch_iter_fn: Callable,
         cfg: LoopConfig, log_fn=print):
     """batch_iter_fn(cursor) -> (batch, new_cursor).  Returns (model, opt,
@@ -82,9 +87,9 @@ def run(step_fn: Callable, model, opt, batch_iter_fn: Callable,
         _block_until_ready(metrics["loss"])
         dt = time.perf_counter() - t0
         slow = dog.observe(step, dt)
-        metrics_hist.append({k: float(v) for k, v in metrics.items()})
+        metrics_hist.append({k: _scalar(v) for k, v in metrics.items()})
         if step % cfg.log_every == 0 or slow:
-            log_fn(f"[step {step}] loss={float(metrics['loss']):.4f} dt={dt*1e3:.1f}ms"
+            log_fn(f"[step {step}] loss={_scalar(metrics['loss']):.4f} dt={dt*1e3:.1f}ms"
                    + (" STRAGGLER" if slow else ""))
         if (step + 1) % cfg.ckpt_every == 0 or step + 1 == cfg.total_steps:
             ckpt.save(step + 1, (model.tree(), opt), {"cursor": int(cursor)})

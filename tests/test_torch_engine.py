@@ -129,12 +129,14 @@ def test_legacy_and_many_through_b5_matches_host(gov2):
 
 
 def test_port_imports_without_jax():
-    """The port never imports jax (nor ml_dtypes): every module loads with
-    both blocked."""
+    """The port never imports jax (nor ml_dtypes, nor the JAX package
+    ``repro``): every module loads with all three blocked, and none starts
+    a ``torch.distributed`` process group."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['ml_dtypes'] = None\n"
+        "sys.modules['repro'] = None\n"
         "import repro_torch.index.engine, repro_torch.index.device\n"
         "import repro_torch.kernels.intersect_rounds\n"
         "import repro_torch.kernels.topk, repro_torch.index.scores\n"
@@ -174,6 +176,11 @@ def test_port_imports_without_jax():
         "import repro_torch.checkpoint, repro_torch.checkpoint.checkpointer\n"
         "import repro_torch.launch.train\n"
         "import repro_torch.distributed.collectives\n"
+        "import repro_torch.distributed.pipeline\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.census\n"
+        "import repro_torch.launch.roofline_report\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "from repro_torch import configs\n"
         "assert len(configs.ARCHS) == 10 and not configs.PENDING\n"
         "from repro_torch.obs import regress, run_gate\n"

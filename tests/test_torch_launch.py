@@ -170,7 +170,7 @@ def test_launch_train_in_a_subprocess():
 
 def test_launch_train_defaults_to_the_card_and_names_what_waits():
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="A.13.5"):
+    with pytest.raises(RuntimeError, match=r"\(2, 16, 16\)"):
         train.main(["--arch", "din", "--smoke", "--multi-pod",
                     "--torch-device", "cpu"])
     with pytest.raises(AssertionError, match="serving shape"):

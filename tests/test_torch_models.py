@@ -417,7 +417,12 @@ def test_configs_equal_reference_field_for_field(arch):
     assert spec.notes == ref.notes
     assert {k: dataclasses.asdict(c) for k, c in spec.shapes.items()} == \
         {k: dataclasses.asdict(c) for k, c in ref.shapes.items()}
-    assert spec.plan_for is None and spec.batch_axes is None
+    for name, cell in ref.shapes.items():         # the same plans and axes
+        cfg, rcfg = spec.make_config(), ref.make_config()
+        assert spec.plan_for(cfg, spec.shapes[name]).rules == \
+            ref.plan_for(rcfg, cell).rules
+        assert spec.batch_axes(cfg, spec.shapes[name]) == \
+            ref.batch_axes(rcfg, cell)
     for make in ("make_config", "make_smoke_config"):
         a, b = getattr(spec, make)(), getattr(ref, make)()
         for f in dataclasses.fields(b):
