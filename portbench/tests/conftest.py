@@ -1,0 +1,11 @@
+"""The benchmark's CPU tests: ``python -m pytest portbench/tests`` from the
+root of the repository.  Tests marked ``cuda`` decide inside the test
+whether there is a card, and skip without one."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+for p in (os.path.join(ROOT, "src"), ROOT):
+    if p not in sys.path:
+        sys.path.insert(0, p)
