@@ -42,6 +42,7 @@ import numpy as np
 from . import bp128, group_afor, group_pfd, group_scheme, group_simple, scalar
 from . import bp_tpu, dense_bitmap, group_vse, stream_vbyte
 from .encoded import Encoded
+from ..obs.trace import codec_tracer
 
 # One posting block of the inverted index is at most this many integers; all
 # declared arena widths are padded maxima for a block of this size.
@@ -185,7 +186,44 @@ class Codec:
 REGISTRY: dict[str, Codec] = {}
 
 
+def _in_span(span: str, lane: str, fn: Callable,
+             counts: Callable) -> Callable:
+    """``fn`` in a codec-layer span named ``span``, its args ``counts`` of
+    the call's arguments; the bare call unless the codec spans are on."""
+
+    @functools.wraps(fn)
+    def traced(*args, **kw):
+        tracer = codec_tracer()
+        if not tracer.enabled:
+            return fn(*args, **kw)
+        with tracer.span(span, lane=lane, **counts(*args, **kw)):
+            return fn(*args, **kw)
+    return traced
+
+
+def _encode_counts(x, *args, **kw) -> dict:
+    return {"n": len(x)}
+
+
+def _vec_counts(**kw) -> dict:
+    """A whole-list decode's postings, and its exceptions where the codec
+    has them (``torch_args`` gives their total)."""
+    if "total_exc" in kw:
+        return {"n": kw["n"], "exc": kw["total_exc"]}
+    return {"n": kw["n"]}
+
+
 def register(spec: Codec) -> Codec:
+    """Register ``spec`` under its name, its encoder and whole-list decoder
+    each in a span of that name (``encode/<name>``, ``decode_list/<name>``;
+    codecs that share a module keep their own), a no-op unless the
+    tracer's codec spans are on (``enable_tracing(codec=True)``)."""
+    torch_dec = spec.torch
+    if torch_dec is not None:
+        torch_dec = dataclasses.replace(torch_dec, vec=_in_span(
+            f"decode_list/{spec.name}", "device", torch_dec.vec, _vec_counts))
+    spec = dataclasses.replace(spec, torch=torch_dec, encode=_in_span(
+        f"encode/{spec.name}", "host", spec.encode, _encode_counts))
     REGISTRY[spec.name] = spec
     return spec
 

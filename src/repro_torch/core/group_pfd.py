@@ -29,6 +29,7 @@ from .encoded import Encoded
 from .frames import (pack_data, quads_of, unpack_data, unpack_data_np,
                      unpack_data_scalar, words_of)
 from .layout import quadmax_np
+from ..obs.trace import codec_tracer
 
 FRAME_QUADS = 32
 FRAME_INTS = 128
@@ -222,8 +223,15 @@ def _bw_quads(control: torch.Tensor, q: int) -> torch.Tensor:
 
 def decode_torch_vec(control, data, exceptions, n: int, q: int,
                      total_exc: int):
-    out = unpack_data(data, _bw_quads(control, q), n)
-    return _apply_exceptions(out, control, exceptions, n, total_exc)
+    """The whole list; its three phases each in a ``decode_list/`` span
+    (under the codec layer's ``decode_list/<codec>``)."""
+    tracer = codec_tracer()
+    with tracer.span("decode_list/widths", lane="device"):
+        bw_quads = _bw_quads(control, q)
+    with tracer.span("decode_list/unpack", lane="device"):
+        out = unpack_data(data, bw_quads, n)
+    with tracer.span("decode_list/patch", lane="device"):
+        return _apply_exceptions(out, control, exceptions, n, total_exc)
 
 
 def decode_torch_scalar(control, data, exceptions, n: int, q: int,

@@ -26,13 +26,24 @@ shared no-op context manager and ``begin()/end()`` return/accept ``None``.
 Deep engine and kernel span sites go through the process-global tracer
 (:func:`get_tracer`), disabled by default, so the serving hot path is
 untouched unless tracing is explicitly enabled (``enable_tracing()`` or
-``launch.serve --trace-out``).
+``launch.serve --trace-out``).  The codec layer's spans come one per
+encode and per whole-list decode call (four a Group-PFD list, one an
+index block encoded at build), far more than the engine's, so they have
+a switch of their own: ``enable_tracing(codec=True)``
+(:func:`codec_tracer`).
 
 **Fenced device timing** (off by default): ``tracer.fenced = True`` makes
 ``tracer.fence(x)`` call ``torch.cuda.synchronize`` for CUDA tensors inside
 round spans, so a span's duration attributes device wall-clock to the kernel
 that produced it instead of to whichever later op happens to force the value.
-:meth:`Tracer.profiler` brackets a region with ``torch.profiler``.
+
+**One clock with the device trace.** While the tracer is enabled and a
+``torch.profiler`` is recording, each context-manager span also opens a
+``torch.profiler.record_function`` range of its name, so the profiler
+stamps the span on its own clock, beside the kernels it launched (a
+user-annotation event).  Whether a profiler records is one flag test; no
+range is opened otherwise (a range costs more host time than its span).
+Detached :meth:`Tracer.begin` / :meth:`Tracer.end` spans are not mirrored.
 
 Counterpart of the JAX package's ``obs/trace.py``: the same spans and
 exporter, with the two device hooks in torch.
@@ -58,19 +69,30 @@ Span taxonomy (the names emitted across the stack):
 ``decode/<codec>``     one per-codec arena decode call (work-list group)
 ``kernel/extract_ids`` final bitmap -> sorted docid extraction
 ``kernel/topk``        k-th threshold / top-k stats reduction
+``decode_list/<codec>`` one whole-list ``Codec.torch.vec`` call (args: n,
+                       and exc where the codec has exceptions); not an
+                       arena decode: never summed with ``decode/<codec>``
+``decode_list/widths`` Group-PFD's per-quad bit widths, inside the above
+``decode_list/unpack`` Group-PFD's unpack of the four streams, inside it
+``decode_list/patch`` Group-PFD's exception patch, inside it (opened when
+                       the list has no exception too)
+``encode/<codec>``     one ``Codec.encode`` call (args: n)
+                       (these five with ``codec=True`` alone)
 =====================  =====================================================
 
 Engine spans carry ``lane="engine"`` (sub-engines: ``shard0``, ``shard1``,
-...), serving spans ``lane="serve"``, arena decodes ``lane="device"`` — the
-exporter gives each lane its own named track.
+...), serving spans ``lane="serve"``, arena and whole-list decodes
+``lane="device"``, encodes ``lane="host"`` — the exporter gives each lane
+its own named track.
 """
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import threading
 import time
+
+import torch
 
 _now = time.monotonic
 
@@ -115,11 +137,22 @@ class _Noop:
 _NOOP = _Noop()
 
 
+def _profiler_range(name: str):
+    """An entered ``torch.profiler.record_function`` range named ``name``
+    where a ``torch.profiler`` is recording, else None (one flag test)."""
+    if not torch._C._autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _SpanCM:
     """Context-manager span: nesting tracked on the tracer's per-thread
-    stack, so children opened inside automatically parent to it."""
+    stack, so children opened inside automatically parent to it; mirrored
+    by a profiler range while a profiler records (module docstring)."""
 
-    __slots__ = ("_tr", "_name", "_lane", "_args", "_span")
+    __slots__ = ("_tr", "_name", "_lane", "_args", "_span", "_range")
 
     def __init__(self, tr: "Tracer", name: str, lane: str, args: dict):
         self._tr = tr
@@ -127,9 +160,11 @@ class _SpanCM:
         self._lane = lane
         self._args = args
         self._span = None
+        self._range = None
 
     def __enter__(self) -> Span:
         tr = self._tr
+        self._range = _profiler_range(self._name)
         stack = tr._stack()
         parent = stack[-1].sid if stack else 0
         sp = Span(next(tr._ids), self._name, self._lane, _now(), parent,
@@ -145,6 +180,8 @@ class _SpanCM:
         if stack and stack[-1] is sp:
             stack.pop()
         self._tr._record(sp)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
@@ -152,9 +189,10 @@ class Tracer:
     """Bounded, thread-safe span collector (see the module docstring)."""
 
     def __init__(self, enabled: bool = False, max_spans: int = 200_000,
-                 fenced: bool = False):
+                 fenced: bool = False, codec: bool = False):
         self.enabled = enabled
         self.fenced = fenced
+        self.codec = codec
         self.max_spans = max_spans
         self.dropped = 0
         self._spans: list[Span] = []
@@ -215,24 +253,9 @@ class Tracer:
         resident paths' zero-sync discipline is untouched by default."""
         if not (self.enabled and self.fenced):
             return
-        import torch
         for v in values:
             if isinstance(v, torch.Tensor) and v.is_cuda:
                 torch.cuda.synchronize(v.device)
-
-    def profiler(self, logdir=None):
-        """Context manager bracketing a region with ``torch.profiler``,
-        writing a Chrome trace into ``logdir`` on exit.  Null when disabled
-        or no ``logdir``."""
-        if not self.enabled or logdir is None:
-            return contextlib.nullcontext()
-        import torch
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        return torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(str(logdir)))
 
     # ---- access ----------------------------------------------------------- #
 
@@ -249,10 +272,17 @@ class Tracer:
 
 # process-global tracer for deep engine / kernel spans; disabled by default
 _TRACER = Tracer(enabled=False)
+_OFF = Tracer(enabled=False)
 
 
 def get_tracer() -> Tracer:
     return _TRACER
+
+
+def codec_tracer() -> Tracer:
+    """The tracer the codec layer's per-call spans go to: the process-global
+    one where its ``codec`` switch is on, else a disabled one."""
+    return _TRACER if _TRACER.codec else _OFF
 
 
 def set_tracer(tracer: Tracer) -> Tracer:
@@ -261,10 +291,13 @@ def set_tracer(tracer: Tracer) -> Tracer:
     return tracer
 
 
-def enable_tracing(enabled: bool = True, fenced: bool = False) -> Tracer:
-    """Toggle the process-global tracer (engine + kernel spans)."""
+def enable_tracing(enabled: bool = True, fenced: bool = False,
+                   codec: bool = False) -> Tracer:
+    """Toggle the process-global tracer (engine + kernel spans; with
+    ``codec`` the codec layer's per-call spans too)."""
     _TRACER.enabled = enabled
     _TRACER.fenced = fenced
+    _TRACER.codec = codec
     return _TRACER
 
 

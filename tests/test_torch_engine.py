@@ -151,7 +151,6 @@ def test_port_imports_without_jax():
         "import repro_torch.distributed.sharding\n"
         "import repro_torch.distributed.collectives\n"
         "import repro_torch.launch.mesh, repro_torch.launch.serve\n"
-        "import repro_torch.obs.regress\n"
         "import repro_torch.index.query, repro_torch.data.pipeline\n"
         "import repro_torch.models.common, repro_torch.models.specs\n"
         "import repro_torch.models.attention, repro_torch.models.moe\n"
@@ -183,7 +182,6 @@ def test_port_imports_without_jax():
         "assert not dist.is_initialized()\n"
         "from repro_torch import configs\n"
         "assert len(configs.ARCHS) == 10 and not configs.PENDING\n"
-        "from repro_torch.obs import regress, run_gate\n"
         "from repro_torch.core import codec\n"
         "assert len(codec.names()) == 31\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "

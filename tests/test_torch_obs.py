@@ -1,27 +1,23 @@
-"""The port's serving traces and perf-regression gate against the JAX
-package's: ``tests/test_obs.py``'s serving-trace and ``regress`` cases.
+"""The port's serving traces against the JAX package's:
+``tests/test_obs.py``'s serving-trace cases.
 
 The serve streams run on the port's engines (``torch_device="cpu"``) and
-must leave the reference's span chain; the gate functions of
-``repro_torch.obs.regress`` must return what ``repro.obs.regress`` returns
-on the same reports."""
+must leave the reference's span chain."""
 
 import json
 import math
-import os
 
 import numpy as np
 import pytest
 
-from repro.obs import regress as ref_regress
 from repro_torch.index.engine import QueryEngine
 from repro_torch.index.invindex import InvertedIndex
 from repro_torch.index.serve import (Request, ServeConfig, ServerStats,
                                      TraceRecord, serve_stream)
-from repro_torch.obs import (enable_tracing, get_tracer, regress,
-                             to_chrome_trace, trace_coverage)
+from repro_torch.obs import (enable_tracing, get_tracer, to_chrome_trace,
+                             trace_coverage)
 
-from test_obs import _QUERY_REPORT, DOCLEN, N_DOCS, POSTINGS
+from test_obs import DOCLEN, N_DOCS, POSTINGS
 
 
 def _engine(device=False, fused=False):
@@ -153,103 +149,3 @@ def test_snapshot_percentiles_tiny_n():
             r = min(max(math.ceil(q / 100.0 * n), 1), n)
             assert pct[name] == pytest.approx(lat[r - 1])
         assert pct["p50"] <= pct["p99"] <= pct["p999"] == pct["max"]
-
-
-# --------------------------------------------------------------------------- #
-# the regression gate, against the reference's
-# --------------------------------------------------------------------------- #
-
-def _same_violations(got, want):
-    assert [_violation_key(v) for v in got] == \
-        [_violation_key(v) for v in want]
-
-
-def _violation_key(v):
-    return (v.artifact, v.kind, v.path, v.detail)
-
-
-def test_gate_identity_passes_and_2x_regression_fails():
-    tol = regress.load_tolerances(None)
-    assert tol == ref_regress.load_tolerances(None)
-    v, n = regress.compare_reports("query", _QUERY_REPORT, _QUERY_REPORT, tol)
-    assert not v and n == 3          # host_qps x2 + ranked or qps
-    bad = regress.synthesize_regression(_QUERY_REPORT, factor=0.5)
-    assert bad == ref_regress.synthesize_regression(_QUERY_REPORT, factor=0.5)
-    assert bad["host_qps"]["1"] == 50.0
-    assert bad["decodes_per_hot_block"] == 1.0
-    assert bad["ranked"]["or"]["blocks_pruned"] == 12
-    v, n = regress.compare_reports("query", bad, _QUERY_REPORT, tol)
-    rv, rn = ref_regress.compare_reports("query", bad, _QUERY_REPORT, tol)
-    assert len(v) == 3 and all(x.kind == "ratio" for x in v) and n == rn
-    _same_violations(v, rv)
-
-
-def test_gate_min_ratio_override_and_disable():
-    tol = {"defaults": {"min_ratio": 0.55},
-           "overrides": [{"artifact": "query", "pattern": "host_qps.*",
-                          "min_ratio": 0}]}
-    bad = regress.synthesize_regression(_QUERY_REPORT, factor=0.5)
-    v, n = regress.compare_reports("query", bad, _QUERY_REPORT, tol)
-    assert {x.path for x in v} == {"ranked.or.qps.host"}
-    assert n == 1
-    _same_violations(v, ref_regress.compare_reports(
-        "query", bad, _QUERY_REPORT, tol)[0])
-
-
-def test_gate_workload_stamp_mismatch_refuses():
-    other = dict(_QUERY_REPORT, n_queries=256)
-    keys = ("dataset", "codec", "backend", "n_queries")
-    v = regress.check_workload("query", keys, other, _QUERY_REPORT)
-    assert len(v) == 1 and v[0].kind == "workload" and v[0].path == "n_queries"
-    _same_violations(v, ref_regress.check_workload("query", keys, other,
-                                                   _QUERY_REPORT))
-
-
-def test_gate_hard_invariants():
-    ok, n = regress.check_invariants("query", _QUERY_REPORT)
-    assert not ok and n >= 4
-    broken = json.loads(json.dumps(_QUERY_REPORT))
-    broken["placements"]["device"]["host_syncs_per_query"] = 3
-    broken["ranked"]["or"]["blocks_pruned"] = 0
-    v, _ = regress.check_invariants("query", broken)
-    assert {x.path for x in v} == {"placements.device.host_syncs_per_query",
-                                   "ranked.or.blocks_pruned"}
-    _same_violations(v, ref_regress.check_invariants("query", broken)[0])
-    mut = {"tombstone_qps": {"0.01": {"cand_syncs": 0, "qps": 5.0}},
-           "ranked_tomb_1pct": {"score_syncs": 0, "blocks_pruned": 3}}
-    v, _ = regress.check_invariants("mutation", mut)
-    assert not v
-    mut["ranked_tomb_1pct"]["blocks_pruned"] = 0
-    v, _ = regress.check_invariants("mutation", mut)
-    assert [x.path for x in v] == ["ranked_tomb_1pct.blocks_pruned"]
-    srv = {"arrivals": {"poisson": {"host": {"shed_rate": 0.0,
-                                             "parity_ok": True}},
-                        "bursty": {"host": {"shed_rate": 0.25,
-                                            "parity_ok": False}}}}
-    v, _ = regress.check_invariants("serving", srv)
-    assert [x.path for x in v] == ["arrivals.bursty.host.parity_ok"]
-    _same_violations(v, ref_regress.check_invariants("serving", srv)[0])
-
-
-def test_gate_missing_fresh_report_is_a_violation(tmp_path):
-    base = tmp_path / "base"
-    fresh = tmp_path / "fresh"
-    base.mkdir()
-    fresh.mkdir()
-    (base / "BENCH_query.json").write_text(json.dumps(_QUERY_REPORT))
-    res = regress.run_gate(str(fresh), str(base))
-    assert not res.passed
-    assert res.violations[0].kind == "workload"
-    (fresh / "BENCH_query.json").write_text(json.dumps(_QUERY_REPORT))
-    res = regress.run_gate(str(fresh), str(base))
-    assert res.passed and res.checked_ratios == 3
-
-
-def test_committed_tolerances_keep_selftest_teeth():
-    tol = regress.load_tolerances(
-        os.path.join(os.path.dirname(__file__), "..",
-                     regress.TOLERANCES_FILE))
-    floors = [float(tol["defaults"]["min_ratio"])]
-    floors += [float(ov["min_ratio"]) for ov in tol["overrides"]
-               if float(ov.get("min_ratio", 1)) > 0]
-    assert all(0.5 < f <= 1.0 for f in floors), floors
