@@ -130,7 +130,9 @@ torch version on the card:
              lists (every tenth of the 200 by descending df; encoded on the
              host by worker processes while the arenas build),
              ``decode_torch_vec``
-             equal to the d-gaps, timed over the 20 lists (CUDA events,
+             equal to the d-gaps, counts set to 0 just before (Group-PFD
+             and Group-OptPFD: kernel PFD, one launch a list; the others
+             none), timed over the 20 lists (CUDA events,
              median of 5 after one, host enqueue included), postings/s and
              bits/posting; ``decode_torch_scalar`` (equal to the d-gaps,
              one timed run: a run is 1,024+ loop steps) beside ``vec`` on
@@ -209,7 +211,15 @@ torch version on the card:
              one computes the same function (``index_put_(accumulate=True)``
              for B2 and B4, ``torch.cumsum`` for B8, ``torch.bitwise_and``
              for B10); for B6-B10 also the time of one call from an idle
-             queue (host enqueue included); the bytes bound.  For B8 and
+             queue (host enqueue included); the bytes bound.  Kernel PFD
+             (Group-PFD's whole-list decode) on the decode table's longest
+             list (the largest call) and shortest, and a one-tile list of
+             7,579 postings, each bitwise against its plain version and
+             the d-gaps and timed the same way, the bound being the encoded
+             bytes and 4 B a posting; its launches are the decode table's;
+             on the 7,579-posting list the host microseconds of a call
+             (20,000 calls with no synchronise inside), whole, through
+             ``Codec.torch.vec``, and part by part.  For B8 and
              B10 the grid launches and memsets one call puts on the card,
              counted from a ``torch.profiler`` trace; B10 and
              ``torch.bitwise_and`` also at 65,536 rows (3 x 32 MiB, above
@@ -401,6 +411,9 @@ REPLAY_QUERIES = 128            # codecs, sharded: fresh queries replayed (cut)
 TABLE_STEP = 10                 # decode table: every tenth list by df
 TABLE_RUNS = 5                  # decode table: timed passes (after one)
 SCALAR_QUADS = 1024             # decode table: the scalar decode's input
+PFD_CODECS = ("group_pfd", "group_optpfd")      # their lists: kernel PFD
+PFD_MEDIAN_N = 7_579            # kernels: the decode cell's median list
+HOST_CALLS = 20_000             # kernels: calls a host-time loop (PFD)
 ENCODE_WORKERS = 6              # processes encoding the decode table's lists
 ORACLE_WORKERS = 4              # processes computing the ranked `or` oracles
 SHARDS = 4                      # doc-range shards of the sharded phase
@@ -583,6 +596,21 @@ def events_ms(fn, torch, runs: int, warm: bool = True) -> tuple:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2], times
+
+
+def host_us(fn, torch, calls: int = HOST_CALLS) -> float:
+    """Host microseconds a call of ``fn()``: the median of three loops of
+    ``calls`` calls, with no synchronise inside a loop (the card keeps up
+    with a short list a call) and one around it."""
+    got = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        got.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(got)[1]
 
 
 _TABLE_LISTS: list = []         # an encode worker's d-gap lists
@@ -1178,12 +1206,14 @@ def mutation_phase(idx, doclen, postings, terms, seed, oracle_pool, np,
     return out
 
 
-def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> dict:
+def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> tuple:
     """The codecs phase (module docstring): the Group-PFD index (built by
     ``pfd_job``, a worker process's future) served on the ``device``
     placement (and ``fused`` ``and``) against the main path's oracles,
     then the decode table of every codec that declares ``Codec.torch``.
-    Raises on any failed check; returns the figures."""
+    Raises on any failed check; returns the figures and, for the kernel
+    phase, the table's longest and shortest lists as Group-PFD encodings
+    with their d-gaps."""
     from repro_torch import kernels as K
     from repro_torch.core import codec as codec_lib
     from repro_torch.core.bits import ebw_np, from_np, to_np
@@ -1332,10 +1362,18 @@ def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> dict:
         encs = [encoded[(name, i)][0] for i in range(len(gaps))]
         enc_s = sum(encoded[(name, i)][1] for i in range(len(gaps)))
         kws = [spec.torch.args(e, device=dev) for e in encs]
+        K.reset_launches()
         for i, (g, kw) in enumerate(zip(gaps, kws)):
             if not np.array_equal(to_np(spec.torch.vec(**kw)), g):
                 raise AssertionError(f"{name}: decode_torch_vec of list "
                                      f"{table_terms[i]} differs")
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        # a Group-PFD list is one launch of kernel PFD; the other codecs'
+        # torch decoders are plain torch
+        want_launches = ({"PFD": len(gaps)} if name in PFD_CODECS else {})
+        if launches != want_launches:
+            raise AssertionError(f"{name}: the table's decode launched "
+                                 f"{launches}, not {want_launches}")
 
         def vec_all(kws=kws, spec=spec):
             for kw in kws:
@@ -1355,14 +1393,15 @@ def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> dict:
                "bits_per_posting": bits / n_table, "encode_s": enc_s,
                "scalar_ms": s_ms, "scalar_postings_per_s": len(head) / s_ms * 1e3,
                "vec_head_ms": v_ms,
-               "vec_head_postings_per_s": len(head) / v_ms * 1e3}
+               "vec_head_postings_per_s": len(head) / v_ms * 1e3,
+               "launches": launches}
         out["table"][name] = row
         log(f"{name:18s} vec {ms:9.4f} ms = {row['postings_per_s']:.4e} "
             f"postings/s, {row['bits_per_posting']:.4f} bits/posting; "
             f"first {SCALAR_QUADS} quads: scalar {s_ms:.4f} ms "
             f"({row['scalar_postings_per_s']:.4e}/s), vec {v_ms:.4f} ms "
             f"({row['vec_head_postings_per_s']:.4e}/s); host encode "
-            f"{enc_s:.2f} s")
+            f"{enc_s:.2f} s; the table's launches {launches}")
         del kws, kw_s, encs
     packed = []
     for t, g in zip(table_terms, gaps):
@@ -1389,7 +1428,10 @@ def codecs_phase(pfd_job, postings, fresh, src, smi, np, torch) -> dict:
         f"{TABLE_RUNS} after one, host enqueue included; {smi}")
     out["table_lists"] = {"terms": [int(t) for t in table_terms],
                           "postings": n_table}
-    return out
+    pfd_lists = {"longest": (encoded[("group_pfd", 0)][0], gaps[0]),
+                 "shortest": (encoded[("group_pfd", len(gaps) - 1)][0],
+                              gaps[-1])}
+    return out, pfd_lists
 
 
 
@@ -3265,12 +3307,14 @@ def main() -> int:
     from repro_torch import kernels as K
     from repro_torch.index.invindex import Generation, InvertedIndex
     from repro_torch.index.scores import bm25_scores, topk_select
+    from repro_torch.core import codec as codec_lib
+    from repro_torch.core import group_pfd
     from repro_torch.core.bits import ebw_np, from_np, to_np
     from repro_torch.core.dgap import dgap_encode_np
     from repro_torch.kernels import (accumulate, bitpack, cuda_build,
                                      decode_fused, intersect,
-                                     intersect_rounds, ops, quadmax, scan_add,
-                                     topk, unpack_delta)
+                                     intersect_rounds, ops, pfd_decode,
+                                     quadmax, scan_add, topk, unpack_delta)
     from repro_torch.kernels.bitpack import FRAME_INTS
     from repro_torch.kernels.decode_fused import BW_BUCKETS, rows_per_block
     from repro_torch.obs.trace import enable_tracing
@@ -3789,7 +3833,8 @@ def main() -> int:
     # of the main path's fresh batches (a depth cut: PERF.md, Cells)
     replay = {m: tuple((qs[:REPLAY_QUERIES], want[:REPLAY_QUERIES])
                        for qs, want in pair) for m, pair in fresh.items()}
-    codecs = codecs_phase(pfd_job, postings, replay, src, smi, np, torch)
+    codecs, pfd_lists = codecs_phase(pfd_job, postings, replay, src, smi, np,
+                                     torch)
     del postings, pfd_job
     gc.collect()
     torch.cuda.empty_cache()
@@ -4675,6 +4720,68 @@ def main() -> int:
             f"{big['bound_ms']:.4f} ms")
         del x, flat, packed, a, b
 
+        # kernel PFD, Group-PFD's whole-list decode: the codecs table's
+        # longest list (the largest call) and shortest (two tiles), and a
+        # one-tile list of the decode cell's median length; launches are
+        # the codecs table's, one a list
+        prng = np.random.default_rng(args.seed + 28)
+        med = dgap_encode_np(np.sort(prng.choice(
+            args.n_docs, PFD_MEDIAN_N, replace=False)).astype(np.uint32))
+        lists = dict(pfd_lists, median=(group_pfd.encode(med), med))
+        pfd = {}
+        for which, (enc, g) in lists.items():
+            kw = group_pfd.torch_args(enc, device=dev)
+            got = pfd_decode.decode_list(**kw)
+            err = max_abs_err([got], [pfd_decode.decode_list_plain(**kw)],
+                              torch)
+            if err or not np.array_equal(to_np(got), g):
+                raise AssertionError(f"PFD disagrees with its plain version "
+                                     f"or the d-gaps on the {which} list")
+            frames = -(-kw["q"] // group_pfd.FRAME_QUADS)
+            pfd[which] = {
+                "n": enc.n, "frames": frames,
+                "tiles": -(-frames // pfd_decode.TILE_FRAMES),
+                "exc": kw["total_exc"], "max_abs_err": err,
+                "ms": cuda_ms(lambda: pfd_decode.decode_list(**kw), torch),
+                "call_ms": cuda_ms(lambda: pfd_decode.decode_list(**kw),
+                                   torch, primed=False),
+                "plain_ms": cuda_ms(
+                    lambda: pfd_decode.decode_list_plain(**kw), torch,
+                    runs=PLAIN_RUNS),
+                "bound_ms": bound_ms(enc.nbytes() + 4 * enc.n)}
+            log(f"PFD {which} list {pfd[which]}")
+        kw = group_pfd.torch_args(lists["median"][0], device=dev)
+        vec = codec_lib.get("group_pfd").torch.vec
+        d = kw["data"]
+        host = {"decode_list": host_us(lambda: pfd_decode.decode_list(**kw),
+                                       torch),
+                "codec_vec": host_us(lambda: vec(**kw), torch),
+                "check_list_args": host_us(lambda: pfd_decode.check_list_args(
+                    kw["control"], d, kw["exceptions"]), torch),
+                "torch_empty": host_us(lambda: torch.empty(
+                    kw["n"], dtype=torch.int32, device=dev), torch),
+                "stream_ptr": host_us(lambda: cuda_build.stream_ptr(d), torch),
+                "current_stream": host_us(
+                    lambda: torch.cuda.current_stream(d.device).cuda_stream,
+                    torch),
+                "count_launch": host_us(lambda: K.count_launch(
+                    "PFD", n=kw["n"], frames=1, exc=0), torch)}
+        log(f"PFD host microseconds a call on the median list {host}")
+        top = pfd["longest"]
+        report.append({
+            "name": "decode_list (PFD)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/group_pfd.cu",
+            "replaces": "src/repro/core/group_pfd.py:186 (jnp, no Pallas)",
+            "launches": codecs["table"]["group_pfd"]["launches"]["PFD"],
+            "path": "codecs", "max_abs_err": max(
+                v["max_abs_err"] for v in pfd.values()),
+            "ms": top["ms"], "call_ms": top["call_ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "library": None,
+            "shape": {k: top[k] for k in ("n", "frames", "tiles", "exc")},
+            "lists": pfd, "host_us": host, "ok": True})
+        del lists, kw, d, got
+
         # the kernels the shard and serve phases launched, counted there
         for entry in report:
             key = {"segmented_decode_and (B1)": "B1", "scatter_bits (B2)": "B2",
@@ -4687,6 +4794,7 @@ def main() -> int:
         return report
 
     report = kernel_phase()
+    del pfd_lists
 
     # ---- dense LM serving, after every index phase ------------------------ #
     phase_done("kernels")

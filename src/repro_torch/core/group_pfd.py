@@ -12,7 +12,8 @@ Header: 2 bytes/frame = bw (6 bits) | wcode (2 bits), n_exceptions (8 bits).
 
 Counterpart of the JAX package's ``core/group_pfd.py``: ``encode`` and
 ``decode_np`` are its numpy code; ``torch_args`` / ``decode_torch_vec`` /
-``decode_torch_scalar`` the torch forms of its JAX decoders, and
+``decode_torch_scalar`` the torch forms of its JAX decoders (the whole-list
+decode is kernel PFD on the card, ``kernels/pfd_decode.py``), and
 ``decode_arena_block`` its device-arena decode with the vectorized patch,
 batched over ``(P, width)`` tensors.
 """
@@ -29,7 +30,6 @@ from .encoded import Encoded
 from .frames import (pack_data, quads_of, unpack_data, unpack_data_np,
                      unpack_data_scalar, words_of)
 from .layout import quadmax_np
-from ..obs.trace import codec_tracer
 
 FRAME_QUADS = 32
 FRAME_INTS = 128
@@ -187,7 +187,13 @@ def torch_args(enc: Encoded, device="cuda") -> dict:
     }
 
 
-def _apply_exceptions(out, control, exceptions, n: int, total_exc: int):
+def bw_quads(control: torch.Tensor, q: int) -> torch.Tensor:
+    """Each quadruple's bit width, from its frame's header."""
+    bws = control.reshape(-1, 2)[:, 0] & 63
+    return bws.repeat_interleave(FRAME_QUADS)[:q]
+
+
+def apply_exceptions(out, control, exceptions, n: int, total_exc: int):
     """Patch the ``total_exc`` exceptions into ``out`` (int32 words), one
     lane an exception; ``repeat_interleave`` is given its output size, so
     the card is never asked for it."""
@@ -216,28 +222,27 @@ def _apply_exceptions(out, control, exceptions, n: int, total_exc: int):
     return buf[:n]
 
 
-def _bw_quads(control: torch.Tensor, q: int) -> torch.Tensor:
-    bws = control.reshape(-1, 2)[:, 0] & 63
-    return bws.repeat_interleave(FRAME_QUADS)[:q]
+@functools.cache
+def _kernel_wrapper():
+    """``kernels/pfd_decode.py``, imported at the first decode: it imports
+    this module's format helpers above."""
+    from ..kernels import pfd_decode
+    return pfd_decode
 
 
 def decode_torch_vec(control, data, exceptions, n: int, q: int,
                      total_exc: int):
-    """The whole list; its three phases each in a ``decode_list/`` span
-    (under the codec layer's ``decode_list/<codec>``)."""
-    tracer = codec_tracer()
-    with tracer.span("decode_list/widths", lane="device"):
-        bw_quads = _bw_quads(control, q)
-    with tracer.span("decode_list/unpack", lane="device"):
-        out = unpack_data(data, bw_quads, n)
-    with tracer.span("decode_list/patch", lane="device"):
-        return _apply_exceptions(out, control, exceptions, n, total_exc)
+    """The whole list: one launch of kernel PFD on a CUDA tensor, its plain
+    version (three ``decode_list/`` phase spans) on a CPU tensor
+    (``kernels/pfd_decode.py``)."""
+    return _kernel_wrapper().decode_list(control, data, exceptions, n, q,
+                                         total_exc)
 
 
 def decode_torch_scalar(control, data, exceptions, n: int, q: int,
                         total_exc: int):
-    out = unpack_data_scalar(data, _bw_quads(control, q), n, q)
-    return _apply_exceptions(out, control, exceptions, n, total_exc)
+    out = unpack_data_scalar(data, bw_quads(control, q), n, q)
+    return apply_exceptions(out, control, exceptions, n, total_exc)
 
 
 def decode_arena_block(ctrl, data, exc, ctrl_len, data_len, exc_len, n_valid):
@@ -270,7 +275,7 @@ def decode_arena_block(ctrl, data, exc, ctrl_len, data_len, exc_len, n_valid):
                            bws[:, torch.clamp(q >> 5, max=fmax - 1)], 0)
     out = unpack_data(data.reshape(p, -1, 4), bw_quads, 4 * ARENA_Q)
     # vectorized patch: one fixed lane per potential exception slot, masked
-    # past the block's total (the bit layout of _apply_exceptions)
+    # past the block's total (the bit layout of apply_exceptions)
     frame_bits = n_exc * (8 + ws)
     base = torch.cumsum(frame_bits, dim=1) - frame_bits
     cum = torch.cumsum(n_exc, dim=1)

@@ -132,6 +132,8 @@ def check(err: int, name: str, what: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    """The current CUDA stream of tensor ``t``'s device, as an int."""
+    """The current CUDA stream of tensor ``t``'s device, as an int (the raw
+    getter: no ``torch.cuda.Stream`` object is made, which saves host time
+    on every launch)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -75,7 +75,9 @@ Span taxonomy (the names emitted across the stack):
 ``decode_list/widths`` Group-PFD's per-quad bit widths, inside the above
 ``decode_list/unpack`` Group-PFD's unpack of the four streams, inside it
 ``decode_list/patch`` Group-PFD's exception patch, inside it (opened when
-                       the list has no exception too)
+                       the list has no exception too); these three on
+                       the plain path alone (a CPU tensor): on the card a
+                       list is one launch of kernel PFD
 ``encode/<codec>``     one ``Codec.encode`` call (args: n)
                        (these five with ``codec=True`` alone)
 =====================  =====================================================

@@ -3,7 +3,9 @@ paper's vectorized decode, and ``decode_torch_scalar``, its one-quadruple-a
 -step form) of the frame codecs (BP128, Group-PackedBinary, Group-AFOR,
 Group-VSE, Group-PFD, Group-OptPFD) against
 the JAX package's ``decode_jax_vec`` and ``decode_jax_scalar`` on
-``test_codecs.py``'s cases, bitwise; Group-Simple's scatter decode
+``test_codecs.py``'s cases, bitwise; Group-PFD's whole-list decode (kernel
+PFD's plain version) on ``test_torch_pfd_decode.py``'s edge-case encodings
+against ``decode_jax_vec``; Group-Simple's scatter decode
 (``decode_torch_vec_scatter``) against ``decode_jax_vec_scatter`` on the
 same cases; and the shared helpers of ``core/bits.py`` (``ebw`` too),
 ``core/frames.py``, ``core/dgap.py`` (``dgap_decode``) and
@@ -21,11 +23,14 @@ from repro.core import dgap as ref_dgap
 from repro.core import frames as ref_frames
 from repro.core import group_simple as ref_gs
 from repro.core import layout as ref_layout
-from repro_torch.core import bits, dgap, frames, group_simple, layout
+from repro_torch.core import bits, dgap, frames, group_pfd, group_simple
+from repro_torch.core import layout
 from repro_torch.core import codec as port_codec
+from repro_torch.kernels import pfd_decode
 
 from _torch_parity import assert_u32_equal, t32
 from test_codecs import CASES
+from test_torch_pfd_decode import CASES as PFD_CASES, _case as pfd_case
 
 FRAME_CODECS = ["bp128", "g_packed_binary", "group_afor", "group_vse",
                 "group_pfd", "group_optpfd"]
@@ -57,6 +62,21 @@ def assert_torch_decoders_match_reference(name: str) -> None:
 @pytest.mark.parametrize("name", FRAME_CODECS)
 def test_torch_decoders_match_jax_decoders(name):
     assert_torch_decoders_match_reference(name)
+
+
+@pytest.mark.parametrize("case", PFD_CASES)
+def test_pfd_edge_cases_match_jax_decoder(case):
+    """The encodings that stress kernel PFD's patch (255 exceptions in a
+    frame, positions past n, bw 1..32, w 8/16/32, OptPFD, 3 tiles) through
+    the plain version, which a CPU tensor runs, against the reference's
+    ``decode_jax_vec``, bitwise."""
+    enc = pfd_case(case)
+    ref = ref_codec.get(enc.codec)
+    want = np.asarray(ref.jax.vec(**ref.jax.args(enc)))
+    kw = group_pfd.torch_args(enc, device="cpu")
+    assert_u32_equal(pfd_decode.decode_list_plain(**kw), want, case)
+    assert_u32_equal(port_codec.get(enc.codec).torch.vec(**kw), want, case)
+    np.testing.assert_array_equal(want, group_pfd.decode_np(enc))
 
 
 def test_every_torch_codec_is_swept():

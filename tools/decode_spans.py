@@ -21,6 +21,12 @@ request that passes its deadline):
   differently;
 * ``off`` again.
 
+On the card a Group-PFD list is one launch of kernel PFD
+(``kernels/pfd_decode.py``), and ``decode_list/<codec>`` is its only span:
+``decode_list/widths``, ``/unpack`` and ``/patch`` wrap the plain version
+alone, which a CPU tensor runs.  A run on the card says so under
+``"phases"``.
+
 One JSON object goes to standard output and to ``--out``.  Reads the
 benchmark's files; changes none of them.
 """
@@ -36,6 +42,10 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 OUTSIDE = "between requests"
+PHASES_ON_CARD = ("decode_list/group_pfd alone: on the card a list is one "
+                  "launch of kernel PFD, and the decode_list/widths, "
+                  "/unpack and /patch spans exist only on the plain path "
+                  "(a CPU tensor)")
 
 
 def innermost(intervals: list, points: list, outside: str) -> list:
@@ -171,6 +181,8 @@ def run(workload: str, seed: int, seconds: float, device: str,
     sync()
     res = {"workload": workload, "seed": seed, "device": str(dev),
            "setup": setup, "parts": []}
+    if cuda:
+        res["phases"] = PHASES_ON_CARD
 
     def part(name, spans_on, profiled):
         tracer = enable_tracing(spans_on, codec=spans_on)
