@@ -6,16 +6,22 @@ to come out as not correct.
     python3 portbench/control.py --workload <name> --seeds 1,2,3 \\
         --requests <n>
 
-For each seed: the corpus, the first ``n`` requests of the window's
-stream, what a run keeps of them for the check (every list of the first,
-a sample drawn from the seed of the rest), then the traffic's check
-(``Driver.check`` in ``portbench/drivers/``) with the control's outputs.
-Prints one JSON line a seed: the numbers compared, their limits and
-whether the control failed them.  The benchmark's own runs never run it.
+For each seed: the corpus where the configuration names one, the first
+``n`` requests of the window's stream, what a run keeps of them for the
+check (all of the first, a sample drawn from the seed of the rest), then
+the traffic's check (``Driver.check`` in ``portbench/drivers/``) with the
+control's outputs.  A driver with ``CONTROL_ON_SERVED`` has the program
+serve those requests first: its control is read on the prompts and
+tokens the program served.  Prints one JSON line a seed: the numbers
+compared, their limits and whether the control failed them.  The
+benchmark's own runs never run it.
 
-The control of a decode (``portbench/reference/oracles.py``): each gap
+The controls (``portbench/reference/``): of a Group-PFD decode, each gap
 cut to the bit width 90 % of its frame of 128 fits (a frame of reference
-with its exceptions left out), which breaks losslessness.
+with its exceptions left out); of a stream decode, each gap cut to one
+bit less than its list's widest; both break losslessness.  Of an LM
+decode, the reference with its weights rounded to float8_e4m3fn, a
+precision below the configuration's bfloat16, on the served tokens.
 """
 
 from __future__ import annotations
@@ -31,19 +37,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def control(cell, seed: int, n_requests: int, device) -> dict:
     """The control's numbers for one seed, and whether they fail."""
-    from portbench import corpus as corpus_lib
-    from portbench import generator
-    corpus = corpus_lib.make_corpus(cell.config, seed)
-    stream = generator.requests(seed, generator.WINDOW, cell.traffic,
-                                cell.config["n_lists"])
+    from portbench import generator, harness
+    corpus = harness.make_corpus(cell, seed)
+    drv = cell.driver.Driver(cell.config, cell.traffic, device,
+                             lambda msg: None, seed)
+    stream = harness.requests(drv, seed, generator.WINDOW, cell)
     sample = generator.rng(seed, generator.SAMPLE)
     share = cell.traffic.get("check_share", 1.0)
-    drv = cell.driver.Driver(cell.config, cell.traffic, device,
-                             lambda msg: None)
+    served = getattr(cell.driver, "CONTROL_ON_SERVED", False)
+    if served:
+        drv.setup(corpus)
     kept = []
     for i in range(n_requests):
         r = next(stream)
-        kept += drv.keep(r, [None] * len(r), sample, share, whole=i == 0)
+        outs = drv.serve(r) if served else [None] * len(r)
+        kept += drv.keep(r, outs, sample, share, whole=i == 0)
+    if served:
+        drv.teardown()
     numbers = drv.check(corpus, kept, control=True)
     limits = cell.driver.LIMITS
     return {"seed": seed, "numbers": numbers, "limits": limits,

@@ -32,7 +32,8 @@ ATTEMPTED = "lists"
 
 
 class Driver:
-    def __init__(self, config: dict, traffic: dict, device, log):
+    def __init__(self, config: dict, traffic: dict, device, log,
+                 seed: int = None):
         self.config, self.traffic, self.device, self.log = (
             config, traffic, device, log)
 
@@ -92,27 +93,36 @@ class Driver:
 
     # ---- the check ------------------------------------------------------ #
 
+    def expected(self, postings: dict, t: int) -> np.ndarray:
+        """What a decode of list ``t`` must give: its d-gaps."""
+        return oracles.gap_lists(postings, [t])[t]
+
+    def control_output(self, want):
+        """The control's output in the program's place."""
+        return oracles.unpatched_gaps(want)
+
     def check(self, corpus, kept: list, control: bool = False) -> dict:
         """{number: value} of the decoded lists in ``kept`` ((term, output)
-        pairs) held against the corpus's own d-gaps; with ``control`` the
-        control's gaps stand in for the program's outputs."""
+        pairs) held against the corpus (:meth:`expected`); with
+        ``control`` the control's outputs (:meth:`control_output`) stand
+        in for the program's."""
         import torch
         _, postings = corpus
         want = {}
         wrong = checked = lists_wrong = 0
         for t, got in kept:
             if t not in want:
-                g = oracles.gap_lists(postings, [t])[t]
-                want[t] = torch.as_tensor(g.astype(np.int64),
-                                          device=self.device)
+                want[t] = torch.as_tensor(
+                    self.expected(postings, t).astype(np.int64),
+                    device=self.device)
             w = want[t]
             if control:
-                got = oracles.unpatched_gaps(w)
+                got = self.control_output(w)
             checked += w.numel()
             if got is None or got.numel() != w.numel():
                 bad = w.numel()
             else:
-                # the program's int32 words are the gaps' uint32 bits
+                # the program's int32 words are the values' uint32 bits
                 got = got.to(self.device, torch.int64) & 0xFFFFFFFF
                 bad = int((got != w).sum())
             wrong += bad

@@ -10,16 +10,18 @@ Everything that belongs to one cell is found by name:
 * each metric: ``portbench/metrics/<name>.py``, a ``read(rec)`` that gives
   a number, or ``None`` where it finds nothing to read.
 
-A run: the driver's ``prepare``, the corpus from the seed, the driver's
-``setup`` (the program builds what it serves), ``warmup`` requests from
-their own stream, and what set-up left frozen out of the garbage
-collector; then the window, a closed loop of requests until ``seconds``
-have passed.  With ``trace`` the window's first half runs under
-``torch.profiler`` with the program's spans on, and its second half as an
-untraced window does.  Then the program's state is freed and the driver
-holds the kept outputs against the reference.  Beside the metrics, each
-run reports its host's speed (``_HostWatch``), which sets the host-bound
-cells' spread.
+A run: the driver's ``prepare``, the corpus from the seed where the
+configuration names a ``corpus`` (else the driver draws its own inputs
+from the seed it is given), the driver's ``setup`` (the program builds
+what it serves), ``warmup`` requests from their own stream, and what
+set-up left frozen out of the garbage collector; then the window, a
+closed loop of requests until ``seconds`` have passed.  With ``trace``
+the window's first half runs under ``torch.profiler`` with the program's
+spans on, and its second half as an untraced window does (its length
+and totals kept as ``untraced``).  Then the
+program's state is freed and the driver holds the kept outputs against
+the reference.  Beside the metrics, each run reports its host's speed
+(``_HostWatch``), which sets the host-bound cells' spread.
 """
 
 from __future__ import annotations
@@ -125,19 +127,35 @@ def forbidden_modules() -> list:
 # --------------------------------------------------------------------------- #
 
 
+def requests(drv, seed: int, stream: int, cell: Cell):
+    """The request stream ``stream`` of ``seed``: the driver's own where it
+    defines ``requests``, else the generator's over the configuration's
+    ``n_lists`` lists."""
+    if hasattr(drv, "requests"):
+        return drv.requests(seed, stream)
+    return generator.requests(seed, stream, cell.traffic,
+                              cell.config["n_lists"])
+
+
+def make_corpus(cell: Cell, seed: int):
+    """The benchmark's corpus where the configuration names one, else
+    None (the driver makes its own inputs from the seed)."""
+    if "corpus" not in cell.config:
+        return None
+    return corpus_lib.make_corpus(cell.config, seed)
+
+
 class _Window:
     """The closed loop over one request stream: each request timed by the
     host clock, and what the driver ``keep``s of it held for the check
-    (every list of the first request, a sample drawn from the seed of the
-    rest), left where the program put it until the window has closed."""
+    (all of the first request, a sample drawn from the seed of the rest),
+    left where the program put it until the window has closed."""
 
-    def __init__(self, drv, seed: int, traffic: dict, n_lists: int,
-                 unit: str):
-        self.drv, self.unit = drv, unit
-        self.stream = generator.requests(seed, generator.WINDOW, traffic,
-                                         n_lists)
+    def __init__(self, drv, seed: int, cell: Cell):
+        self.drv, self.unit = drv, cell.driver.ATTEMPTED
+        self.stream = requests(drv, seed, generator.WINDOW, cell)
         self.sample = generator.rng(seed, generator.SAMPLE)
-        self.share = traffic.get("check_share", 1.0)
+        self.share = cell.traffic.get("check_share", 1.0)
         self.kept = []
         self.attempted = 0
 
@@ -270,13 +288,15 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     cuda = device.type == "cuda"
     cfg, traffic = cell.config, cell.traffic
-    drv = cell.driver.Driver(cfg, traffic, device, log)
+    drv = cell.driver.Driver(cfg, traffic, device, log, seed)
     drv.prepare()
-    corpus = corpus_lib.make_corpus(cfg, seed)
+    corpus = make_corpus(cell, seed)
     corpus_s = time.perf_counter() - t_start
-    log(f"corpus {cfg['corpus']} at {cfg['n_docs']} docs: {corpus_s:.2f} s")
+    if corpus is not None:
+        log(f"corpus {cfg['corpus']} at {cfg['n_docs']} docs: "
+            f"{corpus_s:.2f} s")
     drv.setup(corpus)
-    warm = generator.requests(seed, generator.WARMUP, traffic, cfg["n_lists"])
+    warm = requests(drv, seed, generator.WARMUP, cell)
     for _ in range(traffic.get("warmup", 1)):
         drv.serve(next(warm))
     # what set-up left (the corpus, the program's host objects) is frozen
@@ -292,14 +312,14 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     log(f"set-up: {setup_s:.2f} s")
 
     watch = _HostWatch()
-    win = _Window(drv, seed, traffic, cfg["n_lists"],
-                  cell.driver.ATTEMPTED)
+    win = _Window(drv, seed, cell)
     rec = {"setup_s": setup_s, "fixed": drv.fixed()}
     gc_pauses = _gc_pauses()
     if trace:
         half = seconds / 2
         rec["profiled"] = _profiled_part(win, half, device)
-        win.run(seconds - half)
+        dur, reqs = win.run(seconds - half)
+        rec["untraced"] = {"window_s": dur, "totals": _totals(reqs)}
     else:
         rec["window_s"], rec["requests"] = win.run(seconds)
         rec["totals"] = _totals(rec["requests"])
@@ -332,7 +352,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if cuda:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    checker = cell.driver.Driver(cfg, traffic, device, log)
+    checker = cell.driver.Driver(cfg, traffic, device, log, seed)
     numbers = checker.check(corpus, kept)
     del kept
     log(f"check: {time.perf_counter() - t0:.2f} s")

@@ -1,7 +1,9 @@
-"""pfd_decode_roofline: the whole-list decode against the HBM roofline:
-each decoded list's encoded bytes read once and 4 B a posting written
+"""pfd_decode_roofline: a whole-list decode against the HBM roofline: each
+decoded list's encoded bytes read once and 4 B a posting written
 (``bytecount.decode_bytes``), at the H100's 3.35 TB/s, over the device's
-busy time in the profiled part (all of it the decode's)."""
+busy time in the profiled part (all of it the decode's).  The driver
+gives the bytes, so one reader serves every codec's decode cell: the
+Group-PFD decoder's and the stream codec's."""
 
 from portbench import bytecount
 

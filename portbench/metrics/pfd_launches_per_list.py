@@ -1,5 +1,6 @@
 """pfd_launches_per_list: kernels the device ran a decoded list in the
-profiled part (copies and memsets not counted)."""
+profiled part (copies and memsets not counted), in any codec's decode
+cell."""
 
 
 def read(rec: dict):

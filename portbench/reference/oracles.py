@@ -9,6 +9,8 @@ is freed.
 * ``gap_lists`` and ``unpatched_gaps``: the d-gaps a decode must give, and
   a lossy control that keeps each gap to the bit width 90 % of its frame
   of 128 fit (a frame of reference with its exceptions left out).
+* ``narrowed_docids``: the control of a stream decode, each gap packed one
+  bit narrower than the list's widest gap needs.
 """
 
 from __future__ import annotations
@@ -40,3 +42,14 @@ def unpatched_gaps(gaps: torch.Tensor, frame: int = 128,
     bits = torch.ceil(torch.log2(q.double() + 1)).long().clamp(min=1)
     cut = frames & ((1 << bits) - 1)[:, None]
     return cut.reshape(-1)[:n]
+
+
+def narrowed_docids(docids: torch.Tensor) -> torch.Tensor:
+    """The control of a stream decode: the docids (int64, ascending) again
+    from their d-gaps cut to one bit less than the widest gap's bit length,
+    the width a list packed at one width a list needs."""
+    gaps = docids.clone()
+    gaps[1:] -= docids[:-1]
+    bw = int(gaps.max()).bit_length()
+    cut = gaps & ((1 << max(bw - 1, 0)) - 1)
+    return torch.cumsum(cut, 0) & 0xFFFFFFFF

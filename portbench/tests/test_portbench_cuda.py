@@ -8,7 +8,7 @@ import torch
 from portbench import control
 from tiny import tiny_cell, tiny_run
 
-CELLS = ("gov2pfd-decode",)
+CELLS = ("gov2pfd-decode", "gov2-stream", "dsv2lite-decode-conv")
 
 
 @pytest.fixture

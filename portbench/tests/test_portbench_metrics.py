@@ -5,7 +5,7 @@ import os
 
 import pytest
 
-from portbench import bytecount, harness, trace_read
+from portbench import bytecount, flops, harness, trace_read
 
 READERS = {os.path.splitext(f)[0]: harness.load_module(
     os.path.join(harness.BENCH, "metrics", f))
@@ -18,15 +18,21 @@ KERNELS = {"unpack_kernel": [40, 1e-3],
 REC = {
     "setup_s": 123.5, "fixed": {"bits_per_posting": 6.5},
     "window_s": 4.0, "peak_bytes": 2**31,
-    "totals": {"lists": 40, "postings": 8_000_000},
+    "totals": {"lists": 40, "postings": 8_000_000, "tokens": 2048,
+               "steps": 64, "model_flops": 3.9576e12},
     "profiled": {"busy_s": 2.0, "window_s": 8.0, "kernels": KERNELS,
-                 "launches": 50, "totals": {"lists": 5, "min_bytes": 3.35e9},
+                 "launches": 50, "totals": {"lists": 5, "min_bytes": 3.35e9,
+                                            "steps": 5},
                  "idle_by_host": {}},
+    # the traced run's untraced half: 0.8 s a step against 0.4 s busy
+    "untraced": {"window_s": 4.0, "totals": {"steps": 5}},
 }
 WANT = {
     "setup_s": 123.5, "bits_per_posting": 6.5, "decode_rate": 2e6,
     "pfd_decode_roofline": 0.05, "pfd_launches_per_list": 10.0,
     "device_idle.decode": 75.0, "peak_gib.decode": 2.0,
+    "lm_tokens_per_s": 512.0, "mfu": 0.1, "lm_launches_per_step": 10.0,
+    "device_idle.lm": 50.0, "peak_gib.lm": 2.0,
 }
 
 
@@ -48,6 +54,24 @@ def test_every_reader_is_tested():
 def test_byte_counts():
     assert bytecount.decode_bytes(100, 10) == 140
     assert bytecount.seconds_at_peak(3.35e12) == 1.0
+
+
+def test_model_flops_by_hand():
+    """flops.py at the smoke sizes against a count made by hand."""
+    from tiny import SMOKE_LM
+    d, h, lora, nope, rope, v = 64, 4, 32, 16, 8, 16
+    attention = d * h * (nope + rope) + d * (lora + rope) \
+        + h * lora * (nope + v) + h * v * d
+    dense = 3 * d * 96
+    moe = d * 8 + 3 * d * 32 * (2 + 2)
+    head = d * 512
+    params = 2 * attention + dense + moe + head
+    for ctx in (1, 65, 4112):
+        want = 2 * params + 2 * 2 * h * ctx * (nope + rope + v)
+        assert flops.mla_moe_token_flops(SMOKE_LM, ctx) == want
+    assert flops.decode_turn_flops(SMOKE_LM, 3, 64, 2) == 3 * (
+        flops.mla_moe_token_flops(SMOKE_LM, 65)
+        + flops.mla_moe_token_flops(SMOKE_LM, 66))
 
 
 def test_busy_and_gaps():

@@ -17,7 +17,7 @@ import torch
 from portbench import control, harness
 from tiny import tiny_cell, tiny_run
 
-CELLS = ("gov2pfd-decode",)
+CELLS = ("gov2pfd-decode", "gov2-stream", "dsv2lite-decode-conv")
 ROOT = harness.ROOT
 
 
@@ -57,12 +57,82 @@ def _break_decoder(monkeypatch, fault):
     monkeypatch.setattr(codec_lib, "get", lambda name: broken(real_get(name)))
 
 
+def _break_stream(monkeypatch, fault):
+    from repro_torch.kernels import ops
+    real, last = ops.unpack_delta_stream, []
+
+    def unpack(packed, bw, n):
+        out = real(packed, bw, n)
+        if fault == "stale":
+            out, last[:] = (last[0] if last else out), [out]
+        elif fault == "half":
+            out = out[:out.numel() // 2]
+        elif fault == "altered":
+            out = out.clone()
+            out[-1] += 1
+        return out
+
+    monkeypatch.setattr(ops, "unpack_delta_stream", unpack)
+
+
+def _break_lm(monkeypatch, fault):
+    """A decode step that gives back its last logits (its state left as it
+    was), that serves half of the batch, or whose logits are altered where
+    they are made: one token raised above every other in each row, so
+    every session is served it."""
+    from repro_torch.models import transformer
+    real, last = transformer.decode_step, []
+
+    def step(model, cache, token, pos):
+        if fault == "half":
+            half = token.shape[0] // 2 or 1
+            out, _ = real(model, {k: v[:, :half] for k, v in cache.items()},
+                          token[:half], pos)
+            return out, cache
+        out, cache = real(model, cache, token, pos)
+        if fault == "stale":
+            out, last[:] = (last[0] if last else out), [out]
+        elif fault == "altered":
+            out = out.clone()
+            out[:, 7] = out.amax(-1) + 1.0
+        return out, cache
+
+    monkeypatch.setattr(transformer, "decode_step", step)
+
+
+BREAK = {"gov2pfd-decode": _break_decoder, "gov2-stream": _break_stream,
+         "dsv2lite-decode-conv": _break_lm}
+
+
 @pytest.mark.parametrize("fault", ["stale", "half", "altered"])
 @pytest.mark.parametrize("name", CELLS)
 def test_broken_program_is_not_correct(monkeypatch, name, fault):
-    _break_decoder(monkeypatch, fault)
+    BREAK[name](monkeypatch, fault)
     out = tiny_run(name)
     assert out["correct"] is False and out["failed"] > 0
+
+
+def test_one_session_served_wrong_is_not_correct(monkeypatch):
+    """One session of the batch served wrong (its logits scaled by 1.5, so
+    its tokens stay the same) moves neither of the rows' pooled quantiles,
+    and its own median fails ``worst_session_err_p50``."""
+    from repro_torch.models import transformer
+    real = transformer.decode_step
+
+    def step(model, cache, token, pos):
+        out, cache = real(model, cache, token, pos)
+        out = out.clone()
+        out[3] *= 1.5
+        return out, cache
+
+    monkeypatch.setattr(transformer, "decode_step", step)
+    out = tiny_run("dsv2lite-decode-conv")
+    checks = out["checks"]
+    assert out["correct"] is False and out["failed"] > 0
+    worst = checks["worst_session_err_p50"]
+    assert worst["value"] > worst["at_most"]
+    for k in ("logit_err_p50", "token_gap_p90"):
+        assert checks[k]["value"] <= checks[k]["at_most"], k
 
 
 def test_a_missing_output_is_wrong():
@@ -72,7 +142,7 @@ def test_a_missing_output_is_wrong():
     from portbench import corpus as corpus_lib
     corp = corpus_lib.make_corpus(cell.config, 7)
     drv = cell.driver.Driver(cell.config, cell.traffic, torch.device("cpu"),
-                             lambda msg: None)
+                             lambda msg: None, 7)
     drv.setup(corp)
     request = [3, 1, 2, 0]
     outs = drv.serve(request)[:2]           # half of the request left out
@@ -81,10 +151,56 @@ def test_a_missing_output_is_wrong():
     assert got["lists_wrong"] == 2 and got["postings_wrong"] > 0
 
 
+# what the decode cell read at PR 28, before the harness took cells without
+# a corpus: the corpus's digest, the window's first three requests', and
+# the control's numbers over four requests (seed: corpus, requests, numbers)
+DECODE_AT_PR28 = {
+    7: ("75e3eae95a7114f3", "d0c158b192b64e8f",
+        {"postings_wrong": 5296, "lists_wrong": 102,
+         "postings_checked": 115385}),
+    2**31 + 5: ("ad33115fc0200d51", "7c0534a174877965",
+                {"postings_wrong": 6464, "lists_wrong": 103,
+                 "postings_checked": 132203}),
+}
+
+
+@pytest.mark.parametrize("seed", sorted(DECODE_AT_PR28))
+def test_the_decode_cell_reads_what_it_read(seed):
+    """The corpus, the window's stream, the sample kept and the check's
+    numbers of ``gov2pfd-decode`` are those of PR 28's harness, on a sound
+    program and on the control."""
+    import hashlib
+    from portbench import generator
+    corpus_h, stream_h, numbers = DECODE_AT_PR28[seed]
+    cell = tiny_cell("gov2pfd-decode")
+    corp = harness.make_corpus(cell, seed)
+    h = hashlib.sha256()
+    for t in sorted(corp[1]):
+        h.update(corp[1][t][0].tobytes())
+        h.update(corp[1][t][1].tobytes())
+    assert h.hexdigest()[:16] == corpus_h
+    drv = cell.driver.Driver(cell.config, cell.traffic, torch.device("cpu"),
+                             lambda msg: None, seed)
+    stream = harness.requests(drv, seed, generator.WINDOW, cell)
+    reqs = [next(stream) for _ in range(4)]
+    assert hashlib.sha256(str(reqs[:3]).encode()).hexdigest()[:16] == (
+        stream_h)
+    assert control.control(cell, seed, 4, torch.device("cpu"))[
+        "numbers"] == numbers
+    drv.setup(corp)
+    sample, kept = generator.rng(seed, generator.SAMPLE), []
+    for i, r in enumerate(reqs):
+        kept += drv.keep(r, drv.serve(r), sample,
+                         cell.traffic["check_share"], whole=i == 0)
+    assert drv.check(corp, kept) == dict(numbers, postings_wrong=0,
+                                         lists_wrong=0)
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_control_is_not_correct(name):
-    """The control (the decode without its exceptions) fails the cell's
-    check on three seeds."""
+    """The control (the decode without its exceptions, or one bit too
+    narrow; the model's weights in float8) fails the cell's check on three
+    seeds."""
     cell = tiny_cell(name)
     for seed in (3, 4, 2**31 + 5):
         got = control.control(cell, seed, 4, torch.device("cpu"))
@@ -162,18 +278,19 @@ def test_sources_import_no_jax():
                     assert "repro_torch" not in got, f
 
 
-def test_a_run_loads_no_jax():
+@pytest.mark.parametrize("name", CELLS)
+def test_a_run_loads_no_jax(name):
     """A whole run in a fresh interpreter leaves no module of JAX, the JAX
     package (``repro``, compared whole) or its benchmarks loaded."""
     code = ("import sys; sys.path[:0] = [%r, %r]\n"
             "sys.path.insert(0, %r)\n"
             "from tiny import tiny_run\n"
             "from portbench import harness\n"
-            "assert tiny_run('gov2pfd-decode')['correct']\n"
+            "assert tiny_run(%r)['correct']\n"
             "tops = {m.split('.')[0] for m in sys.modules}\n"
             "print(sorted(tops & harness.FORBIDDEN), 'repro_torch' in tops)\n"
             % (ROOT, os.path.join(ROOT, "src"),
-               os.path.join(ROOT, "portbench", "tests")))
+               os.path.join(ROOT, "portbench", "tests"), name))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300)
     assert p.returncode == 0, p.stderr[-2000:]
